@@ -495,13 +495,13 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "pallas_fused": ("the fused dispatch kernel (pallas_fused)", 2),
     "pallas_mega": ("the window megakernel (delivery='pallas_mega')", 3),
     "host": ("host cohorts (HOST = True actor types)", 4),
     "spawns": ("device spawns (SPAWNS, ctx.spawn)", 4),
     "sync": ("sync construction (ctx.spawn_sync)", 4),
     "cosort": ("cosort delivery (delivery='cosort')", 5),
-    "tuner": ("the formulation tuner (delivery='auto')", 5),
+    "tuner": ("the formulation tuner (delivery='auto', "
+              "pallas_fused='auto')", 5),
     "blobs": ("the device blob pool and GC (blob_slots, ctx.blob_*)", 6),
     "analysis": ("analysis and causal tracing (analysis > 0)", 7),
     "observability": ("the flight recorder, watchdog, metrics and cost "
@@ -522,9 +522,11 @@ def unported(key: str) -> NotImplementedError:
 def check_supported(opts: RuntimeOptions) -> None:
     """Raise for every option value the port does not serve. `pallas`
     is accepted in every spelling: on CUDA the mailbox drain always
-    runs as the hand-written kernel, on the CPU as its plain version."""
-    if opts.pallas_fused is not False:
-        raise unported("pallas_fused")
+    runs as the hand-written kernel, on the CPU as its plain version.
+    `pallas_fused=True` runs the fused dispatch kernel on CUDA (its
+    plain version on the CPU); "auto" needs the tuner."""
+    if opts.pallas_fused == "auto":
+        raise unported("tuner")
     if opts.delivery != "plan":
         raise unported({"pallas_mega": "pallas_mega", "cosort": "cosort",
                         "auto": "tuner"}[opts.delivery])

@@ -1,0 +1,255 @@
+"""The fused dispatch: drain + behaviour + outbox of one cohort in one
+kernel (the counterpart of ``ponyc_tpu/ops/fused_dispatch.py``).
+
+≙ the whole of ponyint_actor_run's hot loop (src/libponyrt/actor/
+actor.c:383-549) for one cohort: message pop, dispatch into the
+behaviour body, and the send path's message construction. The JAX
+package runs it as a Pallas TPU kernel over lane blocks that evaluates
+every behaviour and selects by message id; here it is the hand-written
+CUDA kernel ``csrc/fused_dispatch.cu``, one thread per actor, which runs
+only the behaviour its message names. The behaviour bodies reach the
+kernel as lane programs (``ops/lanecode.py``): each body is recorded once
+at the ATen level and emitted as a C++ function into a per-cohort header
+the template includes.
+
+`build_fused_dispatch(cohort, opts)` traces and emits at once, so a body
+the kernel cannot run raises NotImplementedError when the runtime starts
+(on the CPU as on the card); `compile_all` builds the libraries with nvcc
+(Runtime.start does, on the card). The
+returned function takes (fields, buf, head, n_run, ids) and returns what
+the plain loop (`fused_dispatch_plain`, the engine's own loop) returns.
+It chooses by where its tensors lie and by nothing else: CUDA tensors
+launch the kernel (or raise), CPU tensors take the plain version.
+`FusedDispatch.launches` counts kernel launches and nothing else.
+
+Eligibility mirrors the JAX package's `eligible`: a cohort with at least
+one behaviour. Sync construction, blobs and device spawns are not served
+by the port yet and are refused before this point.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+from typing import List
+
+import numpy as np
+import torch
+
+from . import _build, lanecode, pack
+
+
+def eligible(cohort) -> bool:
+    """The fused kernel serves every cohort that has a behaviour."""
+    return len(cohort.behaviours) >= 1
+
+
+def fused_dispatch_plain(cohort, opts):
+    """The plain version: the engine's per-cohort drain loop
+    (engine._plain_dispatch), with the same signature and results."""
+    from ..runtime.engine import _plain_dispatch
+    return _plain_dispatch(cohort, opts)
+
+
+class FusedDispatch:
+    """One cohort's fused dispatch (see the module docstring)."""
+
+    launches = 0          # kernel launches, all cohorts
+
+    def __init__(self, cohort, opts):
+        from ..runtime.engine import _dtype_of
+        self.cohort = cohort
+        self.name = cohort.atype.__name__
+        specs = cohort.atype.field_specs
+        self.field_names: List[str] = list(specs)
+        self.field_dtypes = {f: _dtype_of(s) for f, s in specs.items()}
+        self.batch = cohort.batch
+        self.ms = cohort.max_sends
+        self.rows = cohort.local_capacity
+        self.w1 = 1 + opts.msg_words
+        self.w1_in = 1 + cohort.msg_words
+        self.cap = opts.mailbox_cap
+        self.noyield = bool(opts.noyield)
+        behaviours = list(cohort.behaviours)
+        self.base = behaviours[0].global_id
+        self.progs = [lanecode.trace_behaviour(
+            b, field_specs=specs, msg_words=opts.msg_words,
+            msg_words_in=cohort.msg_words, max_sends=self.ms)
+            for b in behaviours]
+        self.destroy = any(p.destroy_called for p in self.progs)
+        self.error = any(p.error_called for p in self.progs)
+        self.entry = "pony_fused_" + re.sub(r"\W", "_", self.name)
+        self.header = self.source("cuda")      # refusals surface here
+        self.plain = fused_dispatch_plain(cohort, opts)
+        self._fn = None
+
+    def source(self, target: str = "cuda") -> str:
+        """The generated header for `target` ("cuda" or "host")."""
+        return lanecode.emit_cohort(
+            self.progs, field_names=self.field_names,
+            field_dtypes=self.field_dtypes, base=self.base,
+            batch=self.batch, cap=self.cap, ms=self.ms, w1=self.w1,
+            w1_in=self.w1_in, noyield=self.noyield, destroy=self.destroy,
+            error=self.error, entry=self.entry, target=target)
+
+    def job(self, host: bool = False) -> _build.Job:
+        return _build.Job("fused_dispatch",
+                          header=self.source("host") if host else self.header,
+                          tag=self.entry, host=host)
+
+    def bind(self, lib: ctypes.CDLL):
+        fn = getattr(lib, self.entry)
+        nf = len(self.field_names)
+        fn.argtypes = ([ctypes.c_void_p] * (4 + 2 * nf + 8)
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        return fn
+
+    def __call__(self, fields, buf, head, n_run, ids):
+        if buf.device.type == "cuda":
+            if self._fn is None:
+                compile_all([self])
+            return self._launch(self._fn, fields, buf, head, n_run, ids)
+        if buf.device.type != "cpu":
+            raise ValueError(f"fused dispatch: unsupported device "
+                             f"{buf.device}")
+        return self.plain(fields, buf, head, n_run, ids)
+
+    def run_host(self, fields, buf, head, n_run, ids):
+        """The kernel's source built for the host CPU and run on CPU
+        tensors (the lanes in order). For tests: it holds the generated
+        bodies against the plain version where there is no card."""
+        fn = self.bind(_build.build([self.job(host=True)])[0])
+        return self._launch(fn, fields, buf, head, n_run, ids, host=True)
+
+    def sample_inputs(self, seed: int, device="cpu", steady=False):
+        """A seeded input (fields, buf, head, n_run, ids) for holding the
+        kernel against its plain version: every behaviour id plus ids
+        just out of range, argument words typed by the behaviour each
+        message names (finite floats for F32 words, small ints else),
+        heads next to the int32 wrap, and any n_run up to `batch`.
+        `steady`: every lane has `batch` messages, all with valid ids
+        (a busy main path)."""
+        rng = np.random.default_rng(seed)
+        rows, nb = self.rows, len(self.progs)
+        fields = {}
+        for f in self.field_names:
+            if self.field_dtypes[f] == torch.float32:
+                fields[f] = rng.standard_normal(rows).astype(np.float32)
+            else:
+                fields[f] = rng.integers(-40, 41, rows).astype(np.int32)
+        local = rng.integers(0, nb, (self.cap, rows)) if steady else \
+            rng.integers(-1, nb + 1, (self.cap, rows))
+        buf = rng.integers(-40, 41, (self.cap, self.w1_in, rows)).astype(
+            np.int32)
+        buf[:, 0, :] = self.base + local
+        floats = rng.uniform(-4, 4, buf.shape).astype(np.float32).view(
+            np.int32)
+        for j, bdef in enumerate(self.cohort.behaviours):
+            off = 1
+            for spec in bdef.arg_specs:
+                width = pack.spec_width(spec)
+                base = getattr(spec, "base", spec)
+                if base is pack.F32:
+                    sel = local == j
+                    for w in range(off, off + width):
+                        buf[:, w, :][sel] = floats[:, w, :][sel]
+                off += width
+        head = rng.integers(-2**31, 2**31, rows, dtype=np.int64)
+        q = rows // 4
+        head[:q] = 2**31 - 1 - rng.integers(0, 2 * self.batch + 1, q)
+        head = head.astype(np.int64).astype(np.int32)
+        n_run = (np.full(rows, self.batch, np.int32) if steady else
+                 rng.integers(0, self.batch + 1, rows).astype(np.int32))
+        ids = (self.cohort.local_start + np.arange(rows)).astype(np.int32)
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return ({f: dev(v) for f, v in fields.items()}, dev(buf),
+                dev(head), dev(n_run), dev(ids))
+
+    def _check(self, fields, buf, head, n_run, ids):
+        rows = self.rows
+        want = [(buf, torch.int32, (self.cap, self.w1_in, rows)),
+                (head, torch.int32, (rows,)), (n_run, torch.int32, (rows,)),
+                (ids, torch.int32, (rows,))]
+        want += [(fields[f], self.field_dtypes[f], (rows,))
+                 for f in self.field_names]
+        for t, dt, shape in want:
+            if t.dtype != dt or tuple(t.shape) != shape:
+                raise ValueError(
+                    f"fused dispatch {self.name}: got {t.dtype} "
+                    f"{tuple(t.shape)}, expected {dt} {shape}")
+            if not t.is_contiguous():
+                raise ValueError(f"fused dispatch {self.name} takes "
+                                 "contiguous tensors")
+            if t.device != buf.device:
+                raise ValueError("fused dispatch tensors must share one "
+                                 "device")
+
+    def _launch(self, fn, fields, buf, head, n_run, ids, host=False):
+        from ..runtime.delivery import Entries
+        self._check(fields, buf, head, n_run, ids)
+        dev = buf.device
+        rows = self.rows
+        e = self.batch * self.ms * rows
+        i32 = torch.int32
+
+        def empty(shape, dtype=i32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+
+        out_fields = {f: torch.empty_like(fields[f])
+                      for f in self.field_names}
+        out_tgt, out_words = empty((e,)), empty((self.w1, e))
+        new_head = torch.empty_like(head)
+        ds = empty((rows,), torch.uint8) if self.destroy else None
+        erf = empty((rows,), torch.uint8) if self.error else None
+        erc = empty((rows,)) if self.error else None
+        erl = empty((rows,)) if self.error else None
+        red = empty((8,))
+
+        def ptr(t):
+            return None if t is None or t.numel() == 0 else t.data_ptr()
+
+        args = ([ptr(buf), ptr(head), ptr(n_run), ptr(ids)]
+                + [ptr(fields[f]) for f in self.field_names]
+                + [ptr(out_fields[f]) for f in self.field_names]
+                + [ptr(out_tgt), ptr(out_words), ptr(new_head), ptr(ds),
+                   ptr(erf), ptr(erc), ptr(erl), ptr(red), rows])
+        if host:
+            err = fn(*args, None)
+        else:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"fused dispatch kernel {self.name} launch "
+                               f"failed: CUDA error {err}")
+        if not host:
+            FusedDispatch.launches += 1
+        out = Entries(tgt=out_tgt, sender=ids.repeat(self.batch * self.ms),
+                      words=out_words)
+        any_exit = red.view(torch.uint8)[12].view(torch.bool)
+        return (out_fields, out, new_head, any_exit, red[2], red[0],
+                red[1], None if ds is None else ds.view(torch.bool),
+                None if erf is None else (erf.view(torch.bool), erc, erl))
+
+
+def build_fused_dispatch(cohort, opts) -> FusedDispatch:
+    """The fused dispatch of one eligible cohort: fn(fields, buf, head,
+    n_run, ids) with the plain loop's results. Traces and emits every
+    behaviour now (raising NotImplementedError for a body the kernel
+    cannot run); the kernel itself builds at `compile_all` or first
+    use."""
+    if not eligible(cohort):
+        raise ValueError(f"cohort {cohort.atype.__name__} has no "
+                         "behaviour to fuse")
+    return FusedDispatch(cohort, opts)
+
+
+def compile_all(fds: List[FusedDispatch], log=None) -> None:
+    """Build every cohort's kernel at once (one nvcc each) and bind it."""
+    todo = [fd for fd in fds if fd._fn is None]
+    libs = _build.build([fd.job() for fd in todo], log)
+    for fd, lib in zip(todo, libs):
+        fd._fn = fd.bind(lib)

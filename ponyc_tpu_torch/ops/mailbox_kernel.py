@@ -55,6 +55,19 @@ def _check(buf, head, n_run, batch):
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_KERNEL = []          # the bound launch function, once loaded
+
+
+def _kernel():
+    """The drain's launch function, built and bound on first use (each
+    later call costs nothing on the host)."""
+    if not _KERNEL:
+        from . import _build
+        fn = _build.load("drain").pony_drain_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _KERNEL.append(fn)
+    return _KERNEL[0]
 
 
 def _launch(buf, head, n_run, batch):
@@ -68,10 +81,7 @@ def _launch(buf, head, n_run, batch):
     valid = torch.empty((batch, n), dtype=torch.uint8, device=buf.device)
     if n == 0 or batch == 0:
         return msgs, valid.view(torch.bool)   # nothing to launch or count
-    from . import _build
-    fn = _build.load("drain").pony_drain_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _kernel()
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream(buf.device).cuda_stream
         err = fn(buf.data_ptr(), head.data_ptr(), n_run.data_ptr(),

@@ -11,7 +11,9 @@ actor. The whole world advances in lockstep:
   2. per device cohort, drain ≤batch messages per actor
      (ops/mailbox_kernel.py: the CUDA kernel on the card) and evaluate
      every behaviour of the type on all lanes, selecting per lane by
-     message id (what a vmapped switch executes);
+     message id (what a vmapped switch executes); under `pallas_fused`
+     one kernel a cohort does the drain, the dispatch and the outbox
+     (ops/fused_dispatch.py);
   3. deliver spill, injections and the produced messages (delivery.py);
   4. apply destroys and errors, then mute bookkeeping, and vote the
      small aux scalars the host reads.
@@ -36,7 +38,7 @@ import torch
 
 from ..api import Context
 from ..config import RuntimeOptions, check_supported, unported
-from ..ops import pack
+from ..ops import fused_dispatch, pack
 from ..ops.mailbox_kernel import drain_msgs
 from ..ops.segment import counts_by_key
 from ..program import Cohort, Program
@@ -222,12 +224,16 @@ def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
     return ctx, st2, tgts, words
 
 
-def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions):
+def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
     """Build the planar per-cohort drain loop (≙ ponyint_actor_run,
     actor.c:383-549): pop ≤batch messages per actor, dispatch each,
     honour yield (fork: actor.c:675-679), count consumption — for every
     actor of the cohort at once. The reference's `lax.scan` over batch
-    slots is a Python loop over the static batch here."""
+    slots is a Python loop over the static batch here. Returns
+    dispatch(fields, buf, head, n_run, ids) → (fields, outbox Entries,
+    new head, any exit, exit code, nproc, nbad, destroy plane or None,
+    error planes or None); ops/fused_dispatch.py computes the same in one
+    kernel, and uses this as its plain version."""
     msg_words = opts.msg_words          # outbox width (program-wide max)
     ms = cohort.max_sends
     batch = cohort.batch
@@ -240,12 +246,10 @@ def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions):
     base = behaviours[0].global_id if nb else 0
     noyield = opts.noyield
 
-    def run_cohort(ts_rows, buf_rows, head_rows, occ_rows, runnable_rows,
-                   ids):
+    def dispatch(ts_rows, buf_rows, head_rows, n_run, ids):
         dev = ids.device
         i32, b = torch.int32, torch.bool
         e = rows * batch * ms
-        n_run = torch.where(runnable_rows, occ_rows.clamp(max=batch), 0)
         msgs, valids = drain_msgs(buf_rows, head_rows, n_run, batch)
 
         def z(dtype):
@@ -358,7 +362,26 @@ def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions):
                 dstr if effects["destroy"] else None,
                 (errf, errc, errl) if effects["error"] else None)
 
-    return run_cohort
+    return dispatch
+
+
+def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions):
+    """The cohort's tick: the runnable actors' message counts, then the
+    fused dispatch kernel (`pallas_fused`, ops/fused_dispatch.py) or the
+    plain drain loop. Returns (run_cohort, the FusedDispatch or None)."""
+    batch = cohort.batch
+    fused = None
+    if opts.pallas_fused and fused_dispatch.eligible(cohort):
+        fused = dispatch = fused_dispatch.build_fused_dispatch(cohort, opts)
+    else:
+        dispatch = _plain_dispatch(cohort, opts)
+
+    def run_cohort(ts_rows, buf_rows, head_rows, occ_rows, runnable_rows,
+                   ids):
+        n_run = torch.where(runnable_rows, occ_rows.clamp(max=batch), 0)
+        return dispatch(ts_rows, buf_rows, head_rows, n_run, ids)
+
+    return run_cohort, fused
 
 
 def build_step(program: Program, opts: RuntimeOptions):
@@ -378,7 +401,12 @@ def build_step(program: Program, opts: RuntimeOptions):
     fh = program.first_host_row
     s_cap = opts.spill_cap
     dev_cohorts = program.device_cohorts
-    dispatchers = [(_cohort_dispatch(ch, opts), ch) for ch in dev_cohorts]
+    dispatchers, fused = [], []
+    for ch in dev_cohorts:
+        run_cohort, fd = _cohort_dispatch(ch, opts)
+        dispatchers.append((run_cohort, ch))
+        if fd is not None:
+            fused.append(fd)
     # Delivery priority levels: 0 = receiver spill, 1 = host inject,
     # 2+k = sender cohort with the k-th highest PRIORITY.
     pri_sorted = sorted({ch.priority for ch in dev_cohorts}, reverse=True)
@@ -633,6 +661,7 @@ def build_step(program: Program, opts: RuntimeOptions):
             n_deadletter=zero, n_mutes=zero, qw_p99=zero)
         return st2, aux
 
+    step.fused = fused      # the cohorts' fused kernels, built at start()
     return step
 
 
@@ -745,4 +774,5 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
         return st, aux, ticks
 
     multi.enqueued = 0
+    multi.fused = step.fused
     return multi

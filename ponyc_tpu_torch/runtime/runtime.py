@@ -32,7 +32,7 @@ import torch
 from ..api import ActorTypeMeta, BehaviourDef
 from ..config import RuntimeOptions, check_supported, unported
 from ..errors import ERROR_CODES
-from ..ops import pack
+from ..ops import fused_dispatch, pack
 from ..program import Program
 from . import engine
 from .controller import WindowController
@@ -163,9 +163,13 @@ class Runtime:
             raise unported("observability")
         self.program.finalize()
         # Building the window validates the program first (host cohorts,
-        # device spawns and meshes raise before anything is allocated).
+        # device spawns and meshes raise before anything is allocated;
+        # under pallas_fused every body is traced for the fused kernel,
+        # and one the kernel cannot run raises here).
         self._multi_g = engine.build_multi_step_gated(self.program,
                                                       self.opts)
+        if self.device.type == "cuda" and self._multi_g.fused:
+            fused_dispatch.compile_all(self._multi_g.fused)
         self.state = init_state(self.program, self.opts, self.device)
         from .. import tuning
         qi = self.opts.quiesce_interval

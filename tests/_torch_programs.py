@@ -142,9 +142,111 @@ def define(pkg):
             self.exit(a, when=b == 45)
             return {**st, "acc": st["acc"] * 2 + b}
 
+    # The fused-kernel corpus of tests/test_fused_dispatch.py: yield
+    # mid-batch, exit codes, destroy, int-coded errors, and a cohort of
+    # three behaviours where only one sends.
+    @pkg.actor
+    class Yielder:
+        n: I32
+
+        BATCH = 4
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def tick(self, st, v: I32):
+            self.yield_(when=st["n"] % 2 == 0)
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class Exiter:
+        n: I32
+
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def go(self, st, code: I32):
+            self.exit(code, when=code > 0)
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class Ephemeral:
+        n: I32
+
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def die(self, st, v: I32):
+            self.destroy(when=v > 0)
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class Errs:
+        n: I32
+
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.error_int(v, when=v > 0)
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class TriF:
+        acc: I32
+        count: I32
+        buddy: Ref["TriF"]
+
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def add(self, st, v: I32):
+            self.send(st["buddy"], TriF.ping, when=v % 2 == 1)
+            return {**st, "acc": st["acc"] + v, "count": st["count"] + 1}
+
+        @pkg.behaviour
+        def scale(self, st, v: I32):
+            return {**st, "acc": st["acc"] * 2 + v,
+                    "count": st["count"] + 1}
+
+        @pkg.behaviour
+        def ping(self, st):
+            return {**st, "count": st["count"] + 1}
+
+    @pkg.actor
+    class Arith:
+        """Operators whose torch semantics a plain C expression does not
+        give: floor division, the remainder's sign, shifts by the width
+        or more, wrapping products, integer powers, a float divided by a
+        Python scalar, pow's special exponents."""
+        a: I32
+        b: I32
+        f: pkg.F32
+        g: pkg.F32
+
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def ints(self, st, x: I32, y: I32):
+            d = y | 1                       # odd, so never zero
+            s = y & 63                      # shifts past the width too
+            self.send(self.actor_id, Arith.floats, x * 3, when=(x ^ y) > 0)
+            return {**st, "a": x // d + (x % d) * 1000 + (x << s),
+                    "b": ((x >> s) + x * 1000003 * 4099 + (-x) + abs(y)
+                          + x ** 2 + (~x))}
+
+        @pkg.behaviour
+        def floats(self, st, h: pkg.F32):
+            f = st["f"]
+            return {**st,
+                    "f": (f / 3.0 + 1.0 / (h * h + 1.0) + abs(f) ** 0.5
+                          + f ** 2 + f ** 3),
+                    "g": st["g"] * 0.5 - h / (f * f + 0.25) + (h > f) * 1.0}
+
     return types.SimpleNamespace(
         Pinger=Pinger, RingNode=RingNode, Walker=Walker,
-        Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer)
+        Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer,
+        Yielder=Yielder, Exiter=Exiter, Ephemeral=Ephemeral, Errs=Errs,
+        TriF=TriF, Arith=Arith)
 
 
 def new_runtime(pkg, opts_kw, device="cpu"):
@@ -211,11 +313,11 @@ def build_fifo(pkg, T, seed, n_cons=6, items=40, **okw):
     return rt
 
 
-def build_mixers(pkg, T, seed, n=48, n_seeds=24, **okw):
+def build_mixers(pkg, T, seed, n=48, n_seeds=24, device="cpu", **okw):
     """A Mixer world with random wiring and seeds (every effect plane)."""
     rng = np.random.default_rng(seed)
     nxt = rng.integers(0, n, n)
-    rt = new_runtime(pkg, {"msg_words": 2, **okw})
+    rt = new_runtime(pkg, {"msg_words": 2, **okw}, device)
     rt.declare(T.Mixer, n)
     rt.start()
     ids = rt.spawn_many(T.Mixer, n)
@@ -235,3 +337,77 @@ def counters(rt):
     return {name: rt.counter(name) for name in (
         "n_processed", "n_delivered", "n_rejected", "n_badmsg",
         "n_deadletter", "n_mutes", "n_destroyed", "n_errors")}
+
+
+def _host(x):
+    """A device array of either package as numpy."""
+    if hasattr(x, "detach"):                  # torch
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+_BASE = dict(mailbox_cap=8, msg_words=1, spill_cap=64, inject_slots=32)
+# The fused-kernel corpus worlds: actor types and options of each.
+CORPUS_WORLDS = {
+    "yield_exit": (("Yielder", "Exiter"), dict(_BASE, batch=4, max_sends=0)),
+    "trif": (("TriF",), dict(_BASE, batch=4, max_sends=1)),
+    "destroy": (("Ephemeral",), dict(_BASE, batch=2, max_sends=0)),
+    "errors": (("Errs",), dict(_BASE, batch=2, max_sends=0)),
+}
+CORPUS = tuple(CORPUS_WORLDS)
+
+
+def run_corpus(pkg, T, name, device="cpu", **okw):
+    """Run one world of the fused-kernel corpus (the programs of
+    tests/test_fused_dispatch.py) and return the numbers the packages,
+    or the card and the CPU, must agree on: exit codes, counters, ticks,
+    every field, liveness and last error codes."""
+    rt = new_runtime(pkg, {**CORPUS_WORLDS[name][1], **okw}, device)
+    codes = []
+    if name == "yield_exit":
+        rt.declare(T.Yielder, 2).declare(T.Exiter, 1)
+        rt.start()
+        y = rt.spawn_many(T.Yielder, 1)[0]
+        for _ in range(6):
+            rt.send(int(y), T.Yielder.tick, 1)
+        codes.append(rt.run())
+        ex = rt.spawn_many(T.Exiter, 1)[0]
+        rt.send(int(ex), T.Exiter.go, 7)
+        codes.append(rt.run())
+        types = (T.Yielder, T.Exiter)
+    elif name == "trif":
+        rt.declare(T.TriF, 3)
+        rt.start()
+        ids = rt.spawn_many(T.TriF, 3)
+        rt.set_fields(T.TriF, ids, buddy=np.roll(ids, -1))
+        seq = [(0, T.TriF.add, (5,)), (1, T.TriF.scale, (3,)),
+               (0, T.TriF.ping, ()), (2, T.TriF.add, (7,)),
+               (1, T.TriF.add, (2,)), (0, T.TriF.scale, (1,)),
+               (2, T.TriF.ping, ()), (1, T.TriF.ping, ())]
+        for i, b, args in seq:
+            rt.send(int(ids[i]), b, *args)
+        codes.append(rt.run())
+        types = (T.TriF,)
+    elif name == "destroy":
+        rt.declare(T.Ephemeral, 4)
+        rt.start()
+        for i in rt.spawn_many(T.Ephemeral, 4):
+            rt.send(int(i), T.Ephemeral.die, 1 if int(i) % 2 == 0 else 0)
+        codes.append(rt.run())
+        types = (T.Ephemeral,)
+    elif name == "errors":
+        rt.declare(T.Errs, 2)
+        rt.start()
+        a, b = rt.spawn_many(T.Errs, 2)
+        rt.send(int(a), T.Errs.go, 41)
+        rt.send(int(a), T.Errs.go, 42)     # the latest error wins
+        rt.send(int(b), T.Errs.go, 0)      # no error
+        codes.append(rt.run())
+        types = (T.Errs,)
+    return {"codes": codes, "counters": counters(rt),
+            "steps": rt.steps_run,
+            "fields": {t.__name__: {f: v.tolist() for f, v in
+                                    rt.cohort_state(t).items()}
+                       for t in types},
+            "alive": _host(rt.state.alive).tolist(),
+            "last_error": _host(rt.state.last_error).tolist()}

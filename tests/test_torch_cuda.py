@@ -1,12 +1,14 @@
 """Tests of the PyTorch port that need the card: the hand-written CUDA
-kernels against their plain versions, and worlds run on the card against
-the same worlds on the CPU. Every test carries the `cuda` marker and
+kernels (the drain and the fused dispatch) against their plain versions,
+and worlds run on the card against the same worlds on the CPU, with the
+fused dispatch off and on. Every test carries the `cuda` marker and
 skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-All compared values are int32/bool: the tolerance is exact equality.
+All compared values are int32/bool, or float32 compared as bits: the
+tolerance is exact equality.
 """
 
 import numpy as np
@@ -14,9 +16,14 @@ import pytest
 import torch
 
 import ponyc_tpu_torch
+from ponyc_tpu_torch import RuntimeOptions
+from ponyc_tpu_torch.models import mixed, nbody
+from ponyc_tpu_torch.ops import fused_dispatch as fdm
 from ponyc_tpu_torch.ops import mailbox_kernel as mk
+from ponyc_tpu_torch.program import Program
 
-from _torch_programs import build_walkers, counters, define
+from _torch_programs import (CORPUS, build_walkers, counters, define,
+                             run_corpus)
 
 TT = define(ponyc_tpu_torch)
 
@@ -98,3 +105,71 @@ def test_card_matches_cpu():
         a, b = card.cohort_state(t), cpu.cohort_state(t)
         for f in a:
             np.testing.assert_array_equal(a[f], b[f])
+
+
+FUSED = [  # (actor types, options, lanes): the main shapes, then edges
+    ((TT.Pinger,), dict(mailbox_cap=4, batch=4, max_sends=1, msg_words=1),
+     1 << 20),
+    ((mixed.make_worker_type(8, work=64),),
+     dict(mailbox_cap=4, batch=1, max_sends=1, msg_words=1), 1 << 16),
+    ((nbody.Body,), dict(mailbox_cap=16, batch=4, max_sends=1,
+                         msg_words=4), 1024),
+    ((TT.Mixer, TT.TriF, TT.Yielder, TT.Exiter, TT.Ephemeral, TT.Errs,
+      TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2, msg_words=2),
+     257),
+    ((TT.Mixer, TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2,
+                                msg_words=2), 1),
+]
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _flat(x):
+    if isinstance(x, dict):
+        for k in sorted(x):
+            yield from _flat(x[k])
+    elif isinstance(x, tuple):
+        for v in x:
+            yield from _flat(v)
+    else:
+        yield x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("types,okw,lanes", FUSED,
+                         ids=["ubench", "mixed", "nbody", "corpus", "one"])
+def test_fused_kernel_matches_plain(types, okw, lanes):
+    _need_cuda()
+    opts = RuntimeOptions(tuning_cache="off", pallas_fused=True, **okw)
+    prog = Program(opts)
+    for t in types:
+        prog.declare(t, lanes)
+    prog.finalize()
+    for t in types:
+        fd = fdm.build_fused_dispatch(prog.by_type[t], opts)
+        inputs = fd.sample_inputs(seed=lanes % 97, device="cuda")
+        before = fdm.FusedDispatch.launches
+        got = fd(*inputs)
+        torch.cuda.synchronize()
+        assert fdm.FusedDispatch.launches == before + 1
+        want = fd.plain(*inputs)
+        for x, y in zip(_flat(got), _flat(want)):
+            if y is None:
+                assert x is None
+                continue
+            assert x.dtype == y.dtype and x.shape == y.shape
+            assert torch.equal(_bits(x), _bits(y)), t.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CORPUS)
+def test_fused_card_matches_cpu(name):
+    _need_cuda()
+    before = fdm.FusedDispatch.launches
+    card = run_corpus(ponyc_tpu_torch, TT, name, device="cuda",
+                      pallas_fused=True)
+    assert fdm.FusedDispatch.launches > before
+    assert card == run_corpus(ponyc_tpu_torch, TT, name, device="cpu",
+                              pallas_fused=True)

@@ -54,7 +54,7 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(pallas_fused=True), 2), (dict(pallas_fused="auto"), 2),
+    (dict(pallas_fused="auto"), 5),
     (dict(delivery="pallas_mega"), 3), (dict(delivery="cosort"), 5),
     (dict(delivery="auto"), 5), (dict(mesh_shards=2), 9),
     (dict(analysis=1), 7), (dict(blob_slots=4, blob_words=2), 6),
