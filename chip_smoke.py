@@ -2,13 +2,16 @@
 
     python3 chip_smoke.py [--only PHASE,PHASE,...]
 
-Phases, each of which must pass (the exit code is non-zero otherwise):
+Phases, each of which must pass (the exit code is non-zero otherwise).
+Three paths run: the plain tick (drain kernel), the fused dispatch kernel
+(pallas_fused) and the window kernel (delivery="pallas_mega").
 
   1. build    — compile every CUDA kernel the run uses from csrc/ (the
-                drain, and the fused dispatch kernel of every cohort
-                below, one nvcc each, all started together) and load
-                them; prints each build's time and ptxas's registers and
-                spills;
+                drain, the fused dispatch kernel of every cohort and the
+                window kernel of every program below, one nvcc each, all
+                started together) and load them; prints each build's
+                time, ptxas's registers and spills, and each window
+                kernel's occupancy and cooperative grid;
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at the shapes the main paths give it and at edge
                 shapes: the drain bit for bit; the fused kernel on a
@@ -23,29 +26,38 @@ Phases, each of which must pass (the exit code is non-zero otherwise):
                 (CUDA events, the host's enqueue included), beside the
                 least time the card could take (its bound, from this
                 run's data);
+     kernels-mega — the window kernel against the plain window, every
+                state leaf, aux value and ticks_run bit for bit: the
+                four main paths at full width (ubench with and without
+                escaped payloads), two 16-tick windows each, the gated-
+                out window and the forced spelling; and every window of
+                Runtime.run() on the agree phase's worlds with heads and
+                tails moved next to 2**31-1. Device and wall time a
+                window, the plain window's, one CUDA-graph replay of the
+                plain forced window (a yardstick) and the bound;
   3. agree    — small worlds run on the card and on the CPU give equal
-                fields and counters, with the fused kernel off and on
-                (the CPU path is the one the test suite holds against
-                the JAX package);
+                fields and counters on all three paths (the CPU path is
+                the one the test suite holds against the JAX package);
   4. ubench   — message-ubench through Runtime at 2**20 pingers,
                 pings=4 (bench.py's defaults): three timed windows of a
-                fixed number of ticks after warm-up, with the drain
-                kernel and then with the fused kernel (pallas_fused);
-                every pinger processes `pings` messages a tick and the
-                path's kernel launches once a tick;
+                fixed number of ticks after warm-up, on each path; every
+                pinger processes `pings` messages a tick and the path's
+                kernel launches once a tick (once a window for the
+                window kernel);
   5. ring     — the token ring, 1024 nodes, 4096 hops, through
-                Runtime.run(), plain then fused: the pass count, the exit
+                Runtime.run(), on each path: the pass count, the exit
                 code, and one launch of the path's kernel per enqueued
                 tick (ticks run plus the ticks enqueued but predicated
-                off on the device); under pallas_fused no drain launch;
+                off on the device), or one window kernel per window;
   6. mixed    — the mixed model at 2**20 workers, 8 behaviours, 64
                 dependent float rounds a body, every tick carrying every
-                behaviour id: 16 ticks fused and 16 plain; the processed
-                count exact and `done`/`acc` equal bit for bit;
-  7. nbody    — one all-pairs round at 1024 bodies with the fused kernel,
-                against the NumPy oracle (`reference_accels`);
+                behaviour id: 16 ticks on each path; the processed count
+                exact and `done`/`acc` equal bit for bit across paths;
+  7. nbody    — one all-pairs round at 1024 bodies with the fused and
+                the window kernel, against the NumPy oracle
+                (`reference_accels`);
   8. profile  — kernels launched a tick and the device's busy share
-                (torch.profiler) for ubench and mixed, fused off and on.
+                (torch.profiler) for ubench and mixed on each path.
 
 Output: the card's name and power limit (nvidia-smi) first, one line per
 phase, one JSON line listing every kernel, and as the last line
@@ -89,12 +101,13 @@ def phase(name):
     return deco
 
 
-def cuda_ms(fn, reps, inputs):
+def cuda_ms(fn, reps, inputs, warm=3):
     """Mean ms per call over `reps` calls, cycling through `inputs`
     (sets whose total exceeds the 50 MB L2, so each call reads its
-    operands from device memory), timed with CUDA events after warm-up."""
+    operands from device memory), timed with CUDA events after `warm`
+    calls."""
     import torch
-    for i in range(3):
+    for i in range(warm):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
@@ -107,15 +120,15 @@ def cuda_ms(fn, reps, inputs):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps, inputs, match=None):
+def device_ms(fn, reps, inputs, match=None, warm=3):
     """Device time per call (ms): the summed time, from torch.profiler, of
     what the calls ran on the card (kernels, memsets), over `reps` calls
-    after warm-up; `match` keeps only kernels whose name contains it.
-    Unlike cuda_ms it leaves out the host's enqueue time, which for a
+    after `warm` calls; `match` keeps only kernels whose name contains
+    it. Unlike cuda_ms it leaves out the host's enqueue time, which for a
     call that launches little can exceed the device's."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprof
-    for i in range(3):
+    for i in range(warm):
         fn(*inputs[i % len(inputs)])
     torch.cuda.synchronize()
     with tprof(activities=[ProfilerActivity.CPU,
@@ -179,18 +192,31 @@ def programs():
     return _CACHE["tp"]
 
 
+def _mode_kw(mode):
+    """Options of a path: False = the plain tick (drain kernel), True =
+    the fused dispatch kernel (pallas_fused), "mega" = the window kernel
+    (delivery="pallas_mega")."""
+    if mode == "mega":
+        return dict(pallas_fused=False, delivery="pallas_mega")
+    return dict(pallas_fused=bool(mode), delivery="plan")
+
+
+def _mode_name(mode):
+    return "pallas_mega" if mode == "mega" else f"pallas_fused={mode}"
+
+
 def ubench_opts(fused, ticks=64):
     from ponyc_tpu_torch import RuntimeOptions
     return RuntimeOptions(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
                           spill_cap=1024, inject_slots=8,
                           quiesce_interval=ticks, tuning_cache="off",
-                          pallas_fused=fused)
+                          **_mode_kw(fused))
 
 
 def ring_opts(fused):
     from ponyc_tpu_torch import RuntimeOptions
     return RuntimeOptions(mailbox_cap=8, batch=1, max_sends=1, msg_words=1,
-                          tuning_cache="off", pallas_fused=fused)
+                          tuning_cache="off", **_mode_kw(fused))
 
 
 def mixed_opts(fused, ticks=16):
@@ -199,7 +225,7 @@ def mixed_opts(fused, ticks=16):
     return RuntimeOptions(mailbox_cap=4, batch=1, max_sends=1, msg_words=1,
                           spill_cap=256, inject_slots=8,
                           quiesce_interval=ticks, tuning_cache="off",
-                          pallas_fused=fused)
+                          **_mode_kw(fused))
 
 
 def nbody_opts(fused):
@@ -207,7 +233,7 @@ def nbody_opts(fused):
     from ponyc_tpu_torch import RuntimeOptions
     return RuntimeOptions(mailbox_cap=16, batch=4, max_sends=1, msg_words=4,
                           spill_cap=1024, tuning_cache="off",
-                          pallas_fused=fused)
+                          **_mode_kw(fused))
 
 
 def corpus_opts():
@@ -285,8 +311,12 @@ def build_kernels():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     logs = []
     t0 = time.perf_counter()
-    _build.build([_build.Job("drain")] + [fd.job() for fd in unique],
-                 log=logs.append)
+    megas = _CACHE["mega"] = mega_windows()
+    mega_unique = list({mw.header: mw for mw in megas.values()}.values())
+    print(f"traced and emitted {len(megas)} programs' window kernels "
+          f"({len(mega_unique)} distinct)", flush=True)
+    _build.build([_build.Job("drain")] + [fd.job() for fd in unique]
+                 + [mw.job() for mw in mega_unique], log=logs.append)
     for text in logs:
         head, _, body = text.partition("\n")
         print(head, flush=True)
@@ -294,17 +324,48 @@ def build_kernels():
             if re.search(r"registers|spill", line):
                 print("   ", line.strip(), flush=True)
     fdm.compile_all(every)
-    print(f"built drain + {len(unique)} fused kernels in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc "
+    for label, mw in megas.items():
+        mw.build()
+        print(f"window kernel {label} ({mw.tag}): {mw.info}", flush=True)
+    print(f"built drain + {len(unique)} fused + {len(mega_unique)} window "
+          f"kernels in {time.perf_counter() - t0:.2f} s (nvcc "
           f"{' '.join(_build.FUSED_FLAGS)}; the drain without -fmad=false)",
           flush=True)
     return True
 
 
+def mega_windows():
+    """The window kernel of every program the run drives with
+    delivery="pallas_mega": the four main paths at full width (from their
+    Programs) and the agree phase's small worlds (started on the CPU,
+    which traces and emits without building)."""
+    from ponyc_tpu_torch.models import nbody, ring, ubench
+    from ponyc_tpu_torch.program import Program
+    from ponyc_tpu_torch.runtime import engine
+
+    def window(atype, n, opts):
+        prog = Program(opts)
+        prog.declare(atype, n)
+        prog.finalize()
+        return engine.build_multi_step_gated(prog, opts)
+
+    out = {"ubench": window(ubench.Pinger, 1 << 20, ubench_opts("mega")),
+           "mixed": window(mixed_type(), 1 << 20, mixed_opts("mega")),
+           "ring": window(ring.RingNode, 1024, ring_opts("mega")),
+           "nbody": window(nbody.Body, 1024, nbody_opts("mega"))}
+    for name, build, _finish in agree_worlds():
+        out[f"agree {name}"] = build("cpu", "mega")._multi_g
+    return out
+
+
 def _leaves(x, name="out"):
+    import dataclasses
     if isinstance(x, dict):
         for k in sorted(x):
             yield from _leaves(x[k], f"{name}.{k}")
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name), f"{name}.{f.name}")
     elif isinstance(x, tuple):
         names = getattr(x, "_fields", None) or range(len(x))
         for k, v in zip(names, x):
@@ -321,11 +382,24 @@ def compare_fused(a, b, label):
     """Every output of the fused kernel (a) against its plain version
     (b), bit for bit (floats compared as their bits). Returns (max abs
     error, max ulp distance, outputs compared); raises on a difference."""
+    return compare_pairs(zip(_leaves(dict(zip(FUSED_OUT, a))),
+                             _leaves(dict(zip(FUSED_OUT, b)))), label,
+                         "fused kernel")
+
+
+def compare_window(a, b, label):
+    """A window kernel's (state, aux, ticks_run) against the plain
+    window's, every leaf bit for bit (floats as their bits)."""
+    return compare_pairs(zip(_leaves(a), _leaves(b)), label,
+                         "window kernel")
+
+
+def compare_pairs(pairs, label, what):
+    """Each (name, x), (name, y) pair bit for bit. Returns (max abs
+    error, max ulp distance, outputs compared); raises on a difference."""
     import torch
     max_err, max_ulp, n = 0.0, 0, 0
-    a = dict(zip(FUSED_OUT, a))
-    b = dict(zip(FUSED_OUT, b))
-    for (name, x), (_, y) in zip(_leaves(a), _leaves(b)):
+    for (name, x), (_, y) in pairs:
         if x is None or y is None:
             if not (x is None and y is None):
                 raise AssertionError(f"{label}: {name} is None on one side")
@@ -352,7 +426,7 @@ def compare_fused(a, b, label):
         if not same:
             bad = int((x != y).sum()) if x.dtype != torch.float32 else \
                 int((x.view(torch.int32) != y.view(torch.int32)).sum())
-            raise AssertionError(f"{label}: fused kernel differs from its "
+            raise AssertionError(f"{label}: {what} differs from its "
                                  f"plain version in {name} ({bad} of "
                                  f"{x.numel()} values; max abs err "
                                  f"{max_err}, max ulp {max_ulp})")
@@ -509,6 +583,272 @@ def check_kernels(rec, frec):
     return True
 
 
+MEGA_TICKS = 16          # ticks a window in the window kernel's checks
+
+
+def mega_bound(mw, ticks, processed):
+    """The least time (ms) the card could take for `ticks` ticks of this
+    program's window, and which term bounds it, from the bytes the window
+    has to move whatever the design: the per-lane state (head, tail,
+    flags, mute tables, error columns, fields) and every mailbox ring (4
+    bytes a word) read once and written once a tick, and the last tick's
+    `plan_key`, `plan_perm` and `plan_bounds` written once; at 3.35 TB/s.
+    Operations: the ATen ops of the bodies the `processed` messages ran,
+    at the float32 peak (67 TFLOP/s).
+
+    Also returns `design_bytes`, what this kernel's own design moves over
+    the window and the function does not need: both codec planes of every
+    ring (6 bytes a word) read and written, the entry list (target and
+    words) written and read, its sort key and permutation written, each
+    of the NPASS radix passes reading and writing every entry's key and
+    index, and the segment bounds, every tick. It is not a bound (a sort
+    with fewer passes moves less) and only reported."""
+    from ponyc_tpu_torch.ops import lanecode
+    w = mw.world
+    nl, e, w1 = w["NL"], w["E"], w["W1"]
+    lane = nl * (4 + 4 + 1 + 1 + 4 + 1 + 1 + 1 + 4 + 4) + w["K"] * nl * 4
+    ring_words = ops_per_msg = 0
+    for sp in mw.specs:
+        ch = sp["cohort"]
+        lane += ch.local_capacity * sum(
+            t.itemsize for t in sp["dtypes"].values())
+        ring_words += w["CAP"] * (1 + ch.msg_words) * ch.local_capacity
+        if sp["progs"]:
+            ops_per_msg = max(ops_per_msg, sum(
+                lanecode.op_count(p) for p in sp["progs"]) / len(sp["progs"]))
+    plan = 2 * e * 4 + (nl + 1) * 4
+    nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan
+    design = ticks * (2 * lane + 2 * ring_words * 6 + 2 * e * 4 * (1 + w1)
+                      + plan + w["NPASS"] * e * 16)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = processed * ops_per_msg / H100_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, t_bytes, t_ops, design)
+
+
+def wrap_counts(st, cap):
+    """The same world with every head and tail moved by 2^31 - 2*cap (a
+    multiple of cap, so each ring slot keeps its message): the counters
+    wrap past 2^31-1 within a few ticks."""
+    import dataclasses
+    off = 2**31 - 2 * cap
+    return dataclasses.replace(st, head=st.head + off, tail=st.tail + off)
+
+
+def full_worlds():
+    """(label, build() → a started Runtime, seeded) of the four main paths
+    at full width, delivery="pallas_mega", for the window kernel's
+    checks."""
+    import numpy as np
+    from ponyc_tpu_torch.models import mixed, nbody, ring, ubench
+
+    def pingers(hops):
+        def build():
+            rt, ids = ubench.build(1 << 20, ubench_opts("mega", MEGA_TICKS),
+                                   pings=4)
+            ubench.seed_all(rt, ids, hops=hops, pings=4)
+            return rt
+        return build
+
+    def workers():
+        rt, ids, wt = mixed.build(1 << 20, MIXED_B,
+                                  mixed_opts("mega", MEGA_TICKS),
+                                  work=MIXED_WORK)
+        mixed.seed_all(rt, ids, wt, hops=1 << 30, mix=True)
+        return rt
+
+    def nodes():
+        rt, ids = ring.build(1024, ring_opts("mega"))
+        rt.send(int(ids[0]), ring.RingNode.token, 4096)
+        return rt
+
+    def bodies():
+        rt, ids = nbody.build(1024, nbody_opts("mega"))
+        st = rt.cohort_state(nbody.Body)
+        rt.bulk_send(np.roll(ids, -1), nbody.Body.token, np.full(1024, 1023),
+                     np.stack([st["x"], st["y"]], axis=1), st["m"])
+        return rt
+
+    return [("ubench 2^20 hops=2^30 (every payload escaped)",
+             pingers(1 << 30)),
+            ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
+            ("mixed 2^20", workers), ("ring 1024", nodes),
+            ("nbody 1024", bodies)]
+
+
+def graph_yardstick(mw, st, it, iw, ticks):
+    """One CUDA graph of the plain forced window (`ticks` ticks), captured
+    once: returns (replay, its output) or raises why it cannot be
+    captured. A yardstick only: the port never replays it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            mw.plain_forced(st, it, iw, ticks)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mw.plain_forced(st, it, iw, ticks)
+    return graph.replay, out
+
+
+@phase("kernels-mega")
+def check_mega(mrec):
+    import torch
+    from ponyc_tpu_torch.ops import megakernel
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    from ponyc_tpu_torch.runtime import engine
+    T = MEGA_TICKS
+    zero = engine.zero_aux("cuda")
+    worst = 0.0
+    worlds = {}
+    gpu_warm()
+    for label, build in full_worlds():
+        t0 = time.perf_counter()
+        rt = build()
+        mw = rt._multi_g
+        it, iw, _ = rt._drain_inject_tracked()
+        e_it, e_iw = rt._empty_inject
+        st0 = rt.state
+        got = mw(st0, it, iw, T, True, zero)
+        want = mw.plain(st0, it, iw, T, True, zero, None)
+        torch.cuda.synchronize()
+        err, _, nout = compare_window(got, want, f"{label} window 1")
+        st1, aux1 = want[0], want[1]
+        # A gated window from there (force off): the kernel's own gate.
+        got = mw(st1, e_it, e_iw, T, False, aux1)
+        want = mw.plain(st1, e_it, e_iw, T, False, aux1, None)
+        torch.cuda.synchronize()
+        err2, _, _ = compare_window(got, want, f"{label} window 2")
+        worst = max(worst, err, err2)
+        ticks = int(want[2])
+        processed = int(want[0].n_processed[0]) - int(st1.n_processed[0])
+        esc = megakernel.escape_rate_state(st1)
+        print(f"window kernel {label}: 2 windows of up to {T} ticks "
+              f"({int(got[2])} ran in the second), {nout} leaves bit-equal "
+              f"to the plain window; escape rate {esc:.6f} "
+              f"(build+seed+check {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        rec = dict(escape_rate=esc, ticks=ticks, processed=processed,
+                   info=mw.info)
+        if label.startswith("ubench") and "no payload" in label:
+            # The gated-out window and the forced spelling.
+            quiet = engine.aux_to_device(engine.aux_from_vector(
+                [0] * 9 + [1, 2] + [0] * 10)[1], "cuda")
+            got = mw(st1, e_it, e_iw, T, False, quiet)
+            torch.cuda.synchronize()
+            compare_window(got, mw.plain(st1, e_it, e_iw, T, False, quiet,
+                                         None), f"{label} gated out")
+            compare_window(got, (st1, quiet, torch.zeros(
+                (), dtype=torch.int32, device="cuda")), f"{label} gated "
+                "out == its input")
+            got = mw.forced(st0, it, iw, 5)
+            torch.cuda.synchronize()
+            compare_window(got, mw.plain_forced(st0, it, iw, 5),
+                           f"{label} forced")
+            print(f"window kernel {label}: gated-out window runs 0 ticks "
+                  "and returns its input; forced spelling (5 ticks, "
+                  "injections every tick) bit-equal", flush=True)
+        if ticks == T:       # times from the steady state after window 1
+            def kern():
+                return mw(st1, e_it, e_iw, T, True, zero)
+
+            def plain():
+                return mw.plain(st1, e_it, e_iw, T, True, zero, None)
+            # The plain window launches thousands of kernels a call (tens
+            # of thousands for mixed): one profiled call after one warm-up
+            # keeps the profiler's bookkeeping to seconds.
+            t = dict(ms=device_ms(kern, 5, [()], "pony_mega_kernel"),
+                     call_ms=cuda_ms(kern, 5, [()]),
+                     plain_ms=device_ms(plain, 1, [()], warm=1),
+                     plain_call_ms=cuda_ms(plain, 2, [()], warm=1))
+            try:
+                replay, gout = graph_yardstick(mw, st1, e_it, e_iw, T)
+                replay()
+                compare_window(mw.forced(st1, e_it, e_iw, T), gout,
+                               f"{label} graph replay")
+                t.update(library_ms=device_ms(replay, 1, [()], warm=1),
+                         library_call_ms=cuda_ms(replay, 2, [()], warm=1))
+                del replay, gout
+            except Exception as ex:                 # noqa: BLE001
+                t.update(library_ms=None, library_call_ms=None,
+                         graph_error=f"{type(ex).__name__}: {ex}"[:300])
+            b_ms, b_by, nbytes, t_b, t_o, design = mega_bound(mw, T,
+                                                              processed)
+            t.update(seconds=time.perf_counter() - t0)
+            t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                     bytes_ms=t_b, ops_ms=t_o, design_bytes=design,
+                     design_ms=design / H100_BYTES_PER_S * 1e3,
+                     ms_tick=t["ms"] / T,
+                     plain_ms_tick=t["plain_ms"] / T,
+                     bound_ms_tick=b_ms / T)
+            rec.update(t)
+            lib = ("not captured: " + t["graph_error"]
+                   if t.get("library_ms") is None else
+                   f"{t['library_ms']:.3f} ms device, "
+                   f"{t['library_call_ms']:.3f} ms wall")
+            print(f"window kernel {label}, a window of {T} ticks: kernel "
+                  f"{t['ms']:.3f} ms device ({t['ms_tick']:.4f} ms a "
+                  f"tick), {t['call_ms']:.3f} ms wall a call; plain window "
+                  f"{t['plain_ms']:.3f} ms device, {t['plain_call_ms']:.3f}"
+                  f" ms wall; CUDA graph of the plain forced window {lib}; "
+                  f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB -> "
+                  f"{t_b:.4f} ms at 3.35 TB/s; ops -> {t_o:.4f} ms); kernel "
+                  f"at {100 * b_ms / t['ms']:.1f}% of the bound; the "
+                  f"design's own traffic {design / 1e6:.1f} MB -> "
+                  f"{t['design_ms']:.4f} ms", flush=True)
+        worlds[label] = rec
+        del rt, got, want, st0, st1
+        torch.cuda.empty_cache()
+    # The small worlds through Runtime.run(), every window the run
+    # dispatches checked against the plain window, heads and tails moved
+    # next to the int32 wrap at the first window.
+    checked = []
+    orig = MegaWindow._dispatch
+
+    def both(self, st, it, iw, limit, force, prev_aux, probe, forced):
+        if not getattr(self, "_wrapped", False):
+            st = wrap_counts(st, self.opts.mailbox_cap)
+            self._wrapped = True
+        want = (self.plain_forced(st, it, iw, limit) if forced else
+                self.plain(st, it, iw, limit, force, prev_aux, None))
+        got = orig(self, st, it, iw, limit, force, prev_aux, probe, forced)
+        torch.cuda.synchronize()
+        compare_window(got, want, f"window {len(checked)}")
+        checked.append(int(want[2]))
+        return got
+
+    MegaWindow._dispatch = both
+    try:
+        for name, build, finish in agree_worlds():
+            n0, t0 = len(checked), time.perf_counter()
+            rt = build("cuda", "mega")
+            finish(rt)
+            wrapped = int((rt.state.head < 0).sum())
+            print(f"window kernel {name} ({time.perf_counter() - t0:.1f} "
+                  f"s): {len(checked) - n0} windows "
+                  f"({sum(checked[n0:])} ticks) of Runtime.run() bit-equal "
+                  f"to the plain window, counters moved next to 2^31-1 "
+                  f"({wrapped} heads past the wrap at the end)", flush=True)
+            worlds[f"agree {name}"] = dict(windows=len(checked) - n0,
+                                           ticks=sum(checked[n0:]))
+    finally:
+        MegaWindow._dispatch = orig
+    ub = worlds["ubench 2^20 hops=2^30 (every payload escaped)"]
+    mrec.update(name="mega_window", route="cuda",
+                source="ponyc_tpu_torch/csrc/mega_window.cu",
+                replaces="ponyc_tpu/ops/megakernel.py:347",
+                max_abs_err=worst, bit_equal=worst == 0,
+                **{k: ub.get(k) for k in (
+                    "ms", "ms_tick", "call_ms", "plain_ms", "plain_ms_tick",
+                    "plain_call_ms", "bound_ms", "bound_ms_tick", "bound_by",
+                    "design_bytes", "design_ms", "library_ms",
+                    "library_call_ms", "info")},
+                ticks_a_window=T, worlds=worlds)
+    return True
+
+
 def _world_numbers(rt, atype):
     cs = rt.cohort_state(atype)
     return ({k: v.tolist() for k, v in cs.items()},
@@ -518,267 +858,336 @@ def _world_numbers(rt, atype):
             rt.exit_code, rt.steps_run)
 
 
-@phase("agree")
-def agree_small_worlds():
+def agree_worlds():
+    """The small worlds of the agree phase: (name, build(device, mode) →
+    a started Runtime ready to run, finish(rt) → the numbers the card and
+    the CPU must agree on)."""
     from ponyc_tpu_torch import RuntimeOptions
     from ponyc_tpu_torch.models import ring, ubench
     import ponyc_tpu_torch
     tp, T = programs()
 
-    def walkers(device, fused):
-        rt = tp.build_walkers(ponyc_tpu_torch, T, 7, n_seeds=30,
-                              device=device, pallas_fused=fused,
-                              **WALKERS_KW)
+    def walkers(device, mode):
+        return tp.build_walkers(ponyc_tpu_torch, T, 7, n_seeds=30,
+                                device=device, **_mode_kw(mode),
+                                **WALKERS_KW)
+
+    def walkers_done(rt):
         rt.run(max_steps=100_000)
         return (_world_numbers(rt, T.Walker)
                 + _world_numbers(rt, T.Splitter)[:1])
 
-    def rings(device, fused):
-        rt = ring.run(128, 300, opts=RuntimeOptions(
+    def rings(device, mode):
+        rt, ids = ring.build(128, RuntimeOptions(
             mailbox_cap=8, batch=1, max_sends=1, msg_words=1,
             spill_cap=128, inject_slots=8, tuning_cache="off",
-            pallas_fused=fused), device=device)
+            **_mode_kw(mode)), device=device)
+        rt.send(int(ids[0]), ring.RingNode.token, 300)
+        return rt
+
+    def rings_done(rt):
+        rt.run()
         return _world_numbers(rt, ring.RingNode)
 
-    def pingers(device, fused):
+    def pingers(device, mode):
         rt, ids = ubench.build(256, RuntimeOptions(
             mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
             spill_cap=64, inject_slots=8, tuning_cache="off",
-            pallas_fused=fused), pings=4, device=device)
+            **_mode_kw(mode)), pings=4, device=device)
         ubench.seed_all(rt, ids, hops=25, pings=4)
+        return rt
+
+    def pingers_done(rt):
         rt.run()
         return _world_numbers(rt, ubench.Pinger)
 
-    def mixers(device, fused):
-        rt = tp.build_mixers(ponyc_tpu_torch, T, 5, device=device,
-                             pallas_fused=fused, **MIXERS_KW)
+    def mixers(device, mode):
+        return tp.build_mixers(ponyc_tpu_torch, T, 5, device=device,
+                               **_mode_kw(mode), **MIXERS_KW)
+
+    def mixers_done(rt):
         rt.run(max_steps=100_000)
         return (_world_numbers(rt, T.Mixer)
                 + (rt.state.last_error.tolist(),))
 
     def corpus(name):
-        return lambda device, fused: tp.run_corpus(
-            ponyc_tpu_torch, T, name, device=device, pallas_fused=fused)
+        return (lambda device, mode: tp.corpus_runtime(
+                    ponyc_tpu_torch, T, name, device=device,
+                    **_mode_kw(mode)),
+                lambda rt: tp.run_corpus(ponyc_tpu_torch, T, name, rt=rt))
 
-    worlds = [("walkers (spill/mute)", walkers), ("ring", rings),
-              ("ubench", pingers), ("mixers (every effect)", mixers)]
-    worlds += [(f"corpus {n}", corpus(n)) for n in tp.CORPUS]
-    for fused in (False, True):
-        for name, fn in worlds:
-            g, c = fn("cuda", fused), fn("cpu", fused)
+    worlds = [("walkers (spill/mute)", walkers, walkers_done),
+              ("ring", rings, rings_done), ("ubench", pingers, pingers_done),
+              ("mixers (every effect)", mixers, mixers_done)]
+    worlds += [(f"corpus {n}", *corpus(n)) for n in tp.CORPUS]
+    return worlds
+
+
+@phase("agree")
+def agree_small_worlds():
+    for mode in (False, True, "mega"):
+        for name, build, finish in agree_worlds():
+            g, c = finish(build("cuda", mode)), finish(build("cpu", mode))
             if g != c:
-                raise AssertionError(f"{name} (pallas_fused={fused}): the "
+                raise AssertionError(f"{name} ({_mode_name(mode)}): the "
                                      f"card and the CPU disagree: {g} vs "
                                      f"{c}")
-            print(f"{name} pallas_fused={fused}: card == CPU", flush=True)
+            print(f"{name} {_mode_name(mode)}: card == CPU", flush=True)
 
 
-def ubench_windows(fused, n, pings, warm, ticks):
-    """Three timed windows of `ticks` ticks of ubench; checks the
-    processed count and that the path's kernel launched once a tick."""
-    import torch
-    from ponyc_tpu_torch.models import ubench
+def count_windows(rt):
+    """Count the windows the run loop dispatches (a list holding one
+    number)."""
+    n = [0]
+    orig = rt._dispatch_window
+
+    def counted(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+    rt._dispatch_window = counted
+    return n
+
+
+def reset_launches():
     from ponyc_tpu_torch.ops import mailbox_kernel as mk
     from ponyc_tpu_torch.ops.fused_dispatch import FusedDispatch
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    mk.drain_msgs.launches = 0
+    FusedDispatch.launches = 0
+    MegaWindow.launches = 0
+
+
+def launches():
+    """(drain, fused, window kernel) launches since reset_launches()."""
+    from ponyc_tpu_torch.ops import mailbox_kernel as mk
+    from ponyc_tpu_torch.ops.fused_dispatch import FusedDispatch
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    return (mk.drain_msgs.launches, FusedDispatch.launches,
+            MegaWindow.launches)
+
+
+def expected_launches(mode, ticks, windows):
+    """What one cohort's path launches: a drain or a fused kernel a tick
+    enqueued, or one window kernel a window dispatched."""
+    if mode == "mega":
+        return (0, 0, windows)
+    return (0, ticks, 0) if mode else (ticks, 0, 0)
+
+
+def ubench_windows(mode, n, pings, warm, ticks):
+    """Three timed windows of `ticks` ticks of ubench; checks the
+    processed count and the path's launches."""
+    import torch
+    from ponyc_tpu_torch.models import ubench
     t0 = time.perf_counter()
-    rt, ids = ubench.build(n, ubench_opts(fused, ticks), pings=pings)
+    rt, ids = ubench.build(n, ubench_opts(mode, ticks), pings=pings)
     ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
     torch.cuda.synchronize()
-    print(f"ubench pallas_fused={fused} build+seed "
+    print(f"ubench {_mode_name(mode)} build+seed "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     rt.run(max_steps=warm)
+    windows = count_windows(rt)
     per_tick = []
     for _ in range(3):
         p0, s0 = rt.counter("n_processed"), rt.steps_run
-        q0 = rt.ticks_enqueued
+        q0, w0 = rt.ticks_enqueued, windows[0]
         torch.cuda.synchronize()
-        mk.drain_msgs.launches = 0      # the main path's run starts here
-        FusedDispatch.launches = 0
+        reset_launches()                # the main path's run starts here
         t0 = time.perf_counter()
         rt.run(max_steps=ticks)
         elapsed = time.perf_counter() - t0
-        drains = mk.drain_msgs.launches     # ... and ends here
-        fuseds = FusedDispatch.launches
+        got = launches()                # ... and ends here
         done = rt.counter("n_processed") - p0
         ran, enqueued = rt.steps_run - s0, rt.ticks_enqueued - q0
+        wins = windows[0] - w0
         if done != n * pings * ticks or ran != ticks:
             raise AssertionError(f"processed {done} in {ran} ticks, "
                                  f"expected {n * pings * ticks} in {ticks}")
-        want = (0, ticks) if fused else (ticks, 0)
-        if (drains, fuseds) != want or enqueued != ticks:
-            raise AssertionError(f"drain launched {drains}, fused "
-                                 f"{fuseds} times for {enqueued} ticks "
-                                 f"enqueued, {ticks} run (one cohort: "
+        want = expected_launches(mode, enqueued, wins)
+        if got != want or enqueued < ticks or (
+                mode != "mega" and enqueued != ticks):
+            raise AssertionError(f"launches (drain, fused, window) {got} "
+                                 f"for {enqueued} ticks enqueued, {wins} "
+                                 f"windows, {ticks} run (one cohort: "
                                  f"expected {want})")
         if rt.counter("n_rejected") or rt.exit_code:
             raise AssertionError("ubench rejected messages or exited")
         per_tick.append(elapsed / ticks)
-        print(f"ubench N={n} pings={pings} pallas_fused={fused}: {ticks} "
+        print(f"ubench N={n} pings={pings} {_mode_name(mode)}: {ticks} "
               f"ticks in {elapsed:.3f} s = {1e3 * elapsed / ticks:.3f} "
               f"ms/tick, {n * pings / (elapsed / ticks):.4g} msgs/s; "
-              f"processed counter ok; launches: drain {drains}, fused "
-              f"{fuseds}", flush=True)
+              f"processed counter ok; {wins} windows; launches (drain, "
+              f"fused, window) {got}", flush=True)
     p50 = statistics.median(per_tick)
-    print(f"ubench pallas_fused={fused} median of {len(per_tick)} windows: "
+    print(f"ubench {_mode_name(mode)} median of {len(per_tick)} windows: "
           f"{1e3 * p50:.3f} ms/tick, {n * pings / p50:.4g} msgs/s (spread "
           f"{1e3 * min(per_tick):.3f}-{1e3 * max(per_tick):.3f} ms/tick)",
           flush=True)
     del rt
     torch.cuda.empty_cache()
-    return (drains if not fused else fuseds), {
-        "msgs_per_s": n * pings / p50, "s_per_tick": p50,
-        "s_per_tick_each": per_tick}
+    return max(got), {"msgs_per_s": n * pings / p50, "s_per_tick": p50,
+                      "s_per_tick_each": per_tick}
 
 
 @phase("ubench")
-def run_ubench(rec, frec):
+def run_ubench(rec, frec, mrec):
     n, pings, warm, ticks = 1 << 20, 4, 8, 64
     rec["launches"], plain = ubench_windows(False, n, pings, warm, ticks)
     frec["launches"], fused = ubench_windows(True, n, pings, warm, ticks)
-    return {"plain": plain, "fused": fused}
+    mrec["launches"], mega = ubench_windows("mega", n, pings, warm, ticks)
+    return {"plain": plain, "fused": fused, "mega": mega}
 
 
 @phase("ring")
-def run_ring(rec, frec, hops=4096):
+def run_ring(rec, frec, mrec, hops=4096):
     import torch
     from ponyc_tpu_torch.models import ring
-    from ponyc_tpu_torch.ops import mailbox_kernel as mk
-    from ponyc_tpu_torch.ops.fused_dispatch import FusedDispatch
     nodes = 1024
     out = {}
-    for fused in (False, True):
-        opts = ring_opts(fused)
+    for mode in (False, True, "mega"):
+        opts = ring_opts(mode)
         ring.run(nodes, 64, opts=opts)                    # warm-up
         per_hop = []
         for _ in range(3):
             rt, ids = ring.build(nodes, opts)
             rt.send(int(ids[0]), ring.RingNode.token, hops)
+            windows = count_windows(rt)
             torch.cuda.synchronize()
             q0 = rt.ticks_enqueued
-            mk.drain_msgs.launches = 0      # the main path's run starts
-            FusedDispatch.launches = 0
+            reset_launches()            # the main path's run starts here
             t0 = time.perf_counter()
             code = rt.run()
             elapsed = time.perf_counter() - t0
-            drains = mk.drain_msgs.launches     # ... and ends here
-            fuseds = FusedDispatch.launches
+            got = launches()            # ... and ends here
             enqueued = rt.ticks_enqueued - q0
             passes = int(rt.cohort_state(ring.RingNode)["passes"].sum())
             if passes != hops or code != 0:
                 raise AssertionError(f"ring: passes {passes} (want {hops}),"
                                      f" exit code {code}")
             # One cohort: one launch of the path's kernel per enqueued
-            # tick, run or not. A tick predicated off on the device still
+            # tick, run or not (a tick predicated off on the device still
             # launches its kernels; the host enqueues such ticks until its
-            # non-blocking StopProbe sees the device's stop vote.
-            want = (0, enqueued) if fused else (enqueued, 0)
-            if (drains, fuseds) != want or rt.steps_run > enqueued:
-                raise AssertionError(f"ring pallas_fused={fused}: drain "
-                                     f"{drains}, fused {fuseds} launches "
-                                     f"for {enqueued} ticks enqueued, "
-                                     f"{rt.steps_run} run")
+            # non-blocking StopProbe sees the device's stop vote), or one
+            # window kernel a window.
+            want = expected_launches(mode, enqueued, windows[0])
+            if got != want or rt.steps_run > enqueued:
+                raise AssertionError(f"ring {_mode_name(mode)}: launches "
+                                     f"(drain, fused, window) {got} for "
+                                     f"{enqueued} ticks enqueued, "
+                                     f"{windows[0]} windows, {rt.steps_run} "
+                                     f"run (expected {want})")
             per_hop.append(elapsed / hops)
-            print(f"ring {nodes} nodes {hops} hops pallas_fused={fused}: "
+            print(f"ring {nodes} nodes {hops} hops {_mode_name(mode)}: "
                   f"{elapsed:.3f} s, {1e6 * elapsed / hops:.1f} us/hop, "
-                  f"{rt.steps_run} ticks run, {enqueued} enqueued "
-                  f"({enqueued - rt.steps_run} predicated off), launches: "
-                  f"drain {drains}, fused {fuseds}", flush=True)
-            (frec if fused else rec)["launches_ring"] = (
-                fuseds if fused else drains)
+                  f"{rt.steps_run} ticks run, {enqueued} enqueued, "
+                  f"{windows[0]} windows; launches (drain, fused, window) "
+                  f"{got}", flush=True)
+            {False: rec, True: frec, "mega": mrec}[mode]["launches_ring"] = \
+                max(got)
         p50 = statistics.median(per_hop)
-        print(f"ring pallas_fused={fused} p50 per-hop time "
-              f"{1e6 * p50:.1f} us over {len(per_hop)} runs", flush=True)
-        out["fused" if fused else "plain"] = p50
+        print(f"ring {_mode_name(mode)} p50 per-hop time {1e6 * p50:.1f} us"
+              f" over {len(per_hop)} runs", flush=True)
+        out[{False: "plain", True: "fused", "mega": "mega"}[mode]] = p50
     return out
 
 
 @phase("mixed")
-def run_mixed(frec, ticks=16):
+def run_mixed(frec, mrec, ticks=16):
+    import numpy as np
     import torch
     from ponyc_tpu_torch.models import mixed
-    from ponyc_tpu_torch.ops import mailbox_kernel as mk
-    from ponyc_tpu_torch.ops.fused_dispatch import FusedDispatch
     n = 1 << 20
     res, out = {}, {}
-    for fused in (True, False):
+    for mode in (True, "mega", False):
         t0 = time.perf_counter()
-        rt, ids, wt = mixed.build(n, MIXED_B, mixed_opts(fused, ticks),
+        rt, ids, wt = mixed.build(n, MIXED_B, mixed_opts(mode, ticks),
                                   work=MIXED_WORK)
         mixed.seed_all(rt, ids, wt, hops=1 << 30, mix=True)
         rt.run(max_steps=1)                               # warm-up
+        windows = count_windows(rt)
         torch.cuda.synchronize()
         setup = time.perf_counter() - t0
-        p0 = rt.counter("n_processed")
-        mk.drain_msgs.launches = 0          # the main path's run starts
-        FusedDispatch.launches = 0
+        p0, q0 = rt.counter("n_processed"), rt.ticks_enqueued
+        reset_launches()                # the main path's run starts here
         t0 = time.perf_counter()
         rt.run(max_steps=ticks)
         elapsed = time.perf_counter() - t0
-        drains, fuseds = mk.drain_msgs.launches, FusedDispatch.launches
+        got = launches()                # ... and ends here
         done = rt.counter("n_processed") - p0
         if done != n * ticks or rt.steps_run != ticks + 1:
-            raise AssertionError(f"mixed pallas_fused={fused}: processed "
+            raise AssertionError(f"mixed {_mode_name(mode)}: processed "
                                  f"{done} in {rt.steps_run - 1} ticks, "
                                  f"expected {n * ticks} in {ticks}")
-        want = (0, ticks) if fused else (ticks, 0)
-        if (drains, fuseds) != want:
-            raise AssertionError(f"mixed pallas_fused={fused}: drain "
-                                 f"{drains}, fused {fuseds} launches for "
-                                 f"{ticks} ticks")
+        want = expected_launches(mode, rt.ticks_enqueued - q0, windows[0])
+        if got != want or (mode != "mega"
+                           and rt.ticks_enqueued - q0 != ticks):
+            raise AssertionError(f"mixed {_mode_name(mode)}: launches "
+                                 f"(drain, fused, window) {got} for {ticks} "
+                                 f"ticks, {windows[0]} windows (expected "
+                                 f"{want})")
         st = rt.cohort_state(wt)
-        res[fused] = (st["done"], st["acc"])
-        out["fused" if fused else "plain"] = elapsed / ticks
-        print(f"mixed N={n} B={MIXED_B} work={MIXED_WORK} pallas_fused="
-              f"{fused}: {ticks} ticks in {elapsed:.3f} s = "
+        res[mode] = (st["done"], st["acc"])
+        out[{False: "plain", True: "fused", "mega": "mega"}[mode]] = \
+            elapsed / ticks
+        print(f"mixed N={n} B={MIXED_B} work={MIXED_WORK} "
+              f"{_mode_name(mode)}: {ticks} ticks in {elapsed:.3f} s = "
               f"{1e3 * elapsed / ticks:.3f} ms/tick (setup {setup:.1f} s); "
-              f"processed counter ok; launches: drain {drains}, fused "
-              f"{fuseds}", flush=True)
-        if fused:
-            frec["launches_mixed"] = fuseds
+              f"processed counter ok; {windows[0]} windows; launches "
+              f"(drain, fused, window) {got}", flush=True)
+        if mode:
+            (frec if mode is True else mrec)["launches_mixed"] = max(got)
         del rt
         torch.cuda.empty_cache()
-    import numpy as np
-    if not (np.array_equal(res[True][0], res[False][0])
-            and np.array_equal(res[True][1].view(np.int32),
-                               res[False][1].view(np.int32))):
-        raise AssertionError("mixed: done/acc differ between the fused "
-                             "kernel and the plain dispatch")
-    print("mixed: done and acc bit-equal between fused and plain "
+    for mode in (True, "mega"):
+        if not (np.array_equal(res[mode][0], res[False][0])
+                and np.array_equal(res[mode][1].view(np.int32),
+                                   res[False][1].view(np.int32))):
+            raise AssertionError(f"mixed: done/acc differ between "
+                                 f"{_mode_name(mode)} and the plain tick")
+    print("mixed: done and acc bit-equal between the fused kernel, the "
+          "window kernel and the plain tick "
           f"(acc mean {float(res[True][1].mean()):.6g})", flush=True)
     return out
 
 
 @phase("nbody")
-def run_nbody(frec, bodies=1024):
+def run_nbody(frec, mrec, bodies=1024):
     import numpy as np
     import torch
     from ponyc_tpu_torch.models import nbody
-    from ponyc_tpu_torch.ops.fused_dispatch import FusedDispatch
-    FusedDispatch.launches = 0              # the main path's run starts
-    t0 = time.perf_counter()
-    rt = nbody.run_round(bodies, nbody_opts(True))
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    frec["launches_nbody"] = FusedDispatch.launches     # ... and ends
-    st = rt.cohort_state(nbody.Body)
-    if not (st["seen"] == bodies - 1).all():
-        raise AssertionError(f"nbody: seen {st['seen'].min()}.."
-                             f"{st['seen'].max()}, want {bodies - 1}")
-    f64 = [st[k].astype(np.float64) for k in ("x", "y", "m")]
-    ax, ay = nbody.reference_accels(*f64)
-    # float32 sums of 1023 terms against a float64 oracle: the tolerance
-    # scales with the largest acceleration.
-    tol = 1e-4 * max(np.abs(ax).max(), np.abs(ay).max())
-    err = max(np.abs(st["ax"] - ax).max(), np.abs(st["ay"] - ay).max())
-    if not err <= tol:
-        raise AssertionError(f"nbody: max |a - oracle| {err:.3g} > {tol:.3g}")
-    print(f"nbody {bodies} bodies, one round in {rt.steps_run} ticks, "
-          f"{elapsed:.2f} s with setup; fused launches "
-          f"{frec['launches_nbody']}; max |a - oracle| {err:.3g} <= "
-          f"{tol:.3g} (1e-4 of the largest |a|, float64 oracle)",
-          flush=True)
-    return {"max_abs_err": float(err), "tol": float(tol),
-            "ticks": rt.steps_run}
+    out = {}
+    for mode in (True, "mega"):
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        rt = nbody.run_round(bodies, nbody_opts(mode))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        if got[0] or got[1 if mode == "mega" else 2]:
+            raise AssertionError(f"nbody {_mode_name(mode)}: launches "
+                                 f"(drain, fused, window) {got}")
+        (frec if mode is True else mrec)["launches_nbody"] = max(got)
+        st = rt.cohort_state(nbody.Body)
+        if not (st["seen"] == bodies - 1).all():
+            raise AssertionError(f"nbody: seen {st['seen'].min()}.."
+                                 f"{st['seen'].max()}, want {bodies - 1}")
+        f64 = [st[k].astype(np.float64) for k in ("x", "y", "m")]
+        ax, ay = nbody.reference_accels(*f64)
+        # float32 sums of 1023 terms against a float64 oracle: the
+        # tolerance scales with the largest acceleration.
+        tol = 1e-4 * max(np.abs(ax).max(), np.abs(ay).max())
+        err = max(np.abs(st["ax"] - ax).max(), np.abs(st["ay"] - ay).max())
+        if not err <= tol:
+            raise AssertionError(f"nbody {_mode_name(mode)}: max |a - "
+                                 f"oracle| {err:.3g} > {tol:.3g}")
+        print(f"nbody {bodies} bodies {_mode_name(mode)}, one round in "
+              f"{rt.steps_run} ticks, {elapsed:.2f} s with setup; launches "
+              f"(drain, fused, window) {got}; max |a - oracle| {err:.3g} "
+              f"<= {tol:.3g} (1e-4 of the largest |a|, float64 oracle)",
+              flush=True)
+        out[_mode_name(mode)] = {"max_abs_err": float(err),
+                                 "tol": float(tol), "ticks": rt.steps_run}
+    return out
 
 
 def _device_us(evt):
@@ -820,24 +1229,28 @@ def profile_ticks(label, rt, ticks):
 
 
 @phase("profile")
-def run_profile(ticks=4):
+def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
+    """Per path: ubench and mixed over `ticks` ticks (the plain and fused
+    ticks) or one window of `mega_ticks` ticks (the window kernel, whose
+    launch is per window)."""
     import torch
     from ponyc_tpu_torch.models import mixed, ubench
     out = {}
-    for fused in (False, True):
-        rt, ids = ubench.build(1 << 20, ubench_opts(fused, ticks), pings=4)
+    for mode in (False, True, "mega"):
+        n = mega_ticks if mode == "mega" else ticks
+        rt, ids = ubench.build(1 << 20, ubench_opts(mode, n), pings=4)
         ubench.seed_all(rt, ids, hops=1 << 30, pings=4)
-        rt.run(max_steps=ticks)                           # warm-up
-        out[f"ubench fused={fused}"] = profile_ticks(
-            f"ubench 2^20x4 pallas_fused={fused}", rt, ticks)
+        rt.run(max_steps=n)                               # warm-up
+        out[f"ubench {_mode_name(mode)}"] = profile_ticks(
+            f"ubench 2^20x4 {_mode_name(mode)}", rt, n)
         del rt
-        rt, ids, wt = mixed.build(1 << 20, MIXED_B, mixed_opts(fused, ticks),
+        rt, ids, wt = mixed.build(1 << 20, MIXED_B, mixed_opts(mode, n),
                                   work=MIXED_WORK)
         mixed.seed_all(rt, ids, wt, hops=1 << 30, mix=True)
         rt.run(max_steps=2)                               # warm-up
-        out[f"mixed fused={fused}"] = profile_ticks(
-            f"mixed 2^20 B{MIXED_B} work{MIXED_WORK} pallas_fused={fused}",
-            rt, ticks)
+        out[f"mixed {_mode_name(mode)}"] = profile_ticks(
+            f"mixed 2^20 B{MIXED_B} work{MIXED_WORK} {_mode_name(mode)}",
+            rt, n)
         del rt
         torch.cuda.empty_cache()
     return out
@@ -879,7 +1292,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
-    rec, frec, summary = {}, {}, {"card": card}
+    rec, frec, mrec, summary = {}, {}, {}, {"card": card}
 
     def want(name):
         return only is None or name in only
@@ -887,16 +1300,18 @@ def main():
     if build_kernels() is not None:
         if want("kernels"):
             check_kernels(rec, frec)
+            check_mega(mrec)
+            summary["mega_worlds"] = mrec.get("worlds")
         if want("agree"):
             agree_small_worlds()
         if want("ubench"):
-            summary["ubench"] = run_ubench(rec, frec)
+            summary["ubench"] = run_ubench(rec, frec, mrec)
         if want("ring"):
-            summary["ring_p50_s_per_hop"] = run_ring(rec, frec)
+            summary["ring_p50_s_per_hop"] = run_ring(rec, frec, mrec)
         if want("mixed"):
-            summary["mixed_s_per_tick"] = run_mixed(frec)
+            summary["mixed_s_per_tick"] = run_mixed(frec, mrec)
         if want("nbody"):
-            summary["nbody"] = run_nbody(frec)
+            summary["nbody"] = run_nbody(frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -910,9 +1325,11 @@ def main():
         return 0
     extra = ("call_ms", "plain_call_ms", "library_call_ms",
              "launches_ring", "launches_mixed", "launches_nbody",
-             "bit_equal", "max_ulp", "shapes", "mixed")
+             "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
+             "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",
+             "design_ms", "info")
     kernels = [{k: r[k] for k in KEYS + extra if k in r}
-               for r in (rec, frec)]
+               for r in (rec, frec, mrec)]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -495,7 +495,6 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "pallas_mega": ("the window megakernel (delivery='pallas_mega')", 3),
     "host": ("host cohorts (HOST = True actor types)", 4),
     "spawns": ("device spawns (SPAWNS, ctx.spawn)", 4),
     "sync": ("sync construction (ctx.spawn_sync)", 4),
@@ -524,11 +523,13 @@ def check_supported(opts: RuntimeOptions) -> None:
     is accepted in every spelling: on CUDA the mailbox drain always
     runs as the hand-written kernel, on the CPU as its plain version.
     `pallas_fused=True` runs the fused dispatch kernel on CUDA (its
-    plain version on the CPU); "auto" needs the tuner."""
+    plain version on the CPU); "auto" needs the tuner.
+    `delivery="pallas_mega"` runs the window kernel on CUDA where
+    ops/megakernel.py's `eligible` holds (the plain window elsewhere)."""
     if opts.pallas_fused == "auto":
         raise unported("tuner")
-    if opts.delivery != "plan":
-        raise unported({"pallas_mega": "pallas_mega", "cosort": "cosort",
+    if opts.delivery not in ("plan", "pallas_mega"):
+        raise unported({"cosort": "cosort",
                         "auto": "tuner"}[opts.delivery])
     if opts.mesh_shards > 1:
         raise unported("mesh")

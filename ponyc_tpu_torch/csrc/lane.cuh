@@ -1,0 +1,183 @@
+// One actor lane's drain and dispatch, shared by the fused dispatch kernel
+// (csrc/fused_dispatch.cu) and the window kernel (csrc/mega_window.cu).
+//
+// A cohort reaches this code as a struct generated by
+// ponyc_tpu_torch/ops/lanecode.py (emit_cohort): its constants (NB, BATCH,
+// CAP, MS, W1, W1_IN, BASE, NOYIELD, ...), its State struct, load/store of
+// the state columns, one function beh_<j> per behaviour and the `dispatch`
+// switch that picks one by message id. Each cohort is a struct of its own,
+// so the window kernel holds every cohort of a program in one translation
+// unit.
+//
+// Numbers. The helpers below spell torch's elementwise semantics: integer
+// arithmetic wraps (done in unsigned types), `//` floors, `%` takes the
+// divisor's sign, a shift by the width or more saturates. Sources that
+// include this are built with -fmad=false and never --use_fast_math, so a
+// float expression rounds after every op, as torch's eager kernels do.
+//
+// The same code builds as host C++ (no __CUDACC__); the CPU tests use that
+// build.
+
+#pragma once
+
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define PONY_FN __device__ __forceinline__
+#else
+#define PONY_FN inline
+#endif
+
+// ---- torch's elementwise semantics ------------------------------------
+
+template <typename To, typename From>
+PONY_FN To pony_bitcast(From x) {
+  static_assert(sizeof(To) == sizeof(From), "bitcast of unequal widths");
+  To y;
+  memcpy(&y, &x, sizeof(To));
+  return y;
+}
+PONY_FN float pony_f32(uint32_t bits) { return pony_bitcast<float>(bits); }
+PONY_FN double pony_f64(uint64_t bits) { return pony_bitcast<double>(bits); }
+
+// Integer floor division (c10 div_floor_integer).
+template <typename T>
+PONY_FN T pony_floordiv(T a, T b) {
+  if ((a < 0) != (b < 0)) {
+    const T q = a / b;
+    const T r = a % b;
+    return r ? (T)(q - 1) : q;
+  }
+  return a / b;
+}
+
+// Remainder with the divisor's sign (torch.remainder).
+template <typename T>
+PONY_FN T pony_rem(T a, T b) {
+  if constexpr (std::is_floating_point<T>::value) {
+    T r = fmod(a, b);
+    if ((r != 0) && ((b < 0) != (r < 0))) r += b;
+    return r;
+  } else {
+    T r = a % b;
+    if (r != 0 && ((r < 0) != (b < 0))) r = (T)(r + b);
+    return r;
+  }
+}
+
+// Shifts: a shift by the width or more (or negative) saturates.
+template <typename T>
+PONY_FN T pony_shl(T a, T b) {
+  constexpr T max_shift = sizeof(T) * 8;
+  if ((typename std::make_signed<T>::type)b < 0 || b >= max_shift) return 0;
+  return (T)((typename std::make_unsigned<T>::type)a << b);
+}
+template <typename T>
+PONY_FN T pony_shr(T a, T b) {
+  constexpr T max_shift = sizeof(T) * 8 - std::is_signed<T>::value;
+  if ((typename std::make_signed<T>::type)b < 0 || b >= max_shift)
+    return (T)(a >> max_shift);
+  return (T)(a >> b);
+}
+
+template <typename T>
+PONY_FN T pony_max(T a, T b) {
+  if constexpr (std::is_same<T, float>::value) return fmaxf(a, b);
+  else if constexpr (std::is_same<T, double>::value) return fmax(a, b);
+  else return a < b ? b : a;
+}
+template <typename T>
+PONY_FN T pony_min(T a, T b) {
+  if constexpr (std::is_same<T, float>::value) return fminf(a, b);
+  else if constexpr (std::is_same<T, double>::value) return fmin(a, b);
+  else return b < a ? b : a;
+}
+
+// Integer power by squaring, wrapping (torch's powi for exponents >= 0).
+template <typename T>
+PONY_FN T pony_powi(T a, T b) {
+  typedef typename std::conditional<(sizeof(T) > 4), uint64_t,
+                                    uint32_t>::type U;
+  U result = 1, base = (U)a;
+  while (b) {
+    if (b & 1) result *= base;
+    b /= 2;
+    base *= base;
+  }
+  return (T)result;
+}
+
+// What one behaviour did on one lane for one message.
+template <int MS, int W1>
+struct PonyOutT {
+  int32_t tgt[MS > 0 ? MS : 1];
+  int32_t w[MS > 0 ? MS : 1][W1];
+  bool ef, yf, ds, erf;
+  int32_t ec, erc, erl;
+};
+
+// A fixed list of pointers (state columns), passed to a kernel by value.
+template <int N>
+struct PonyPtrs {
+  void* p[N > 0 ? N : 1];
+  PONY_FN void* operator[](int k) const { return p[k]; }
+};
+
+// What one lane's whole drain did.
+struct PonyLane {
+  int32_t nproc, nbad, ec, erc, erl;
+  uint32_t consumed;
+  bool ef, ds, erf;
+};
+
+// One actor lane's drain (≙ ponyint_actor_run's loop, actor.c:383-549):
+// for k < BATCH, while k < n_run and no yield stopped the batch, read the
+// message in ring slot (head + k) mod CAP through `ring(slot, word)`, run
+// the behaviour its id names on the lane's state `s`, and hand every send
+// slot (k, m) to `send(k, m, target, words)` (target -1 = no message).
+// Exit: the first code wins; error: the latest code and site win; destroy
+// ORs. Heads wrap: the caller adds `consumed` in unsigned arithmetic.
+template <class C, class Ring, class Send>
+PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
+                           int32_t id, const Ring& ring, const Send& send) {
+  PonyLane r = {0, 0, 0, 0, 0, 0u, false, false, false};
+  bool stopped = false;
+  for (int k = 0; k < C::BATCH; ++k) {
+    typename C::Out o;
+    for (int m = 0; m < (C::MS > 0 ? C::MS : 1); ++m) {
+      o.tgt[m] = -1;
+      for (int j = 0; j < C::W1; ++j) o.w[m][j] = 0;
+    }
+    o.ef = o.yf = o.ds = o.erf = false;
+    o.ec = o.erc = o.erl = 0;
+    if (nr > k && !stopped) {
+      const uint32_t slot = (h + (uint32_t)k) & (uint32_t)(C::CAP - 1);
+      int32_t w[C::W1_IN];
+      for (int j = 0; j < C::W1_IN; ++j) w[j] = ring(slot, j);
+      const int32_t local = (int32_t)((uint32_t)w[0] - (uint32_t)C::BASE);
+      if (local >= 0 && local < C::NB) {
+        ++r.nproc;
+        C::dispatch(local, s, w + 1, id, o);
+      } else {
+        ++r.nbad;
+      }
+      ++r.consumed;
+    }
+    for (int m = 0; m < C::MS; ++m) send(k, m, o.tgt[m], o.w[m]);
+    if (o.ef && !r.ef) r.ec = o.ec;        // exit: the first code wins
+    r.ef = r.ef || o.ef;
+    r.ds = r.ds || o.ds;
+    if (o.erf) {                           // errors: the latest code wins
+      r.erc = o.erc;
+      r.erl = o.erl;
+    }
+    r.erf = r.erf || o.erf;
+    if (!C::NOYIELD) stopped = stopped || o.yf;
+  }
+  return r;
+}

@@ -8,13 +8,16 @@ takes seconds. The library's file name carries a hash of its sources and
 flags, so an edited source is rebuilt and a stale library is never
 loaded. A failed build raises; nothing falls back.
 
-A template kernel (``csrc/fused_dispatch.cu``) is compiled together with
-a generated header (one per actor cohort, from ``ops/lanecode.py``): the
-header is written as ``pony_cohort.h`` into a directory of its own beside
-the library, which the template includes; the hash covers both. Several sources
-build at once, one compiler process each (`build`). The fused kernel is
-compiled with ``-fmad=false`` (never ``--use_fast_math``), so that its
-float results round after every operation as torch's eager kernels do.
+A template kernel is compiled together with a generated header: the
+fused dispatch (``csrc/fused_dispatch.cu``) with one cohort's
+``pony_cohort.h``, the window kernel (``csrc/mega_window.cu``) with one
+program's ``pony_world.h`` (both from ``ops/lanecode.py``). The header is
+written into a directory of its own beside the library, which the template
+includes; the hash covers it, the source and the shared ``csrc/*.cuh``.
+Several sources build at once, one compiler process each (`build`). The
+templates are compiled with ``-fmad=false`` (never ``--use_fast_math``), so
+that their float results round after every operation as torch's eager
+kernels do.
 
 The same template also builds with the host C++ compiler (``host=True``),
 for the CPU tests.
@@ -28,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -71,12 +75,14 @@ def host_cxx() -> Optional[str]:
 @dataclasses.dataclass
 class Job:
     """One library to build: csrc/<name>.cu, with a generated header
-    (`header`, text) when the source is a template; `tag` names the
-    library. `host` builds it with the host C++ compiler instead."""
+    (`header`, text, written as `header_name`) when the source is a
+    template; `tag` names the library. `host` builds it with the host C++
+    compiler instead."""
     name: str
     header: Optional[str] = None
     tag: Optional[str] = None
     host: bool = False
+    header_name: str = "pony_cohort.h"
 
     @property
     def src(self) -> str:
@@ -92,6 +98,9 @@ class Job:
     def stem(self) -> str:
         with open(self.src, "rb") as f:
             h = hashlib.sha256(f.read())
+        for inc in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+            with open(inc, "rb") as f:          # shared headers
+                h.update(f.read())
         h.update((self.header or "").encode())
         h.update(" ".join(self.flags).encode())
         kind = "host-" if self.host else ""
@@ -111,7 +120,7 @@ class Job:
             # builds of several cohorts can run at once.
             inc = os.path.join(BUILD_DIR, self.stem)
             os.makedirs(inc, exist_ok=True)
-            with open(os.path.join(inc, "pony_cohort.h"), "w") as f:
+            with open(os.path.join(inc, self.header_name), "w") as f:
                 f.write(self.header)
             cmd += ["-I", inc]
         return cmd + ["-o", out, self.src]
@@ -157,6 +166,13 @@ def build(jobs: List[Job], log=None) -> List[ctypes.CDLL]:
             lib = _LOADED[job.path] = ctypes.CDLL(job.path)
         libs.append(lib)
     return libs
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A host array of the tensors' data pointers (NULL for an empty
+    one), for an entry that takes a pointer list."""
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *[t.data_ptr() if t.numel() else None for t in tensors])
 
 
 def load(name: str, log=None) -> ctypes.CDLL:

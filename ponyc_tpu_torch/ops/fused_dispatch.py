@@ -85,12 +85,13 @@ class FusedDispatch:
 
     def source(self, target: str = "cuda") -> str:
         """The generated header for `target` ("cuda" or "host")."""
-        return lanecode.emit_cohort(
-            self.progs, field_names=self.field_names,
+        return (lanecode.emit_cohort(
+            self.progs, name="PonyCohort", field_names=self.field_names,
             field_dtypes=self.field_dtypes, base=self.base,
             batch=self.batch, cap=self.cap, ms=self.ms, w1=self.w1,
             w1_in=self.w1_in, noyield=self.noyield, destroy=self.destroy,
-            error=self.error, entry=self.entry, target=target)
+            error=self.error, target=target)
+            + f"#define PONY_ENTRY {self.entry}\n")
 
     def job(self, host: bool = False) -> _build.Job:
         return _build.Job("fused_dispatch",
@@ -99,8 +100,7 @@ class FusedDispatch:
 
     def bind(self, lib: ctypes.CDLL):
         fn = getattr(lib, self.entry)
-        nf = len(self.field_names)
-        fn.argtypes = ([ctypes.c_void_p] * (4 + 2 * nf + 8)
+        fn.argtypes = ([ctypes.c_void_p] * (4 + 2 + 8)
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         return fn
@@ -211,9 +211,9 @@ class FusedDispatch:
         def ptr(t):
             return None if t is None or t.numel() == 0 else t.data_ptr()
 
-        args = ([ptr(buf), ptr(head), ptr(n_run), ptr(ids)]
-                + [ptr(fields[f]) for f in self.field_names]
-                + [ptr(out_fields[f]) for f in self.field_names]
+        fin = _build.pointers([fields[f] for f in self.field_names])
+        fout = _build.pointers([out_fields[f] for f in self.field_names])
+        args = ([ptr(buf), ptr(head), ptr(n_run), ptr(ids), fin, fout]
                 + [ptr(out_tgt), ptr(out_words), ptr(new_head), ptr(ds),
                    ptr(erf), ptr(erc), ptr(erl), ptr(red), rows])
         if host:

@@ -1,5 +1,6 @@
 """Behaviour bodies as lane programs: what the fused dispatch kernel
-(``csrc/fused_dispatch.cu``) runs for each message.
+(``csrc/fused_dispatch.cu``) and the window kernel
+(``csrc/mega_window.cu``) run for each message.
 
 The JAX package gets its bodies into the Pallas kernel for free: tracing
 the body inside the kernel emits its operations there. A CUDA kernel has
@@ -22,9 +23,9 @@ F32 bit-casts of ``pack.pack_args``), exit, yield, destroy and
 
 Two ways to run a lane program: `replay` evaluates it with the recorded
 ATen ops on CPU tensors (it equals eager evaluation bit for bit, which
-the tests hold), and `emit_cohort` writes the C++ of one ``__device__``
-function per behaviour plus the cohort's constants, which
-``csrc/fused_dispatch.cu`` includes. The emitted C++ spells out torch's
+the tests hold), and `emit_cohort` writes one C++ struct per cohort:
+the cohort's constants and one ``__device__`` function per behaviour,
+which both kernels take through ``csrc/lane.cuh``. The emitted C++ spells out torch's
 elementwise semantics (int32 arithmetic wraps, ``//`` floors, ``%``
 takes the divisor's sign, shifts of the width or more saturate) and, for
 target "cuda", what torch's own CUDA kernels do where they differ from a
@@ -863,14 +864,15 @@ def op_count(prog: LaneProgram) -> int:
 
 def emit_behaviour(prog: LaneProgram, j: int, field_names: List[str],
                    target: str = "cuda") -> str:
-    """The C++ of one behaviour: `pony_beh_<j>(s, w, id, o)` reads the
-    lane's state `s`, payload words `w` and actor id, and writes the new
-    state into `s` and its sends and effects into `o`."""
+    """The C++ of one behaviour, a static member of its cohort's struct:
+    `beh_<j>(s, w, id, o)` reads the lane's state `s`, payload words `w`
+    and actor id, and writes the new state into `s` and its sends and
+    effects into `o`."""
     slot = {f: k for k, f in enumerate(field_names)}
-    lines = [f"// {prog.name}",
-             f"PONY_FN void pony_beh_{j}(PonyState& s, const int32_t* w, "
-             "int32_t id, PonyOut& o) {",
-             "  (void)w; (void)id;"]
+    lines = [f"  // {prog.name}",
+             f"  static PONY_FN void beh_{j}(State& s, const int32_t* w, "
+             "int32_t id, Out& o) {",
+             "    (void)w; (void)id;"]
     for i in _needed(prog):
         node = prog.nodes[i]
         ct = CTYPE[node.dtype]
@@ -882,66 +884,64 @@ def emit_behaviour(prog: LaneProgram, j: int, field_names: List[str],
             except NotImplementedError as err:
                 raise NotImplementedError(
                     f"behaviour {prog.name}: {err}") from None
-        lines.append(f"  const {ct} v{i} = {expr};")
+        lines.append(f"    const {ct} v{i} = {expr};")
     for f, i in prog.fields.items():
         node = prog.nodes[i]
         if not (node.kind == "field" and node.key == f):
-            lines.append(f"  s.f{slot[f]} = v{i};")
+            lines.append(f"    s.f{slot[f]} = v{i};")
     for m, (t, ws) in enumerate(prog.sends):
-        lines.append(f"  o.tgt[{m}] = v{t};")
+        lines.append(f"    o.tgt[{m}] = v{t};")
         for k, wi in enumerate(ws):
-            lines.append(f"  o.w[{m}][{k}] = v{wi};")
+            lines.append(f"    o.w[{m}][{k}] = v{wi};")
     for e, i in prog.effects.items():
         if i is not None:
-            lines.append(f"  o.{_EFFECT_SLOT[e]} = v{i};")
-    lines.append("}")
+            lines.append(f"    o.{_EFFECT_SLOT[e]} = v{i};")
+    lines.append("  }")
     return "\n".join(lines)
 
 
-def emit_cohort(progs: List[LaneProgram], *, field_names: List[str],
+def emit_cohort(progs: List[LaneProgram], *, name: str,
+                field_names: List[str],
                 field_dtypes: Dict[str, torch.dtype], base: int,
                 batch: int, cap: int, ms: int, w1: int, w1_in: int,
-                noyield: bool, destroy: bool, error: bool, entry: str,
-                target: str = "cuda") -> str:
-    """The generated header of one cohort's fused kernel: its constants,
-    its state struct and field-pointer lists, one function per behaviour
-    and the dispatch switch. csrc/fused_dispatch.cu includes it."""
+                noyield: bool, destroy: bool, error: bool,
+                target: str = "cuda", extra: Dict[str, int] = None) -> str:
+    """One cohort as a C++ struct named `name` (csrc/lane.cuh says what
+    the kernels take from it): its constants (and the `extra` ones, as
+    further `static constexpr int`s), its state struct, load/store of the
+    state columns from a pointer list, one function per behaviour and the
+    dispatch switch. Each cohort is a struct of its own, so a program's
+    cohorts share one translation unit."""
     nf = len(field_names)
     ct = [CTYPE[field_dtypes[f]] for f in field_names]
-    out = [
-        "// Generated by ponyc_tpu_torch/ops/lanecode.py: one cohort of the",
-        "// fused dispatch kernel (csrc/fused_dispatch.cu includes this).",
-        f"#define PONY_NF {nf}", f"#define PONY_NB {len(progs)}",
-        f"#define PONY_BATCH {batch}", f"#define PONY_CAP {cap}",
-        f"#define PONY_MS {ms}", f"#define PONY_W1 {w1}",
-        f"#define PONY_W1_IN {w1_in}", f"#define PONY_BASE {base}",
-        f"#define PONY_NOYIELD {int(bool(noyield))}",
-        f"#define PONY_DESTROY {int(bool(destroy))}",
-        f"#define PONY_ERROR {int(bool(error))}",
-        f"#define PONY_ENTRY {entry}",
-        "typedef PonyOutT<PONY_MS, PONY_W1> PonyOut;",
-        "struct PonyState {"]
-    out += [f"  {ct[k]} f{k};  // {field_names[k]}" for k in range(nf)]
-    out.append("};")
-    params = [f"const {ct[k]}* __restrict__ fin{k}" for k in range(nf)]
-    params += [f"{ct[k]}* __restrict__ fout{k}" for k in range(nf)]
-    out.append("#define PONY_FIELD_PARAMS " + ", ".join(params))
-    out.append("#define PONY_FIELD_ARGS " + ", ".join(
-        [f"fin{k}" for k in range(nf)] + [f"fout{k}" for k in range(nf)]))
-    out.append("#define PONY_FIELD_VOIDS " + ", ".join(
-        [f"const void* fin{k}" for k in range(nf)]
-        + [f"void* fout{k}" for k in range(nf)]))
-    out.append("#define PONY_FIELD_CASTS " + ", ".join(
-        [f"(const {ct[k]}*)fin{k}" for k in range(nf)]
-        + [f"({ct[k]}*)fout{k}" for k in range(nf)]))
-    out.append("#define PONY_LOAD(s, i) " + " ".join(
-        f"(s).f{k} = fin{k}[i];" for k in range(nf)))
-    out.append("#define PONY_STORE(s, i) " + " ".join(
-        f"fout{k}[i] = (s).f{k};" for k in range(nf)))
+    consts = dict(NF=nf, NB=len(progs), BATCH=batch, CAP=cap, MS=ms, W1=w1,
+                  W1_IN=w1_in, BASE=base, NOYIELD=int(bool(noyield)),
+                  DESTROY=int(bool(destroy)), ERROR=int(bool(error)),
+                  **(extra or {}))
+    out = [f"struct {name} {{"]
+    out += [f"  static constexpr int {k} = {v};" for k, v in consts.items()]
+    out.append("  typedef PonyOutT<MS, W1> Out;")
+    out.append("  struct State {")
+    out += [f"    {ct[k]} f{k};  // {field_names[k]}" for k in range(nf)]
+    out.append("  };")
+    out.append("  template <class P> static PONY_FN void load(State& s, "
+               "const P& p, int64_t i) {")
+    out += [f"    s.f{k} = ((const {ct[k]}*)p[{k}])[i];" for k in range(nf)]
+    out.append("    (void)s; (void)p; (void)i;")
+    out.append("  }")
+    out.append("  template <class P> static PONY_FN void store("
+               "const State& s, const P& p, int64_t i) {")
+    out += [f"    (({ct[k]}*)p[{k}])[i] = s.f{k};" for k in range(nf)]
+    out.append("    (void)s; (void)p; (void)i;")
+    out.append("  }")
     for j, p in enumerate(progs):
         out.append(emit_behaviour(p, j, field_names, target))
-    cases = " ".join(f"case {j}: pony_beh_{j}(s, w, id, o); break;"
+    cases = " ".join(f"case {j}: beh_{j}(s, w, id, o); break;"
                      for j in range(len(progs)))
-    out.append("#define PONY_SWITCH(local, s, w, id, o) "
-               f"switch (local) {{ {cases} default: break; }}")
+    out.append("  static PONY_FN void dispatch(int32_t local, State& s, "
+               "const int32_t* w, int32_t id, Out& o) {")
+    out.append(f"    switch (local) {{ {cases} default: "
+               "(void)s; (void)w; (void)id; (void)o; break; }")
+    out.append("  }")
+    out.append("};")
     return "\n".join(out) + "\n"

@@ -1,0 +1,457 @@
+"""The window megakernel and the int16 + escape record codec (the
+counterpart of ``ponyc_tpu/ops/megakernel.py``).
+
+≙ the whole of ponyint_actor_run's visit for every actor, tick after tick
+(src/libponyrt/actor/actor.c:383-664), plus the scheduler's delivery and
+mute bookkeeping: the entire gated window of engine.build_multi_step_gated
+as ONE persistent kernel. The JAX package replays the window's jaxpr
+inside one Pallas call; here it is the hand-written CUDA kernel
+``csrc/mega_window.cu``, launched cooperatively: a grid that fits on the
+card at once, with a grid-wide sync between the phases of a tick, and the
+gate (`engine.aux_go`) evaluated on the device, so a window is one launch
+whatever its tick count. The behaviour bodies reach it as lane programs
+(``ops/lanecode.py``), every cohort of the program in one generated header.
+
+Two things, as in the JAX package:
+
+1. **The window** (`MegaWindow`): built at `Runtime.start()` (every body is
+   traced then, so a body the lane code cannot emit raises there), it
+   takes and returns what the plain window takes and returns:
+   (st, inject_tgt, inject_words, limit, force, prev_aux[, probe]) →
+   (state, last_aux, ticks_run), with ticks_run an int32 tensor and no
+   host synchronisation. `forced=True` gives the tuner's spelling
+   (engine.build_forced_window): `limit` ticks unconditionally, injections
+   every tick. It chooses by where the state lies and by nothing else:
+   CUDA tensors launch the kernel (or raise), CPU tensors take the plain
+   window. `MegaWindow.launches` counts kernel launches and nothing else.
+
+2. **The codec** (`pack_words`/`unpack_words`): word tables (mailbox
+   rings, spill words; state.PACKED_WORD_FIELDS) cross the kernel boundary
+   as an int16 plane plus an int32 escape plane. A word that fits int16
+   (and is not the sentinel ESC) travels in the int16 plane; any other
+   word reads ESC there and lives in the escape plane. Lossless for every
+   int32. `modelled_bytes_per_msg` gives the bytes a ring record costs
+   packed and unpacked at a measured escape rate.
+
+Single shard only (`eligible`); an ineligible program runs the plain
+window, as the JAX package's does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import re
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from . import _build, lanecode
+
+# The escaped sentinel: int16 min. -32768 fits int16 but collides with the
+# sentinel, so it is escaped too: the codec is total on int32.
+ESC = -32768
+
+# ---------------------------------------------------------------------------
+# the record codec (torch and numpy spellings)
+
+
+def pack_words(w: torch.Tensor):
+    """int32 words → (int16 plane, int32 escape plane). Lossless:
+    `unpack_words(*pack_words(w)) == w` for every int32 value."""
+    w = w.to(torch.int32)
+    lo = w.to(torch.int16)
+    fits = (lo.to(torch.int32) == w) & (lo != ESC)
+    return torch.where(fits, lo, ESC), torch.where(fits, 0, w)
+
+
+def unpack_words(lo16: torch.Tensor, esc32: torch.Tensor) -> torch.Tensor:
+    return torch.where(lo16 == ESC, esc32, lo16.to(torch.int32))
+
+
+def pack_words_np(w: np.ndarray):
+    w = np.asarray(w, np.int32)
+    lo = w.astype(np.int16)
+    fits = (lo.astype(np.int32) == w) & (lo != np.int16(ESC))
+    lo16 = np.where(fits, lo, np.int16(ESC)).astype(np.int16)
+    esc32 = np.where(fits, np.int32(0), w).astype(np.int32)
+    return lo16, esc32
+
+
+def unpack_words_np(lo16: np.ndarray, esc32: np.ndarray) -> np.ndarray:
+    return np.where(lo16 == np.int16(ESC), esc32,
+                    lo16.astype(np.int32)).astype(np.int32)
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def escape_rate(arrays) -> float:
+    """Fraction of int32 words that need the escape plane (wide values
+    plus the sentinel) across `arrays`."""
+    total = escaped = 0
+    for a in arrays:
+        a = _host(a)
+        if a.size == 0 or a.dtype != np.int32:
+            continue
+        lo = a.astype(np.int16)
+        fits = (lo.astype(np.int32) == a) & (lo != np.int16(ESC))
+        total += a.size
+        escaped += int(a.size - np.count_nonzero(fits))
+    return escaped / total if total else 0.0
+
+
+def escape_rate_state(state) -> float:
+    """Measured escape rate over the live word tables (mailbox rings and
+    spill words) of an RtState."""
+    from ..runtime.state import PACKED_WORD_FIELDS
+    arrs = []
+    for f in PACKED_WORD_FIELDS:
+        v = getattr(state, f)
+        arrs += list(v.values()) if isinstance(v, dict) else [v]
+    return escape_rate(arrs)
+
+
+def record_words(opts) -> int:
+    """Ring-record width in words: behaviour id + payload + trace lanes."""
+    return 1 + opts.msg_words + getattr(opts, "trace_lanes", 0)
+
+
+def modelled_bytes_per_msg(opts, esc_rate: float = 0.0) -> Dict[str, Any]:
+    """Bytes a ring record costs unpacked (4 a word) and packed (2 a word
+    plus the escape plane at the measured escape rate)."""
+    w1 = record_words(opts)
+    unpacked = 4.0 * w1
+    packed = w1 * (2.0 + 4.0 * float(esc_rate))
+    return {
+        "record_words": w1,
+        "unpacked_bytes": unpacked,
+        "packed_bytes": round(packed, 3),
+        "ratio": round(unpacked / packed, 3),
+        "escape_rate": round(float(esc_rate), 6),
+    }
+
+
+# ---------------------------------------------------------------------------
+# eligibility
+
+
+def eligible(program, opts) -> bool:
+    """The kernel's preconditions: one shard, the other kernels of the
+    tick off (the window kernel is the fused form of both), and some
+    device cohort with behaviours."""
+    if program.shards != 1:
+        return False
+    if getattr(opts, "pallas", False) is True:
+        return False
+    if getattr(opts, "pallas_fused", False) is True:
+        return False
+    return any(ch.behaviours for ch in program.device_cohorts)
+
+
+# ---------------------------------------------------------------------------
+# the window kernel
+
+SRC = os.path.join(_build.CSRC_DIR, "mega_window.cu")
+# The fields of engine.StepAux that csrc/mega_window.cu names, by the
+# enums it uses for them (OB_* in the bool plane, OI_* in the int plane;
+# OI_TICKS, ticks run, is the int plane's last slot). `aux_layout` checks
+# the kernel's layout against these and engine._AUX_BOOL at bind time.
+_AUX_NAMED = ("device_pending", "host_pending", "exit_flag",
+              "spill_overflow", "spawn_fail", "blob_fail",
+              "blob_budget_fail", "any_muted", "exit_code", "n_processed",
+              "n_delivered")
+# State leaves the kernel updates (copied before the launch, so the input
+# state stays as it was); the word tables travel packed.
+_UPDATED = ("head", "tail", "alive", "muted", "mute_refs", "mute_age",
+            "mute_ovf", "pinned", "pressured", "dspill_tgt",
+            "dspill_sender", "dspill_count", "spill_overflow", "exit_flag",
+            "exit_code", "step_no", "n_processed", "n_delivered",
+            "n_rejected", "n_badmsg", "n_deadletter", "n_mutes",
+            "n_destroyed", "last_error", "last_error_loc", "n_errors",
+            "plan_key", "plan_perm", "plan_bounds", "world_bits")
+
+
+def aux_layout():
+    """The kernel's aux layout as engine.StepAux and engine._AUX_BOOL
+    give it (see pony_mega_aux_layout in csrc/mega_window.cu): the number
+    of aux fields, each field's output slot (bool slots 0.., int slots
+    100 + slot), then the slots of the fields the kernel names and of
+    ticks run."""
+    from ..runtime.engine import _AUX_BOOL, StepAux
+    slots, nb, ni = {}, 0, 0
+    for f in StepAux._fields:
+        if f in _AUX_BOOL:
+            slots[f], nb = nb, nb + 1
+        else:
+            slots[f], ni = 100 + ni, ni + 1
+    return ([len(StepAux._fields)] + [slots[f] for f in StepAux._fields]
+            + [slots[f] for f in _AUX_NAMED] + [100 + ni])
+
+
+def fixed_pointers() -> List[str]:
+    """The fixed part of the kernel's pointer table, read from the source
+    (enum PonyPtr up to P_AUX_IN), so the two cannot disagree."""
+    with open(SRC) as f:
+        text = f.read()
+    body = re.search(r"enum PonyPtr \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"\bP_[A-Z0-9_]+\b", body)
+    return names[:names.index("P_AUX_IN")]
+
+
+class MegaWindow:
+    """One program's window kernel (see the module docstring)."""
+
+    launches = 0          # kernel launches, all programs
+    fused = ()            # no fused dispatch kernels: `eligible` excludes them
+
+    def __init__(self, program, opts, plain, plain_forced):
+        from ..runtime.engine import StepAux, _dtype_of
+        from ..runtime.state import layout_sizes
+        self.program, self.opts = program, opts
+        self.plain, self.plain_forced = plain, plain_forced
+        self.enqueued_kernel = 0     # ticks offered to launched windows
+        self.windows = 0             # windows launched
+        self.cohorts = list(program.device_cohorts)
+        nl = program.n_local
+        e_out, _, n_entries = layout_sizes(program, opts)
+        pri = sorted({ch.priority for ch in self.cohorts}, reverse=True)
+        self.n_levels = 2 + max(1, len(pri))
+        self.fixed = fixed_pointers()
+        self.n_fixed = len(self.fixed) + len(StepAux._fields)
+        self.specs = []
+        off, ptr = 0, self.n_fixed
+        for k, ch in enumerate(self.cohorts):
+            fspecs = ch.atype.field_specs
+            names = list(fspecs)
+            dtypes = {f: _dtype_of(s) for f, s in fspecs.items()}
+            progs = [lanecode.trace_behaviour(
+                b, field_specs=fspecs, msg_words=opts.msg_words,
+                msg_words_in=ch.msg_words, max_sends=ch.max_sends)
+                for b in ch.behaviours]
+            self.specs.append(dict(
+                cohort=ch, name=ch.atype.__name__, progs=progs,
+                fields=names, dtypes=dtypes,
+                base=ch.behaviours[0].global_id if ch.behaviours else 0,
+                extra=dict(S0=ch.local_start, ROWS=ch.local_capacity,
+                           OUT_OFF=off, LEVEL=2 + pri.index(ch.priority),
+                           PBUF=ptr, PFIELD=ptr + 2)))
+            off += ch.local_capacity * ch.batch * ch.max_sends
+            ptr += 2 + len(names)
+        self.n_ptr = ptr
+        e = n_entries
+        self.world = dict(
+            NL=nl, CAP=opts.mailbox_cap, SPILL=opts.spill_cap,
+            INJ=opts.inject_slots, K=opts.mute_slots,
+            W1=1 + opts.msg_words, E_OUT=e_out, E=e,
+            NLEV=self.n_levels, UNMUTE=opts.unmute_occ,
+            OVERLOAD=opts.overload_occ, AGE=opts.mute_age_limit,
+            NPASS=max(1, -(-(nl * self.n_levels).bit_length() // 8)))
+        self.header = self.source("cuda")      # refusals surface here
+        self.tag = "pony_mega_" + re.sub(
+            r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
+        self._fn = self._host_fn = None
+        self.info = None
+        self._ws: Dict[Any, torch.Tensor] = {}
+
+    @property
+    def enqueued(self) -> int:
+        """Ticks enqueued: the plain window's (on the CPU) plus, for every
+        launched window, the ticks it may run (its limit; the kernel runs
+        at most that many and stops on the device's vote)."""
+        return self.plain.enqueued + self.enqueued_kernel
+
+    def source(self, target: str = "cuda") -> str:
+        """The generated pony_world.h for `target` ("cuda" or "host")."""
+        opts = self.opts
+        out = ["// Generated by ponyc_tpu_torch/ops/megakernel.py: one "
+               "program of the", "// window kernel (csrc/mega_window.cu "
+               "includes this).", "struct PonyWorld {"]
+        out += [f"  static constexpr int64_t {k} = {v};"
+                for k, v in self.world.items()]
+        out.append(f"  static constexpr int NPTR = {self.n_ptr};")
+        out.append("};")
+        for k, sp in enumerate(self.specs):
+            ch = sp["cohort"]
+            progs = sp["progs"]
+            out.append(lanecode.emit_cohort(
+                progs, name=f"PonyC{k}", field_names=sp["fields"],
+                field_dtypes=sp["dtypes"], base=sp["base"], batch=ch.batch,
+                cap=opts.mailbox_cap, ms=ch.max_sends,
+                w1=1 + opts.msg_words, w1_in=1 + ch.msg_words,
+                noyield=opts.noyield,
+                destroy=any(p.destroy_called for p in progs),
+                error=any(p.error_called for p in progs), target=target,
+                extra=sp["extra"]))
+        out.append("#define PONY_COHORTS(X) " + " ".join(
+            f"X(PonyC{k})" for k in range(len(self.specs))))
+        return "\n".join(out) + "\n"
+
+    def job(self, host: bool = False) -> _build.Job:
+        return _build.Job("mega_window",
+                          header=self.source("host") if host else self.header,
+                          header_name="pony_world.h", tag=self.tag, host=host)
+
+    def bind(self, lib: ctypes.CDLL):
+        fn = lib.pony_mega_launch
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.pony_mega_ws_words.restype = ctypes.c_longlong
+        lib.pony_mega_nptr.restype = ctypes.c_int
+        if lib.pony_mega_nptr() != self.n_ptr:
+            raise RuntimeError("window kernel: pointer table of "
+                               f"{lib.pony_mega_nptr()} entries, the "
+                               f"wrapper has {self.n_ptr}")
+        out = (ctypes.c_int * 64)()
+        n = lib.pony_mega_aux_layout(out)
+        got = list(out)[:n]
+        if got != aux_layout():
+            raise RuntimeError("window kernel: aux layout "
+                               f"{got} disagrees with engine.StepAux's "
+                               f"{aux_layout()}")
+        fn.ws_words = int(lib.pony_mega_ws_words())
+        return fn
+
+    def build(self, log=None) -> None:
+        """Build and bind the CUDA library, and read its occupancy (the
+        grid of every launch: blocks per SM x SMs)."""
+        lib = _build.build([self.job()], log)[0]
+        fn = self.bind(lib)
+        info = (ctypes.c_int * 7)()
+        err = lib.pony_mega_info(info)
+        if err != 0:
+            raise RuntimeError(f"window kernel: occupancy query failed: "
+                               f"CUDA error {err}")
+        self.info = dict(zip(("blocks_per_sm", "sms", "grid", "registers",
+                              "local_bytes", "shared_bytes", "cooperative"),
+                             list(info)))
+        if self.info["grid"] < 1 or not self.info["cooperative"]:
+            raise RuntimeError(f"window kernel cannot launch "
+                               f"cooperatively: {self.info}")
+        self._fn = fn
+
+    # -- calls -----------------------------------------------------------
+    def __call__(self, st, inject_tgt, inject_words, limit, force,
+                 prev_aux, probe=None):
+        """The gated window."""
+        return self._dispatch(st, inject_tgt, inject_words, limit, force,
+                              prev_aux, probe, forced=False)
+
+    def forced(self, st, inject_tgt, inject_words, limit):
+        """The forced spelling: `limit` ticks, injections every tick."""
+        return self._dispatch(st, inject_tgt, inject_words, limit, True,
+                              None, None, forced=True)
+
+    def _dispatch(self, st, inject_tgt, inject_words, limit, force,
+                  prev_aux, probe, forced):
+        dev = st.head.device
+        if dev.type == "cuda":
+            if self._fn is None:
+                raise RuntimeError(f"window kernel {self.tag} is not built: "
+                                   "Runtime.start() builds it")
+            self.windows += 1
+            self.enqueued_kernel += max(1, int(limit)) if not forced \
+                else int(limit)
+            return self._launch(self._fn, st, inject_tgt, inject_words,
+                                limit, force, prev_aux, forced)
+        if dev.type != "cpu":
+            raise ValueError(f"window kernel: unsupported device {dev}")
+        if forced:
+            return self.plain_forced(st, inject_tgt, inject_words, limit)
+        return self.plain(st, inject_tgt, inject_words, limit, force,
+                          prev_aux, probe)
+
+    def run_host(self, st, inject_tgt, inject_words, limit, force,
+                 prev_aux, forced=False):
+        """The kernel's source built for the host CPU and run on CPU
+        tensors (the phases in order). For tests: it holds the kernel's
+        code against the plain window where there is no card."""
+        if self._host_fn is None:
+            self._host_fn = self.bind(_build.build([self.job(host=True)])[0])
+        return self._launch(self._host_fn, st, inject_tgt, inject_words, limit, force,
+                            prev_aux, forced, host=True)
+
+    def workspace(self, dev, words: int) -> torch.Tensor:
+        """The kernel's scratch, allocated once per device."""
+        ws = self._ws.get(dev)
+        if ws is None:
+            ws = self._ws[dev] = torch.empty((words,), dtype=torch.int32,
+                                             device=dev)
+        return ws
+
+    def _launch(self, fn, st, inject_tgt, inject_words, limit, force,
+                prev_aux, forced, host=False):
+        from ..runtime.engine import _AUX_BOOL, StepAux, zero_aux
+        dev = st.head.device
+        w1, inj = self.world["W1"], self.world["INJ"]
+        for t, dt, shape in ((inject_tgt, torch.int32, (inj,)),
+                             (inject_words, torch.int32, (w1, inj))):
+            if t.dtype != dt or tuple(t.shape) != shape \
+                    or not t.is_contiguous() or t.device != dev:
+                raise ValueError(f"window kernel: inject input {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}, expected "
+                                 f"contiguous {dt} {shape} on {dev}")
+        if forced:
+            prev_aux = zero_aux(dev)
+        new = {f: getattr(st, f).clone() for f in _UPDATED}
+        for f, t in new.items():
+            if not t.is_contiguous() or t.device != dev:
+                raise ValueError(f"window kernel: state leaf {f} must be "
+                                 f"contiguous on {dev}")
+        dsp = pack_words(st.dspill_words)
+        rsp = pack_words(st.rspill_words)
+        bufs = {sp["name"]: pack_words(st.buf[sp["name"]])
+                for sp in self.specs}
+        fields = {sp["name"]: {f: st.type_state[sp["name"]][f].clone()
+                               for f in sp["fields"]} for sp in self.specs}
+        ws = self.workspace(dev, fn.ws_words)
+        n_b = len(_AUX_BOOL)
+        n_i = len(StepAux._fields) - n_b          # ticks run goes last
+        out_b = torch.empty((n_b,), dtype=torch.bool, device=dev)
+        out_i = torch.empty((n_i + 1,), dtype=torch.int32, device=dev)
+        table = {"P_" + f.upper(): t for f, t in new.items()}
+        table.update(
+            P_DSPILL_LO=dsp[0], P_DSPILL_ESC=dsp[1], P_RSPILL_TGT=st.rspill_tgt,
+            P_RSPILL_SENDER=st.rspill_sender, P_RSPILL_LO=rsp[0],
+            P_RSPILL_ESC=rsp[1], P_RSPILL_COUNT=st.rspill_count,
+            P_SPAWN_FAIL=st.spawn_fail, P_INJECT_TGT=inject_tgt,
+            P_INJECT_WORDS=inject_words, P_WS=ws, P_OUT_BOOL=out_b,
+            P_OUT_INT=out_i)
+        tensors = [table[n] for n in self.fixed]
+        for name, v in zip(StepAux._fields, prev_aux):
+            want = torch.bool if name in _AUX_BOOL else torch.int32
+            if v.dtype != want or v.numel() != 1 or v.device != dev:
+                raise ValueError(f"window kernel: aux {name} is {v.dtype} "
+                                 f"{tuple(v.shape)} on {v.device}")
+            tensors.append(v)
+        for sp in self.specs:
+            tensors += list(bufs[sp["name"]])
+            tensors += [fields[sp["name"]][f] for f in sp["fields"]]
+        ptrs = _build.pointers(tensors)
+        if host:
+            err = fn(ptrs, int(limit), int(bool(force)), int(forced), 1,
+                     None)
+        else:
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                err = fn(ptrs, int(limit), int(bool(force)), int(forced),
+                         self.info["grid"], stream)
+        if err != 0:
+            raise RuntimeError(f"window kernel {self.tag} launch failed: "
+                               f"CUDA error {err}")
+        if not host:
+            MegaWindow.launches += 1
+        st2 = dataclasses.replace(
+            st, **new,
+            buf={n: unpack_words(*p) for n, p in bufs.items()},
+            dspill_words=unpack_words(*dsp),
+            type_state={**st.type_state, **fields})
+        bools, ints = iter(range(n_b)), iter(range(n_i))
+        aux = StepAux(*(out_b[next(bools)] if f in _AUX_BOOL
+                        else out_i[next(ints)] for f in StepAux._fields))
+        return st2, aux, out_i[n_i]

@@ -38,7 +38,7 @@ import torch
 
 from ..api import Context
 from ..config import RuntimeOptions, check_supported, unported
-from ..ops import fused_dispatch, pack
+from ..ops import fused_dispatch, megakernel, pack
 from ..ops.mailbox_kernel import drain_msgs
 from ..ops.segment import counts_by_key
 from ..program import Cohort, Program
@@ -745,7 +745,15 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
     Injections land on tick 0 only. Returns (state, last_aux,
     ticks_run) with ticks_run an int32 tensor. `multi.enqueued` counts
     the ticks enqueued on the host, run or predicated off: each one
-    launches the tick's kernels once."""
+    launches the tick's kernels once.
+
+    delivery="pallas_mega" on an eligible program (ops/megakernel.py's
+    `eligible`) returns the window kernel instead: on CUDA tensors the
+    whole window is one launch of csrc/mega_window.cu, on CPU tensors it
+    runs this loop, its plain version. There `enqueued` adds, for every
+    launched window, the ticks it may run, and `windows` counts the
+    launches. An ineligible program runs this loop, as the JAX package's
+    does."""
     step = build_step(program, opts)
 
     def multi(st: RtState, inject_tgt, inject_words, limit: int, force,
@@ -775,4 +783,40 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
 
     multi.enqueued = 0
     multi.fused = step.fused
+    if opts.delivery == "pallas_mega" and megakernel.eligible(program, opts):
+        return megakernel.MegaWindow(program, opts, multi,
+                                     _plain_forced(step))
     return multi
+
+
+def _plain_forced(step):
+    def forced(st: RtState, inject_tgt, inject_words, limit: int):
+        aux = zero_aux(st.head.device)
+        for _ in range(int(limit)):
+            st, aux = step(st, inject_tgt, inject_words)
+        return st, aux, torch.full((), int(limit), dtype=torch.int32,
+                                   device=st.head.device)
+    return forced
+
+
+def build_forced_window(program: Program, opts: RuntimeOptions,
+                        window=None):
+    """`limit` ticks of the real step, unconditionally (≙ the reference's
+    build_forced_window, the tuner's calibration window): every early-exit
+    fact (host_pending, exit, sticky failure flags) is ignored, so the trip
+    count is exactly `limit`, and the injections are applied every tick.
+    Returns forced(st, inject_tgt, inject_words, limit) → (state, aux,
+    ticks) with ticks = limit as an int32 tensor, and the aux of the last
+    tick (zero_aux when limit is 0).
+
+    delivery="pallas_mega" on an eligible program takes the window
+    kernel's forced spelling (the kernel on CUDA tensors): `window` is the
+    MegaWindow the Runtime built at start() (`Runtime._multi_g`), so the
+    kernel is traced and built once."""
+    if opts.delivery == "pallas_mega" and megakernel.eligible(program, opts):
+        if not isinstance(window, megakernel.MegaWindow):
+            raise ValueError("build_forced_window: delivery='pallas_mega' "
+                             "takes the Runtime's window kernel "
+                             "(window=rt._multi_g)")
+        return window.forced
+    return _plain_forced(build_step(program, opts))

@@ -32,7 +32,7 @@ import torch
 from ..api import ActorTypeMeta, BehaviourDef
 from ..config import RuntimeOptions, check_supported, unported
 from ..errors import ERROR_CODES
-from ..ops import fused_dispatch, pack
+from ..ops import fused_dispatch, megakernel, pack
 from ..program import Program
 from . import engine
 from .controller import WindowController
@@ -164,12 +164,16 @@ class Runtime:
         self.program.finalize()
         # Building the window validates the program first (host cohorts,
         # device spawns and meshes raise before anything is allocated;
-        # under pallas_fused every body is traced for the fused kernel,
-        # and one the kernel cannot run raises here).
+        # under pallas_fused or delivery="pallas_mega" every body is
+        # traced for the kernel, and one the kernel cannot run raises
+        # here).
         self._multi_g = engine.build_multi_step_gated(self.program,
                                                       self.opts)
         if self.device.type == "cuda" and self._multi_g.fused:
             fused_dispatch.compile_all(self._multi_g.fused)
+        if self.device.type == "cuda" and isinstance(
+                self._multi_g, megakernel.MegaWindow):
+            self._multi_g.build()
         self.state = init_state(self.program, self.opts, self.device)
         from .. import tuning
         qi = self.opts.quiesce_interval
@@ -632,5 +636,7 @@ class Runtime:
     def ticks_enqueued(self) -> int:
         """Ticks enqueued since start(), run or predicated off on the
         device (steps_run counts only those that ran). Each enqueued tick
-        launches the tick's kernels once."""
+        launches the tick's kernels once; under the window kernel
+        (delivery="pallas_mega" on CUDA) a window is one launch, and the
+        count adds the ticks each launched window may run."""
         return self._multi_g.enqueued

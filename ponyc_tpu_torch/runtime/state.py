@@ -53,6 +53,12 @@ def layout_sizes(program: Program, opts: RuntimeOptions):
     return e_out, 0, s + opts.inject_slots + incoming
 
 
+# Word tables: mailbox rings, spill words (and trace lanes, with tracing):
+# what crosses the window kernel's boundary as the int16 + escape planes
+# of ops/megakernel.py's codec.
+PACKED_WORD_FIELDS = ("buf", "dspill_words", "rspill_words", "trace_buf")
+
+
 @dataclasses.dataclass
 class RtState:
     """The complete device state of the actor world. Per-shard "scalars"

@@ -289,14 +289,14 @@ def build_walkers(pkg, T, seed, n_w=24, n_s=8, n_seeds=10, vmax=14,
     return rt
 
 
-def build_fifo(pkg, T, seed, n_cons=6, items=40, **okw):
+def build_fifo(pkg, T, seed, n_cons=6, items=40, device="cpu", **okw):
     """The per-edge FIFO world of tests/test_fifo.py, ready to run()."""
     rng = np.random.default_rng(seed)
     pairs = [(c, s) for c in range(n_cons) for s in range(IN_SLOTS)]
     rng.shuffle(pairs)
     n_prod = len(pairs) // 2
     e1, e2 = pairs[:n_prod], pairs[n_prod:]
-    rt = new_runtime(pkg, {"msg_words": 2, **okw})
+    rt = new_runtime(pkg, {"msg_words": 2, **okw}, device)
     rt.declare(T.Prod, n_prod).declare(T.Cons, n_cons)
     rt.start()
     cids = rt.spawn_many(T.Cons, n_cons,
@@ -355,18 +355,29 @@ CORPUS_WORLDS = {
     "errors": (("Errs",), dict(_BASE, batch=2, max_sends=0)),
 }
 CORPUS = tuple(CORPUS_WORLDS)
+# Actors each corpus world declares (type name, capacity).
+CORPUS_DECLARE = {"yield_exit": (("Yielder", 2), ("Exiter", 1)),
+                  "trif": (("TriF", 3),), "destroy": (("Ephemeral", 4),),
+                  "errors": (("Errs", 2),)}
 
 
-def run_corpus(pkg, T, name, device="cpu", **okw):
-    """Run one world of the fused-kernel corpus (the programs of
-    tests/test_fused_dispatch.py) and return the numbers the packages,
-    or the card and the CPU, must agree on: exit codes, counters, ticks,
-    every field, liveness and last error codes."""
+def corpus_runtime(pkg, T, name, device="cpu", **okw):
+    """The started Runtime of one corpus world, nothing spawned yet."""
     rt = new_runtime(pkg, {**CORPUS_WORLDS[name][1], **okw}, device)
+    for tname, n in CORPUS_DECLARE[name]:
+        rt.declare(getattr(T, tname), n)
+    return rt.start()
+
+
+def run_corpus(pkg, T, name, device="cpu", rt=None, **okw):
+    """Run one world of the fused-kernel corpus (the programs of
+    tests/test_fused_dispatch.py; on `rt` from corpus_runtime, if given)
+    and return the numbers the packages, or the card and the CPU, must
+    agree on: exit codes, counters, ticks, every field, liveness and last
+    error codes."""
+    rt = rt or corpus_runtime(pkg, T, name, device, **okw)
     codes = []
     if name == "yield_exit":
-        rt.declare(T.Yielder, 2).declare(T.Exiter, 1)
-        rt.start()
         y = rt.spawn_many(T.Yielder, 1)[0]
         for _ in range(6):
             rt.send(int(y), T.Yielder.tick, 1)
@@ -376,8 +387,6 @@ def run_corpus(pkg, T, name, device="cpu", **okw):
         codes.append(rt.run())
         types = (T.Yielder, T.Exiter)
     elif name == "trif":
-        rt.declare(T.TriF, 3)
-        rt.start()
         ids = rt.spawn_many(T.TriF, 3)
         rt.set_fields(T.TriF, ids, buddy=np.roll(ids, -1))
         seq = [(0, T.TriF.add, (5,)), (1, T.TriF.scale, (3,)),
@@ -389,15 +398,11 @@ def run_corpus(pkg, T, name, device="cpu", **okw):
         codes.append(rt.run())
         types = (T.TriF,)
     elif name == "destroy":
-        rt.declare(T.Ephemeral, 4)
-        rt.start()
         for i in rt.spawn_many(T.Ephemeral, 4):
             rt.send(int(i), T.Ephemeral.die, 1 if int(i) % 2 == 0 else 0)
         codes.append(rt.run())
         types = (T.Ephemeral,)
     elif name == "errors":
-        rt.declare(T.Errs, 2)
-        rt.start()
         a, b = rt.spawn_many(T.Errs, 2)
         rt.send(int(a), T.Errs.go, 41)
         rt.send(int(a), T.Errs.go, 42)     # the latest error wins

@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need the card: the hand-written CUDA
 kernels (the drain and the fused dispatch) against their plain versions,
 and worlds run on the card against the same worlds on the CPU, with the
-fused dispatch off and on. Every test carries the `cuda` marker and
+fused dispatch off and on and with the window kernel
+(delivery="pallas_mega"). Every test carries the `cuda` marker and
 skips without a CUDA device. This file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed:
 
@@ -173,3 +174,35 @@ def test_fused_card_matches_cpu(name):
     assert fdm.FusedDispatch.launches > before
     assert card == run_corpus(ponyc_tpu_torch, TT, name, device="cpu",
                               pallas_fused=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CORPUS)
+def test_mega_card_matches_cpu(name):
+    """delivery="pallas_mega": the window kernel on the card against the
+    plain window on the CPU, through Runtime.run()."""
+    _need_cuda()
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    before = MegaWindow.launches
+    g = run_corpus(ponyc_tpu_torch, TT, name, device="cuda",
+                   delivery="pallas_mega")
+    assert MegaWindow.launches > before
+    assert g == run_corpus(ponyc_tpu_torch, TT, name, device="cpu",
+                           delivery="pallas_mega")
+
+
+@pytest.mark.cuda
+def test_mega_walkers_card_matches_cpu():
+    _need_cuda()
+    kw = dict(mailbox_cap=2, batch=1, msg_words=1, max_sends=2,
+              spill_cap=512, inject_slots=16, mute_age_limit=4,
+              delivery="pallas_mega")
+    out = []
+    for device in ("cuda", "cpu"):
+        rt = build_walkers(ponyc_tpu_torch, TT, 7, n_seeds=30,
+                           device=device, **kw)
+        rt.run(max_steps=2000)
+        out.append((counters(rt), rt.steps_run,
+                    {k: v.tolist() for k, v in
+                     rt.cohort_state(TT.Walker).items()}))
+    assert out[0] == out[1] and out[0][0]["n_mutes"] > 0

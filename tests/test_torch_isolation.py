@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing it and running a ring pulls
-in no JAX and nothing of the JAX package; it runs on CUDA unless the
+"""The PyTorch port stands alone: importing it (the window kernel's
+module included) and running a ring, with the plain window and with
+delivery="pallas_mega", pulls in no JAX and nothing of the JAX package; it runs on CUDA unless the
 caller asks for the CPU; and options this slice does not serve raise
 NotImplementedError instead of falling back."""
 
@@ -21,9 +22,11 @@ import json, sys
 import ponyc_tpu_torch
 from ponyc_tpu_torch import RuntimeOptions
 from ponyc_tpu_torch.models import ring
-rt = ring.run(32, 40, opts=RuntimeOptions(mailbox_cap=4, batch=1,
-              max_sends=1, msg_words=1, spill_cap=32, inject_slots=4,
-              tuning_cache="off"), device="cpu")
+import ponyc_tpu_torch.ops.megakernel
+for delivery in ("plan", "pallas_mega"):
+    rt = ring.run(32, 40, opts=RuntimeOptions(mailbox_cap=4, batch=1,
+                  max_sends=1, msg_words=1, spill_cap=32, inject_slots=4,
+                  tuning_cache="off", delivery=delivery), device="cpu")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
@@ -55,7 +58,7 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 @pytest.mark.parametrize("kw,slice_no", [
     (dict(pallas_fused="auto"), 5),
-    (dict(delivery="pallas_mega"), 3), (dict(delivery="cosort"), 5),
+    (dict(checkpoint_every_s=1.0), 8), (dict(delivery="cosort"), 5),
     (dict(delivery="auto"), 5), (dict(mesh_shards=2), 9),
     (dict(analysis=1), 7), (dict(blob_slots=4, blob_words=2), 6),
 ])
