@@ -29,12 +29,19 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
      kernels-mega — the window kernel against the plain window, every
                 state leaf, aux value and ticks_run bit for bit: the
                 four main paths at full width (ubench with and without
-                escaped payloads), two 16-tick windows each, the gated-
-                out window and the forced spelling; and every window of
-                Runtime.run() on the agree phase's worlds with heads and
-                tails moved next to 2**31-1. Device and wall time a
-                window, the plain window's, one CUDA-graph replay of the
-                plain forced window (a yardstick) and the bound;
+                payloads past int16; ubench at 2**20 lanes with 2048
+                pingers seeded; with the radix sort forced, all seeded
+                and 256 seeded, whose ticks' live entries fit one tile:
+                ubench's own ticks take the segment sort), two 16-tick
+                windows each,
+                the gated-out window and the forced spelling; and every
+                window of Runtime.run() on the agree phase's worlds with
+                heads and tails moved next to 2**31-1. Device and wall
+                time a window, the plain window's, one CUDA-graph replay
+                of the plain forced window (a yardstick) and the bound;
+                and the kernel's per-phase clock, one `phases` line per
+                world (device us a tick of each phase). `--only
+                kernels-mega` runs this phase alone;
   3. agree    — small worlds run on the card and on the CPU give equal
                 fields and counters on all three paths (the CPU path is
                 the one the test suite holds against the JAX package);
@@ -57,7 +64,8 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 the window kernel, against the NumPy oracle
                 (`reference_accels`);
   8. profile  — kernels launched a tick and the device's busy share
-                (torch.profiler) for ubench and mixed on each path.
+                (torch.profiler; the window kernel by CUDA events around
+                its launches) for ubench and mixed on each path.
 
 Output: the card's name and power limit (nvidia-smi) first, one line per
 phase, one JSON line listing every kernel, and as the last line
@@ -334,6 +342,15 @@ def build_kernels():
     return True
 
 
+def force_radix(mw):
+    """The window kernel `mw` with the segment sort ruled out, so that
+    every tick takes the radix sort (its source regenerated; build() then
+    builds it)."""
+    mw.world.update(SEG=-1)
+    mw.header = mw.source("cuda")
+    return mw
+
+
 def mega_windows():
     """The window kernel of every program the run drives with
     delivery="pallas_mega": the four main paths at full width (from their
@@ -350,6 +367,8 @@ def mega_windows():
         return engine.build_multi_step_gated(prog, opts)
 
     out = {"ubench": window(ubench.Pinger, 1 << 20, ubench_opts("mega")),
+           "ubench, radix sort": force_radix(window(
+               ubench.Pinger, 1 << 20, ubench_opts("mega", MEGA_TICKS))),
            "mixed": window(mixed_type(), 1 << 20, mixed_opts("mega")),
            "ring": window(ring.RingNode, 1024, ring_opts("mega")),
            "nbody": window(nbody.Body, 1024, nbody_opts("mega"))}
@@ -586,7 +605,7 @@ def check_kernels(rec, frec):
 MEGA_TICKS = 16          # ticks a window in the window kernel's checks
 
 
-def mega_bound(mw, ticks, processed):
+def mega_bound(mw, ticks, processed, live, branch):
     """The least time (ms) the card could take for `ticks` ticks of this
     program's window, and which term bounds it, from the bytes the window
     has to move whatever the design: the per-lane state (head, tail,
@@ -597,12 +616,18 @@ def mega_bound(mw, ticks, processed):
     at the float32 peak (67 TFLOP/s).
 
     Also returns `design_bytes`, what this kernel's own design moves over
-    the window and the function does not need: both codec planes of every
-    ring (6 bytes a word) read and written, the entry list (target and
-    words) written and read, its sort key and permutation written, each
-    of the NPASS radix passes reading and writing every entry's key and
-    index, and the segment bounds, every tick. It is not a bound (a sort
-    with fewer passes moves less) and only reported."""
+    the window, at `live` live entries a tick that take the sort `branch`
+    (megakernel.tick_sort): the state and rings read and written, the
+    entry list (target and words) written and read, the keys written and
+    read, the plan written, and the sort. A segment tick writes each live
+    entry's slot in the keys phase and reads it to place the entry, writes
+    the packed (level, entry) there and reads it in the deliver phase (16
+    bytes a live entry), and reads the keys once more to place the dead
+    entries (4 bytes an entry). A radix tick runs NPASS passes over every
+    entry: each reads the keys to count its digit, then reads each key
+    again and writes key and value to move it (16 bytes an entry), and a
+    pass after the first also reads the value (4 bytes). It is not a
+    bound and only reported."""
     from ponyc_tpu_torch.ops import lanecode
     w = mw.world
     nl, e, w1 = w["NL"], w["E"], w["W1"]
@@ -618,12 +643,45 @@ def mega_bound(mw, ticks, processed):
                 lanecode.op_count(p) for p in sp["progs"]) / len(sp["progs"]))
     plan = 2 * e * 4 + (nl + 1) * 4
     nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan
-    design = ticks * (2 * lane + 2 * ring_words * 6 + 2 * e * 4 * (1 + w1)
-                      + plan + w["NPASS"] * e * 16)
+    if branch == "segment":
+        sort = 16 * live + 4 * e
+    else:
+        sort = w["NPASS"] * e * 16 + (w["NPASS"] - 1) * e * 4
+    design = ticks * (2 * lane + 2 * ring_words * 4 + 2 * e * 4 * (1 + w1)
+                      + 2 * e * 4 + plan + sort)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = processed * ops_per_msg / H100_F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, t_bytes, t_ops, design)
+
+
+def mega_phases(mw, kern, label, reps=3):
+    """The window kernel's per-phase clock over `reps` windows of `kern()`
+    (each one launch with MegaWindow.clock set): mean device µs a tick of
+    each phase, from %globaltimer stamps after every grid sync. Printed
+    on a line of its own; these launches are checks, not the main path."""
+    import torch
+    from ponyc_tpu_torch.ops import megakernel
+    sums, ticks = {}, 0
+    for _ in range(reps):
+        clock = torch.zeros((MEGA_TICKS, megakernel.clock_slots(), 2),
+                            dtype=torch.int64, device="cuda")
+        mw.clock = clock
+        try:
+            out = kern()
+        finally:
+            mw.clock = None
+        torch.cuda.synchronize()
+        n = int(out[2])
+        for k, v in megakernel.phase_table(clock, n).items():
+            sums[k] = sums.get(k, 0.0) + v * n
+        ticks += n
+    tab = {k: v / ticks for k, v in sums.items()}
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in tab.items() if k != "tick")
+    print(f"phases {label} (window kernel, device us a tick, mean of "
+          f"{ticks} ticks in {reps} windows, %globaltimer): tick "
+          f"{tab['tick']:.2f} = {parts}", flush=True)
+    return tab
 
 
 def wrap_counts(st, cap):
@@ -642,11 +700,13 @@ def full_worlds():
     import numpy as np
     from ponyc_tpu_torch.models import mixed, nbody, ring, ubench
 
-    def pingers(hops):
+    def pingers(hops, seeded=1 << 20, radix=False):
         def build():
             rt, ids = ubench.build(1 << 20, ubench_opts("mega", MEGA_TICKS),
                                    pings=4)
-            ubench.seed_all(rt, ids, hops=hops, pings=4)
+            if radix:
+                force_radix(rt._multi_g).build()
+            ubench.seed_all(rt, ids[:seeded], hops=hops, pings=4)
             return rt
         return build
 
@@ -672,6 +732,11 @@ def full_worlds():
     return [("ubench 2^20 hops=2^30 (every payload escaped)",
              pingers(1 << 30)),
             ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
+            ("ubench 2^20, 256 pingers seeded, radix sort forced",
+             pingers(1 << 30, 256, radix=True)),
+            ("ubench 2^20, 2048 pingers seeded", pingers(1 << 30, 2048)),
+            ("ubench 2^20 hops=2^30, radix sort forced",
+             pingers(1 << 30, radix=True)),
             ("mixed 2^20", workers), ("ring 1024", nodes),
             ("nbody 1024", bodies)]
 
@@ -725,13 +790,16 @@ def check_mega(mrec):
         ticks = int(want[2])
         processed = int(want[0].n_processed[0]) - int(st1.n_processed[0])
         esc = megakernel.escape_rate_state(st1)
+        live = int(want[0].plan_bounds[-1])       # the last tick's
+        branch = megakernel.tick_sort(mw.world, want[0].plan_key)
         print(f"window kernel {label}: 2 windows of up to {T} ticks "
               f"({int(got[2])} ran in the second), {nout} leaves bit-equal "
-              f"to the plain window; escape rate {esc:.6f} "
+              f"to the plain window; {live} live entries in the last tick "
+              f"({branch} sort); escape rate {esc:.6f} "
               f"(build+seed+check {time.perf_counter() - t0:.1f} s)",
               flush=True)
         rec = dict(escape_rate=esc, ticks=ticks, processed=processed,
-                   info=mw.info)
+                   live=live, branch=branch, info=mw.info)
         if label.startswith("ubench") and "no payload" in label:
             # The gated-out window and the forced spelling.
             quiet = engine.aux_to_device(engine.aux_from_vector(
@@ -774,8 +842,9 @@ def check_mega(mrec):
             except Exception as ex:                 # noqa: BLE001
                 t.update(library_ms=None, library_call_ms=None,
                          graph_error=f"{type(ex).__name__}: {ex}"[:300])
-            b_ms, b_by, nbytes, t_b, t_o, design = mega_bound(mw, T,
-                                                              processed)
+            b_ms, b_by, nbytes, t_b, t_o, design = mega_bound(
+                mw, T, processed, live, branch)
+            t.update(phases=mega_phases(mw, kern, label))
             t.update(seconds=time.perf_counter() - t0)
             t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
                      bytes_ms=t_b, ops_ms=t_o, design_bytes=design,
@@ -843,7 +912,7 @@ def check_mega(mrec):
                 **{k: ub.get(k) for k in (
                     "ms", "ms_tick", "call_ms", "plain_ms", "plain_ms_tick",
                     "plain_call_ms", "bound_ms", "bound_ms_tick", "bound_by",
-                    "design_bytes", "design_ms", "library_ms",
+                    "design_bytes", "design_ms", "library_ms", "phases",
                     "library_call_ms", "info")},
                 ticks_a_window=T, worlds=worlds)
     return True
@@ -1198,33 +1267,119 @@ def _device_us(evt):
     return 0.0
 
 
-def profile_ticks(label, rt, ticks):
+PORT_KERNELS = ("drain_kernel", "pony_fused_kernel", "pony_mega_kernel")
+
+
+class EventTimed:
+    """A window kernel's bound launch function with a CUDA event recorded
+    on the launch stream just before and just after each launch: the
+    device time of each window kernel, read without the profiler."""
+
+    def __init__(self, fn):
+        self.fn, self.ws_words, self.events = fn, fn.ws_words, []
+
+    def __call__(self, *args):
+        import torch
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        err = self.fn(*args)
+        b.record()
+        self.events.append((a, b))
+        return err
+
+    def take_us(self):
+        """Microseconds of the launches recorded since the last call (the
+        stream must have been synchronised)."""
+        us = sum(a.elapsed_time(b) for a, b in self.events) * 1e3
+        self.events = []
+        return us
+
+
+def profile_ticks(label, rt, ticks, attempts=2):
     """Kernels launched a tick and the device's busy share over `ticks`
     ticks under torch.profiler (its wall is inflated by the profiler; the
-    device times and counts are what this reads)."""
+    device times and counts are what this reads). The window kernel's
+    device time comes from CUDA events around each of its launches in the
+    same run (`EventTimed`; the profiler has missed that launch in long
+    runs), the other kernels' from the profiler. Where the profiler did
+    not record a launch of the drain or the fused kernel, the ticks are
+    profiled again, and after `attempts` the phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprof
-    torch.cuda.synchronize()
-    with tprof(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rt.run(max_steps=ticks)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = launches = 0
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            busy += us
-            launches += evt.count
-    out = {"kernels_per_tick": launches / ticks,
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    mw = getattr(rt, "_multi_g", None)
+    timed = None
+    if isinstance(mw, MegaWindow) and mw._fn is not None:
+        timed = mw._fn = EventTimed(mw._fn)
+    try:
+        for _ in range(attempts):
+            torch.cuda.synchronize()
+            if timed:
+                timed.events = []
+            before = launches()
+            with tprof(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                rt.run(max_steps=ticks)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            launched = [b - a for a, b in zip(before, launches())]
+            busy = nkern = 0
+            seen = [0, 0, 0]
+            mega_prof_us = 0.0
+            for evt in prof.key_averages():
+                us = _device_us(evt)
+                if us <= 0 or \
+                        evt.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                if PORT_KERNELS[2] in evt.key:
+                    seen[2] += evt.count
+                    mega_prof_us += us
+                    continue                  # timed by the events
+                busy += us
+                nkern += evt.count
+                for k in range(2):
+                    if PORT_KERNELS[k] in evt.key:
+                        seen[k] += evt.count
+            missed = [k for k in range(2) if launched[k] and not seen[k]]
+            if not missed:
+                break
+    finally:
+        if timed:
+            mw._fn = timed.fn
+    if missed:
+        raise AssertionError(
+            f"profile {label}: in {attempts} profiled runs the profiler "
+            f"recorded none of the launches of "
+            f"{[PORT_KERNELS[k] for k in missed]}; (drain, fused, window) "
+            f"launched {tuple(launched)}")
+    mega_us = timed.take_us() if timed else 0.0
+    if launched[2] and mega_us <= 0:
+        raise AssertionError(f"profile {label}: {launched[2]} window "
+                             "kernel launches but no event time")
+    busy += mega_us
+    nkern += launched[2]
+    out = {"kernels_per_tick": nkern / ticks,
            "device_busy_ms_per_tick": busy / ticks / 1e3,
            "busy_share": busy / wall_us,
-           "profiled_wall_ms_per_tick": wall_us / ticks / 1e3}
-    print(f"profile {label}: {launches / ticks:.0f} kernels a tick, device "
+           "profiled_wall_ms_per_tick": wall_us / ticks / 1e3,
+           "launched": launched,
+           "window_event_ms_per_tick": mega_us / ticks / 1e3,
+           "window_profiler_ms_per_tick":
+               mega_prof_us / ticks / 1e3 if seen[2] else None}
+    mega = ""
+    if launched[2]:
+        prof_txt = (f"{out['window_profiler_ms_per_tick']:.3f} ms"
+                    if seen[2] else "not recorded")
+        mega = (f"; window kernel {out['window_event_ms_per_tick']:.3f} ms "
+                f"a tick by CUDA events (profiler: {prof_txt})")
+    print(f"profile {label}: {nkern / ticks:.0f} kernels a tick, device "
           f"busy {busy / ticks / 1e3:.3f} ms a tick = "
           f"{100 * busy / wall_us:.1f}% of the profiled wall "
-          f"({wall_us / ticks / 1e3:.3f} ms a tick)", flush=True)
+          f"({wall_us / ticks / 1e3:.3f} ms a tick){mega}; the port's "
+          f"kernels launched in it (drain, fused, window) "
+          f"{tuple(launched)}", flush=True)
     return out
 
 
@@ -1300,6 +1455,7 @@ def main():
     if build_kernels() is not None:
         if want("kernels"):
             check_kernels(rec, frec)
+        if want("kernels") or want("kernels-mega"):
             check_mega(mrec)
             summary["mega_worlds"] = mrec.get("worlds")
         if want("agree"):

@@ -12,52 +12,73 @@
 // and, with `forced`, the tuner's spelling (engine.build_forced_window):
 // `limit` ticks unconditionally, injections every tick.
 //
-// Design. One cooperative launch of a grid that fits on the card at once
-// (occupancy x SMs, so every block is resident); every loop inside is
-// grid-stride. A tick is a fixed sequence of phases with a grid-wide sync
-// wherever a phase reads what another lane wrote:
+// Design. One cooperative launch; every loop inside is grid-stride, so the
+// grid may be any size that fits on the card at once. The wrapper sizes it
+// to the world (ops/megakernel.py: grid_blocks): the smaller of occupancy
+// x SMs and what the widest phase can use (lanes or entries over the block
+// size). A tick is six phases on a segment tick and 5 + 3 * NPASS on a
+// radix tick, each ended by a grid-wide sync:
 //
-//   1. spill-pending counts, the largest occupancy, any pressure;
-//   2. per lane: unmute (≙ engine.py step 1), then the drain and dispatch
-//      of its cohort through `pony_lane` (csrc/lane.cuh, the per-lane code
-//      of the fused kernel) into the outbox of the entry list;
-//   3. per entry of the delivery list [dspill | inject | rspill | cohort 0
-//      outbox (k, m, lane) | cohort 1 ...]: its sort key (plan_key),
-//      dead letters, per-target counts, and the first digit's per-tile
-//      histograms;
-//   4./5. the stable sort: an LSD radix sort over the key range
-//      n_local*n_levels+1 in 8-bit digits; each pass is per-tile
-//      histograms, a grid-wide exclusive scan in digit-major order, and a
-//      scatter with stable in-tile ranks (warp match + per-warp counts).
-//      Beside the first pass, the segment bounds (plan_bounds) and the
-//      rejection offsets are grid-wide scans of the per-target counts;
-//   6. per target: the slot-plane ring rebuild and the spill (rejected
-//      entries in sorted order, truncated to spill_cap); per sorted entry:
-//      the mute triggers (atomic max and min into the muting-ref table);
-//   7. per lane: destroys, mute bookkeeping, the commit of head, tail and
-//      the flags; the new spill replaces the old;
-//   8. one thread: counters, world_bits, the aux and the gate, read by
-//      every block after the sync.
+//   1. lanes: per lane, unmute (≙ engine.py step 1), then the drain and
+//      dispatch of its cohort through `pony_lane` (csrc/lane.cuh, the
+//      per-lane code of the fused kernel) into the outbox of the entry list;
+//   2. keys: per entry of the delivery list [dspill | inject | rspill |
+//      cohort 0 outbox (k, m, lane) | cohort 1 ...], its sort key
+//      (plan_key), dead letters, per-target counts (the atomic returns
+//      the entry's slot in its target's segment) and the live entries of
+//      each tile;
+//   3. scan: per-target scans (plan_bounds, acceptance, rejection offsets,
+//      the largest segment, each lane's overloaded-or-pressured flag) and
+//      the tiles' live prefix;
+//   4. the stable sort (plan_perm = argsort(key, stable=True)), one of
+//      two, chosen on the device from the tick's own counts:
+//      - segment (no target got more than SEG entries, as in ubench,
+//        mixed, nbody and the ring): each live entry goes to the slot
+//        phase 2 gave it, every block places the dead entries after the
+//        live ones in entry order (dead keys all equal NL*NLEV, sort
+//        last), and phase 5 sorts each segment by (level, entry);
+//      - radix (fan-in): an LSD radix sort over the key range in NPASS
+//        passes of DBITS-bit digits (two under 2^22), reduce then scan:
+//        each block owns a contiguous run of tiles and moves its entries
+//        from its digit offsets, ranking each tile stably (warp-private
+//        digit counts in shared memory, `__match_any_sync` within a round
+//        of 32, the walk replayed to place); each pass is three phases:
+//        a count, a scan of the counts and the move;
+//   5. deliver: per target, (segment tick) the sort of its segment, the
+//      slot-plane ring rebuild and the spill (rejected entries in sorted
+//      order, truncated to spill_cap) and the next tick's spill-pending
+//      counts; the mute triggers (atomic max and min into the muting-ref
+//      table) per live sorted entry (per target on a segment tick), whose
+//      sender is read only for an entry that was rejected or whose
+//      receiver is hot;
+//   6. commit: per lane, destroys, mute bookkeeping, the commit of head,
+//      tail and the flags, and the next tick's largest occupancy and
+//      pressure; the new spill replaces the old.
+//
+// Then every block computes the gate from the tick's accumulators (two
+// sets, by tick parity, so a block that reads one set never races the
+// reset of the other); block 0 writes the counters and the aux. No sync
+// follows the gate.
 //
 // State the kernel updates lies in the caller's tensors (copies of the
-// input state). A buffer one phase writes and a later phase reads in the
-// same launch is never read through const __restrict__ or the read-only
-// cache. Word tables (mailbox rings, spill words) are the int16 + int32
-// escape planes of ops/megakernel.py's codec: a word reads as
-// `lo == ESC ? esc : lo`, and a write fills both planes.
+// input state). Word tables (mailbox rings, spill words) are int32, read
+// and written in place. A buffer one phase writes and a later phase reads
+// in the same launch is never read through const __restrict__ or the
+// read-only cache.
 //
 // Numbers. Heads, tails and counters wrap as int32 (unsigned arithmetic).
 // Only integer sums cross lanes, so atomics keep the result exact; float
 // work stays per lane, built with -fmad=false.
 //
-// Bound. A ubench tick (2^20 lanes, cap 4, batch 4) reads and writes the
-// per-lane state and rings once (about 70 MB), writes and reads the
-// entry list, and moves every entry's key and index once per radix pass
-// (three passes, about 100 MB each way): a memory bound of roughly 0.1 ms
-// a tick at 3.35 TB/s; chip_smoke.py computes it from the run. This first
-// version aims to be right: a grid sync costs microseconds, the sort
-// moves every entry three times, and nothing is staged in shared memory
-// beyond the sort's tiles.
+// Bound. A ubench tick (2^20 lanes, cap 4, batch 4) must read and write
+// the per-lane state and rings once and write the last plan (about
+// 172 MB a tick, 0.05 ms at 3.35 TB/s; chip_smoke.py::mega_bound). This
+// design also writes and reads the entry list and moves each entry's key
+// and index once (a segment tick) or once a pass (a radix tick). What
+// bounds it now is latency, not bytes: the dispatch's per-lane work, the
+// delivery's dependent gathers through plan_perm, the sort's scattered
+// 4-byte stores and atomics, and for a small world the grid syncs. The
+// per-phase clock (P_CLOCK) measures each phase.
 //
 // The same source builds as host C++ (no __CUDACC__): one "block" of one
 // "thread" runs the phases in order and the grid sync is a no-op. The CPU
@@ -81,42 +102,63 @@ namespace cg = cooperative_groups;
 
 // The pointer table. ops/megakernel.py reads these names, in this order;
 // the 20 previous-aux pointers (engine.StepAux's fields in order) follow
-// P_AUX_IN, then the cohorts' pointers (rings lo/esc, then fields).
+// P_AUX_IN, then the cohorts' pointers (the ring, then the fields).
 enum PonyPtr {
   P_HEAD, P_TAIL, P_ALIVE, P_MUTED, P_MUTE_REFS, P_MUTE_AGE, P_MUTE_OVF,
   P_PINNED, P_PRESSURED,
-  P_DSPILL_TGT, P_DSPILL_SENDER, P_DSPILL_LO, P_DSPILL_ESC, P_DSPILL_COUNT,
-  P_RSPILL_TGT, P_RSPILL_SENDER, P_RSPILL_LO, P_RSPILL_ESC, P_RSPILL_COUNT,
+  P_DSPILL_TGT, P_DSPILL_SENDER, P_DSPILL_WORDS, P_DSPILL_COUNT,
+  P_RSPILL_TGT, P_RSPILL_SENDER, P_RSPILL_WORDS, P_RSPILL_COUNT,
   P_SPILL_OVERFLOW, P_EXIT_FLAG, P_EXIT_CODE, P_STEP_NO, P_N_PROCESSED,
   P_N_DELIVERED, P_N_REJECTED, P_N_BADMSG, P_N_DEADLETTER, P_N_MUTES,
   P_N_DESTROYED, P_SPAWN_FAIL, P_LAST_ERROR, P_LAST_ERROR_LOC, P_N_ERRORS,
   P_PLAN_KEY, P_PLAN_PERM, P_PLAN_BOUNDS, P_WORLD_BITS,
-  P_INJECT_TGT, P_INJECT_WORDS, P_WS, P_OUT_BOOL, P_OUT_INT,
+  P_INJECT_TGT, P_INJECT_WORDS, P_WS, P_OUT_BOOL, P_OUT_INT, P_CLOCK,
   P_AUX_IN,
   P_FIXED = P_AUX_IN + 20
 };
 
-// The world: PonyWorld's constants and one struct per cohort (lanecode.py
+// The world: PonyWorld's constants (NPASS and DBITS from
+// ops/megakernel.py: radix_plan) and one struct per cohort (lanecode.py
 // emit_cohort, with S0, ROWS, OUT_OFF, LEVEL, PBUF and PFIELD), and
 // PONY_COHORTS(X), which applies X to every cohort in row order.
 #include "pony_world.h"
 
 typedef PonyWorld W;
 
-constexpr int THREADS = 256;           // = RADIX: one digit per thread
-constexpr int RADIX = 256;
-constexpr int ROUNDS = 8;
-constexpr int64_t TILE = (int64_t)THREADS * ROUNDS;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 16;                        // entries a thread a tile
+constexpr int64_t TILE = (int64_t)THREADS * ITEMS;
 constexpr int64_t NTILE = (W::E + TILE - 1) / TILE;
-constexpr int64_t CH = 2048;           // chunk of the per-target scans
+constexpr int WROUNDS = ITEMS;                   // rounds of 32 a warp
+constexpr int32_t SEG = (int32_t)W::SEG;         // segment tick: each
+                                                 // target's entries <= this
+constexpr int NPASS = (int)W::NPASS;
+constexpr int DBITS = (int)W::DBITS;
+constexpr int RADIX = 1 << DBITS;
+constexpr int32_t DEAD = (int32_t)(W::NL * W::NLEV);   // a dead entry's key
+// Chunk of the per-target scans: at least one round of 32 a warp, and
+// at most about 1,024 chunks (256 targets a chunk for the ring's 1,024
+// lanes, 2,048 at 2^20 lanes).
+constexpr int64_t pow2_at_least(int64_t x) {
+  int64_t p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+constexpr int64_t CH = pow2_at_least((W::NL + 1 + 1023) / 1024) > 256
+                           ? pow2_at_least((W::NL + 1 + 1023) / 1024)
+                           : 256;
 constexpr int64_t NCH = (W::NL + 1 + CH - 1) / CH;
 constexpr int64_t OUT0 = 2 * W::SPILL + W::INJ;   // first outbox entry
-constexpr int16_t ESC = -32768;
+constexpr int ACC_SET = 32;            // words of one accumulator set
+constexpr int64_t GMAX = 1024;         // the most blocks a launch may have
+static_assert(RADIX <= 2048, "a digit is at most 11 bits");
+static_assert(W::E < (1LL << 31), "entry indices are int32");
 
 // The workspace (int32 words): offsets of its arrays.
 namespace pws {
-constexpr int64_t ACC = 0;                       // 64 scalars
-constexpr int64_t DSP_CNT = 64;                  // [NL] spill entries a row
+constexpr int64_t ACC = 0;                       // 2 sets, by tick parity
+constexpr int64_t DSP_CNT = 2 * ACC_SET;         // [NL] spill entries a row
 constexpr int64_t TCNT = DSP_CNT + W::NL;        // [NL] entries a target
 constexpr int64_t WMUTED = TCNT + W::NL;         // [NL] muted after unmute
 constexpr int64_t NEWHEAD = WMUTED + W::NL;      // [NL] head after dispatch
@@ -126,28 +168,33 @@ constexpr int64_t ACCW = NEWLY + W::NL;          // [NL] accepted a target
 constexpr int64_t RMAX = ACCW + W::NL;           // [K, NL] muting refs
 constexpr int64_t RMIN = RMAX + W::K * W::NL;    // [K, NL]
 constexpr int64_t ROFF = RMIN + W::K * W::NL;    // [NL+1] spill offsets
-constexpr int64_t CTOT = ROFF + W::NL + 1;       // [NCH] chunk totals
+constexpr int64_t BLOC = ROFF + W::NL + 1;       // [NL+1] chunk-local bounds
+constexpr int64_t CTOT = BLOC + W::NL + 1;       // [NCH] chunk totals
 constexpr int64_t RTOT = CTOT + NCH;             // [NCH]
 constexpr int64_t OUT_TGT = RTOT + NCH;          // [E_OUT]
-constexpr int64_t OUT_W = OUT_TGT + W::E_OUT;    // [W1, E_OUT]
+constexpr int64_t OUT_W = OUT_TGT + W::E_OUT;    // [E_OUT, W1] entry-major
 constexpr int64_t KA = OUT_W + W::W1 * W::E_OUT; // sort ping-pong [E] x4
 constexpr int64_t VA = KA + W::E;
 constexpr int64_t KB = VA + W::E;
 constexpr int64_t VB = KB + W::E;
-constexpr int64_t SKEY = VB + W::E;              // [E] sorted keys
-constexpr int64_t COUNTS = SKEY + W::E;          // [RADIX, NTILE]
-constexpr int64_t DTOT = COUNTS + RADIX * NTILE; // [RADIX]
-constexpr int64_t NSP_TGT = DTOT + RADIX;        // [SPILL] the new spill
+constexpr int64_t SKEY = VB + W::E;              // [E] sorted keys (radix)
+constexpr int64_t SLOT = SKEY + W::E;            // [E] slot in its segment
+constexpr int64_t HOT = SLOT + W::E;             // [NL] overloaded/pressured
+constexpr int64_t LCNT = HOT + W::NL;            // [NTILE+1] live a tile
+constexpr int64_t GTOT = LCNT + NTILE + 1;       // [NPASS, RADIX]
+constexpr int64_t BCNT = GTOT + NPASS * RADIX;   // [RADIX, GMAX] a block's
+constexpr int64_t NSP_TGT = BCNT + RADIX * GMAX;  // new spill
 constexpr int64_t NSP_SND = NSP_TGT + W::SPILL;
 constexpr int64_t NSP_W = NSP_SND + W::SPILL;    // [W1, SPILL]
 constexpr int64_t END = NSP_W + W::W1 * W::SPILL;
+static_assert(ACC % 2 == 0, "the 64-bit exit key is aligned");
 }  // namespace pws
 
-// Accumulator slots (pws::ACC + ...).
+// Accumulator slots (within a set).
 enum PonyAcc {
   A_EXITKEY = 0,   // 64-bit: (0xffffffff - row) << 32 | code, max wins
-  A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_BECAME, A_ANY_OCC,
-  A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_ANY_PR, A_GO, A_NACC
+  A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_SEGMAX,
+  A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NACC
 };
 
 struct PonyMegaArgs {
@@ -160,11 +207,27 @@ struct Grid {
   PONY_FN bool first() const { return block == 0 && tid == 0; }
 };
 
+// Shared memory, one buffer for the phases that use it in turn.
+struct Smem {
+  union {
+    uint16_t wh[WARPS][RADIX];          // scatter: per-warp digit counts
+    int32_t hist[RADIX];                // radix count: a block's digits
+    int32_t cpre[NCH];                  // segment place: chunk prefix
+  } u;
+  int32_t off[RADIX];                   // scatter: the block's digit offsets
+};
+
 #define PONY_FOR(i, n)                                                   \
   for (int64_t i = g.block * g.nthreads + g.tid; i < (int64_t)(n);       \
        i += g.nblocks * g.nthreads)
 #define PONY_FOR_BLOCKS(b, n) \
   for (int64_t b = g.block; b < (int64_t)(n); b += g.nblocks)
+// This block's contiguous range of tiles (a radix pass's count and move
+// share it, so a block's digit counts describe what it will move).
+#define PONY_FOR_MY_TILES(t)                                   \
+  for (int64_t t = NTILE * g.block / g.nblocks,               \
+               t##_end = NTILE * (g.block + 1) / g.nblocks;   \
+       t < t##_end; ++t)
 
 // ---- atomics and block-wide sums (plain on the host build) ------------
 
@@ -217,6 +280,21 @@ PONY_FN int32_t block_sum(int32_t v) {
 #endif
 }
 
+PONY_FN int32_t block_max(int32_t v) {
+#ifdef __CUDACC__
+  __shared__ int32_t s_m[THREADS / 32];
+  v = __reduce_max_sync(0xffffffffu, v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) s_m[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int32_t t = INT_MIN;
+  for (int w = 0; w < THREADS / 32; ++w) t = s_m[w] > t ? s_m[w] : t;
+  return t;
+#else
+  return v;
+#endif
+}
+
 // The exclusive prefix of v over the block's threads, and the total.
 PONY_FN int32_t block_excl_scan(int32_t v, int32_t* total) {
 #ifdef __CUDACC__
@@ -243,42 +321,26 @@ PONY_FN int32_t block_excl_scan(int32_t v, int32_t* total) {
 #endif
 }
 
-// ---- the codec ---------------------------------------------------------
-
-PONY_FN int32_t unpack_word(const int16_t* lo, const int32_t* esc,
-                            int64_t k) {
-  const int16_t l = lo[k];
-  return l == ESC ? esc[k] : (int32_t)l;
-}
-PONY_FN void pack_word(int16_t* lo, int32_t* esc, int64_t k, int32_t w) {
-  const int16_t l = (int16_t)w;
-  const bool fits = (int32_t)l == w && l != ESC;
-  lo[k] = fits ? l : ESC;
-  esc[k] = fits ? 0 : w;
-}
-
-PONY_FN int32_t block_max(int32_t v) {
-#ifdef __CUDACC__
-  __shared__ int32_t s_m[THREADS / 32];
-  v = __reduce_max_sync(0xffffffffu, v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_m[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int32_t t = INT_MIN;
-  for (int w = 0; w < THREADS / 32; ++w) t = s_m[w] > t ? s_m[w] : t;
-  return t;
-#else
-  return v;
-#endif
+// In-place exclusive scan of n words by one block; returns the total.
+PONY_FN int32_t block_scan_array(const Grid& g, int32_t* x, int64_t n) {
+  int32_t carry = 0;
+  for (int64_t b = 0; b < n; b += g.nthreads) {
+    const int64_t t = b + g.tid;
+    const int32_t v = t < n ? x[t] : 0;
+    int32_t tot;
+    const int32_t ex = block_excl_scan(v, &tot);
+    if (t < n) x[t] = wadd(carry, ex);
+    carry = wadd(carry, tot);
+  }
+  return carry;
 }
 
 // ---- the entry list ----------------------------------------------------
 
 #define PI32(k) ((int32_t*)a.p[k])
 #define PU8(k) ((uint8_t*)a.p[k])
-#define PI16(k) ((int16_t*)a.p[k])
 
-// Sender row and delivery level of outbox entry o (cohort C's range).
+// Sender row of outbox entry o (cohort C's range).
 template <class C>
 PONY_FN bool outbox_sender(int64_t o, int32_t* snd) {
   constexpr int64_t n = (int64_t)C::BATCH * C::MS * C::ROWS;
@@ -314,16 +376,14 @@ PONY_FN int32_t entry_sender(const PonyMegaArgs& a, int64_t e) {
 
 PONY_FN int32_t entry_word(const PonyMegaArgs& a, const int32_t* ws,
                            int64_t e, int j, bool inject) {
-  if (e < W::SPILL)
-    return unpack_word(PI16(P_DSPILL_LO), PI32(P_DSPILL_ESC),
-                       (int64_t)j * W::SPILL + e);
+  if (e < W::SPILL) return PI32(P_DSPILL_WORDS)[(int64_t)j * W::SPILL + e];
   if (e < W::SPILL + W::INJ)
     return inject ? PI32(P_INJECT_WORDS)[(int64_t)j * W::INJ + e - W::SPILL]
                   : 0;
   if (e < OUT0)
-    return unpack_word(PI16(P_RSPILL_LO), PI32(P_RSPILL_ESC),
-                       (int64_t)j * W::SPILL + e - W::SPILL - W::INJ);
-  return ws[pws::OUT_W + (int64_t)j * W::E_OUT + e - OUT0];
+    return PI32(P_RSPILL_WORDS)[(int64_t)j * W::SPILL + e - W::SPILL -
+                                W::INJ];
+  return ws[pws::OUT_W + (e - OUT0) * W::W1 + j];
 }
 
 // Target row (-1 = none) and level of entry e, as engine.py's delivery
@@ -351,9 +411,12 @@ PONY_FN void entry_target(const PonyMegaArgs& a, const int32_t* ws,
   }
 }
 
-// ---- phase 1: spill-pending counts, largest occupancy, any pressure ----
+// ---- the window's prologue: spill-pending counts, occupancy, pressure ---
 
-PONY_FN void ph_pending(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
+// For tick 0 only; later ticks get these from the deliver (spill-pending
+// counts) and commit (largest occupancy, any pressure) phases before them.
+PONY_FN void ph_pending(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                        int32_t* prev) {
   const int32_t* dt = PI32(P_DSPILL_TGT);
   PONY_FOR(q, W::SPILL) {
     const int32_t t = dt[q];
@@ -371,12 +434,12 @@ PONY_FN void ph_pending(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
   mx = block_max(mx);
   anyp = block_sum(anyp);
   if (g.tid == 0) {
-    g_max(ws + pws::ACC + A_OCC_MAX, mx);
-    if (anyp) g_add(ws + pws::ACC + A_ANY_PR, 1);
+    g_max(prev + A_OCC_MAX, mx);
+    if (anyp) g_add(prev + A_ANY_PR_END, 1);
   }
 }
 
-// ---- phase 2: unmute, then drain and dispatch, per lane -----------------
+// ---- phase 1: unmute, then drain and dispatch, per lane -----------------
 
 struct PonySums {
   int32_t nproc, nbad, ndes, nerr;
@@ -384,11 +447,10 @@ struct PonySums {
 
 template <class C>
 struct MegaRing {
-  const int16_t* lo;
-  const int32_t* esc;
+  const int32_t* buf;
   int64_t i;
   PONY_FN int32_t operator()(uint32_t slot, int j) const {
-    return unpack_word(lo, esc, ((int64_t)slot * C::W1_IN + j) * C::ROWS + i);
+    return buf[((int64_t)slot * C::W1_IN + j) * C::ROWS + i];
   }
 };
 
@@ -400,7 +462,7 @@ struct MegaSend {
   PONY_FN void operator()(int k, int m, int32_t t, const int32_t* w) const {
     const int64_t o = C::OUT_OFF + ((int64_t)k * C::MS + m) * C::ROWS + i;
     tgt[o] = t;
-    for (int j = 0; j < C::W1; ++j) words[(int64_t)j * W::E_OUT + o] = w[j];
+    for (int j = 0; j < C::W1; ++j) words[o * W::W1 + j] = w[j];
   }
 };
 
@@ -411,16 +473,15 @@ struct MegaFields {
 };
 
 template <class C>
-PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws, int64_t r,
-                           bool runnable, uint32_t h, int32_t occ0,
-                           PonySums& sums) {
+PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
+                           int32_t* cur, int64_t r, bool runnable,
+                           uint32_t h, int32_t occ0, PonySums& sums) {
   const int64_t i = r - C::S0;
   const int32_t nr = runnable ? (occ0 < C::BATCH ? occ0 : C::BATCH) : 0;
   typename C::State s;
   const MegaFields f = {&a, C::PFIELD};
   C::load(s, f, i);
-  const MegaRing<C> ring = {(const int16_t*)a.p[C::PBUF],
-                            (const int32_t*)a.p[C::PBUF + 1], i};
+  const MegaRing<C> ring = {(const int32_t*)a.p[C::PBUF], i};
   const MegaSend<C> send = {ws + pws::OUT_TGT, ws + pws::OUT_W, i};
   const PonyLane l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send);
   C::store(s, f, i);
@@ -435,12 +496,15 @@ PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws, int64_t r,
   sums.ndes += l.ds;
   sums.nerr += l.erf;
   if (l.ef)                        // exit: the lowest exiting row wins
-    g_max64((unsigned long long*)(ws + pws::ACC + A_EXITKEY),
+    g_max64((unsigned long long*)(cur + A_EXITKEY),
             ((unsigned long long)(0xffffffffu - (uint32_t)r) << 32) |
                 (uint32_t)l.ec);
 }
 
-PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
+// `prev` holds the previous tick's largest occupancy and pressure (the
+// prologue's for tick 0); `dsp` is the current spill's length.
+PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                      int32_t* cur, const int32_t* prev, int32_t dsp) {
   const int32_t* head = PI32(P_HEAD);
   const int32_t* tail = PI32(P_TAIL);
   const uint8_t* alive = PU8(P_ALIVE);
@@ -450,10 +514,10 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
   uint8_t* ovf = PU8(P_MUTE_OVF);
   const int32_t* age = PI32(P_MUTE_AGE);
   const int32_t* dcnt = ws + pws::DSP_CNT;
-  const bool any_pr = ws[pws::ACC + A_ANY_PR] > 0;
+  const bool any_pr = prev[A_ANY_PR_END] > 0;
   const int32_t rsp = PI32(P_RSPILL_COUNT)[0];
-  const bool quiet = ws[pws::ACC + A_OCC_MAX] <= W::UNMUTE &&
-                     PI32(P_DSPILL_COUNT)[0] == 0 && rsp == 0 && !any_pr;
+  const bool quiet = prev[A_OCC_MAX] <= W::UNMUTE && dsp == 0 && rsp == 0 &&
+                     !any_pr;
   PonySums sums = {0, 0, 0, 0};
   PONY_FOR(r, W::NL) {
     // Unmute (≙ ponyint_sched_unmute_senders, scheduler.c:1552-1635): a
@@ -492,218 +556,460 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
     const int32_t occ0 = (int32_t)((uint32_t)tail[r] - h);
     const bool runnable = alive[r] && !wm;
 #define PONY_LANE(C) \
-    if (r < C::S0 + C::ROWS) lane_dispatch<C>(a, ws, r, runnable, h, occ0, sums); else
+    if (r < C::S0 + C::ROWS) lane_dispatch<C>(a, ws, cur, r, runnable, h, occ0, sums); else
     PONY_COHORTS(PONY_LANE) {}
 #undef PONY_LANE
   }
   const int32_t np = block_sum(sums.nproc), nb = block_sum(sums.nbad);
   const int32_t nd = block_sum(sums.ndes), ne = block_sum(sums.nerr);
   if (g.tid == 0) {
-    if (np) g_add(ws + pws::ACC + A_NPROC, np);
-    if (nb) g_add(ws + pws::ACC + A_NBAD, nb);
-    if (nd) g_add(ws + pws::ACC + A_NDESTROYED, nd);
-    if (ne) g_add(ws + pws::ACC + A_NERR, ne);
+    if (np) g_add(cur + A_NPROC, np);
+    if (nb) g_add(cur + A_NBAD, nb);
+    if (nd) g_add(cur + A_NDESTROYED, nd);
+    if (ne) g_add(cur + A_NERR, ne);
   }
 }
 
-// ---- phase 3: keys, dead letters, per-target counts, first histograms --
+// ---- phase 2: keys, dead letters, per-target counts, digit counts -------
 
+PONY_FN int32_t digit(int32_t key, int pass) {
+  return (int32_t)(((uint32_t)key >> (DBITS * pass)) & (RADIX - 1));
+}
+
+PONY_FN void acc_reset(int32_t* acc) {
+  for (int k = 0; k < A_NACC; ++k) acc[k] = 0;
+  acc[A_OCC_MAX] = INT_MIN;
+}
+
+// Also resets `prev` (the previous tick's accumulators, read by nobody
+// after phase 1) for the next tick. Each live entry's per-target count
+// is taken with the atomic that returns its slot in the segment.
 PONY_FN void ph_keys(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
-                     bool inject) {
-  PONY_SHARED int32_t hist[RADIX];
+                     bool inject, int32_t* cur, int32_t* prev) {
+  if (g.first()) acc_reset(prev);
   const uint8_t* alive = PU8(P_ALIVE);
   int32_t* key_out = PI32(P_PLAN_KEY);
   int32_t ndead = 0;
-  PONY_FOR_BLOCKS(tile, NTILE) {
-    for (int64_t d = g.tid; d < RADIX; d += g.nthreads) hist[d] = 0;
-    PONY_BSYNC();
-    const int64_t e1 = (tile + 1) * TILE < W::E ? (tile + 1) * TILE : W::E;
-    for (int64_t e = tile * TILE + g.tid; e < e1; e += g.nthreads) {
+  // Each block takes a contiguous run of chunks of one entry a thread (a
+  // chunk lies in one tile); a warp counts its tile's live entries and
+  // adds them to LCNT when its tile changes, so blocks meet on no counter.
+  const int64_t nchunk = (W::E + g.nthreads - 1) / g.nthreads;
+  const int64_t c0 = nchunk * g.block / g.nblocks;
+  const int64_t c1 = nchunk * (g.block + 1) / g.nblocks;
+  int64_t tile_at = -1;
+  int32_t tile_live = 0;
+  for (int64_t c = c0; c < c1; ++c) {
+    const int64_t e = c * g.nthreads + g.tid;
+    bool valid = false;
+    if (e < W::E) {
       int32_t tgt, lvl;
       entry_target(a, ws, e, inject, &tgt, &lvl);
       const bool in_range = tgt >= 0 && tgt < W::NL;
       const bool dead = in_range && !alive[tgt];
-      const bool valid = in_range && !dead;
-      const int32_t key = valid ? tgt * (int32_t)W::NLEV + lvl
-                                : (int32_t)(W::NL * W::NLEV);
+      valid = in_range && !dead;
+      const int32_t key = valid ? tgt * (int32_t)W::NLEV + lvl : DEAD;
       key_out[e] = key;
-      if (valid) g_add(ws + pws::TCNT + tgt, 1);
-      ndead += dead;
-      g_add(&hist[key & (RADIX - 1)], 1);
-    }
-    PONY_BSYNC();
-    for (int64_t d = g.tid; d < RADIX; d += g.nthreads)
-      ws[pws::COUNTS + d * NTILE + tile] = hist[d];
-    PONY_BSYNC();
-  }
-  ndead = block_sum(ndead);
-  if (g.tid == 0 && ndead) g_add(ws + pws::ACC + A_NDEAD, ndead);
-}
-
-// ---- the radix sort's passes -------------------------------------------
-
-// Per-tile histograms of digit `pass` of `keys`.
-PONY_FN void ph_hist(const Grid& g, int32_t* ws, const int32_t* keys,
-                     int pass) {
-  PONY_SHARED int32_t hist[RADIX];
-  PONY_FOR_BLOCKS(tile, NTILE) {
-    for (int64_t d = g.tid; d < RADIX; d += g.nthreads) hist[d] = 0;
-    PONY_BSYNC();
-    const int64_t e1 = (tile + 1) * TILE < W::E ? (tile + 1) * TILE : W::E;
-    for (int64_t e = tile * TILE + g.tid; e < e1; e += g.nthreads)
-      g_add(&hist[(keys[e] >> (8 * pass)) & (RADIX - 1)], 1);
-    PONY_BSYNC();
-    for (int64_t d = g.tid; d < RADIX; d += g.nthreads)
-      ws[pws::COUNTS + d * NTILE + tile] = hist[d];
-    PONY_BSYNC();
-  }
-}
-
-// Exclusive scan of each digit's row of tile counts, and the row totals.
-PONY_FN void ph_scan(const Grid& g, int32_t* ws) {
-  PONY_FOR_BLOCKS(d, RADIX) {
-    int32_t* row = ws + pws::COUNTS + d * NTILE;
-    int32_t carry = 0;
-    for (int64_t b = 0; b < NTILE; b += g.nthreads) {
-      const int64_t t = b + g.tid;
-      const int32_t v = t < NTILE ? row[t] : 0;
-      int32_t tot;
-      const int32_t ex = block_excl_scan(v, &tot);
-      if (t < NTILE) row[t] = carry + ex;
-      carry += tot;
-    }
-    if (g.tid == 0) ws[pws::DTOT + d] = carry;
-  }
-}
-
-// The stable scatter of one pass: entry idx of tile t with digit d goes
-// to (entries of smaller digits) + (digit d in earlier tiles) + (digit d
-// earlier in this tile). `vals` null: the value is the entry's index.
-PONY_FN void ph_scatter(const Grid& g, int32_t* ws, const int32_t* keys,
-                        const int32_t* vals, int32_t* kout, int32_t* vout,
-                        int pass) {
-  PONY_SHARED int32_t s_base[RADIX];
-  const int shift = 8 * pass;
-  const int32_t* counts = ws + pws::COUNTS;
-  const int32_t* dtot = ws + pws::DTOT;
+      if (valid) {
 #ifdef __CUDACC__
-  __shared__ int32_t s_wc[THREADS / 32][RADIX];
+        ws[pws::SLOT + e] = atomicAdd(ws + pws::TCNT + tgt, 1);
+#else
+        ws[pws::SLOT + e] = ws[pws::TCNT + tgt]++;
+#endif
+      }
+      ndead += dead;
+    }
+    const int64_t tile = c * g.nthreads / TILE;
+    if (tile != tile_at) {
+      if (tile_live) g_add(ws + pws::LCNT + tile_at, tile_live);
+      tile_at = tile;
+      tile_live = 0;
+    }
+#ifdef __CUDACC__
+    const int32_t wl = __popc(__ballot_sync(0xffffffffu, valid));
+    if ((threadIdx.x & 31) == 0) tile_live += wl;     // lane 0 keeps it
+#else
+    tile_live += valid;
+#endif
+  }
+  if (tile_live) g_add(ws + pws::LCNT + tile_at, tile_live);
+  ndead = block_sum(ndead);
+  if (g.tid == 0 && ndead) g_add(cur + A_NDEAD, ndead);
+}
+
+// ---- phase 3: per-target scans; digit offsets or the tiles' live prefix -
+
+// Per chunk of targets: accepted = min(count, free space), rejected =
+// count - accepted, and the chunk-local exclusive scans of both.
+// One target's acceptance and overload flag; returns its count.
+PONY_FN int32_t target_accept(const PonyMegaArgs& a, int32_t* ws,
+                              int64_t t) {
+  const int32_t cnt = ws[pws::TCNT + t];
+  const int32_t occ = (int32_t)((uint32_t)PI32(P_TAIL)[t] -
+                                (uint32_t)ws[pws::NEWHEAD + t]);
+  int32_t space = (int32_t)((uint32_t)W::CAP - (uint32_t)occ);
+  space = space < 0 ? 0 : space;
+  const int32_t acc = cnt < space ? cnt : space;
+  ws[pws::ACCW + t] = acc;
+  // Overloaded after this tick's delivery, or pressured (the mute
+  // triggers' test of a receiver and of a sender).
+  const int32_t after = (int32_t)((uint32_t)occ + (uint32_t)acc);
+  ws[pws::HOT + t] = after > W::OVERLOAD || PU8(P_PRESSURED)[t];
+  return cnt;
+}
+
+PONY_FN void target_chunk(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                          int32_t* cur, int64_t c) {
+  const int64_t t1 = (c + 1) * CH < W::NL ? (c + 1) * CH : W::NL;
+  int32_t cb = 0, cr = 0, seg = 0;    // this thread's start, the chunk's max
+#ifdef __CUDACC__
+  // Warp w takes the chunk's w-th run of CH / WARPS targets, 32 at a
+  // time: it sums them, the warps exchange sums once, and it scans them.
+  constexpr int RUN = (int)(CH / WARPS);
+  __shared__ int32_t s_b[WARPS], s_r[WARPS];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  PONY_FOR_BLOCKS(tile, NTILE) {
-    int32_t tot;
-    const int32_t ex = block_excl_scan(dtot[threadIdx.x], &tot);
-    s_base[threadIdx.x] = ex + counts[threadIdx.x * NTILE + tile];
-    __syncthreads();
-    for (int rd = 0; rd < ROUNDS; ++rd) {
-      const int64_t idx = tile * TILE + (int64_t)rd * THREADS + threadIdx.x;
-      const bool has = idx < W::E;
-      int32_t key = 0, val = 0;
-      int d = RADIX;
-      if (has) {
-        key = keys[idx];
-        val = vals ? vals[idx] : (int32_t)idx;
-        d = (key >> shift) & (RADIX - 1);
+  const int64_t t0 = c * CH + (int64_t)wid * RUN + lane;
+  int32_t sb = 0, sr = 0;
+  for (int r = 0; r < RUN / 32; ++r) {
+    const int64_t t = t0 + 32 * r;
+    if (t < t1) {
+      const int32_t cnt = target_accept(a, ws, t);
+      sb += cnt;
+      sr += cnt - ws[pws::ACCW + t];
+      seg = cnt > seg ? cnt : seg;
+    }
+  }
+  sb = __reduce_add_sync(0xffffffffu, sb);
+  sr = __reduce_add_sync(0xffffffffu, sr);
+  if (lane == 0) {
+    s_b[wid] = sb;
+    s_r[wid] = sr;
+  }
+  __syncthreads();
+  int32_t tb = 0, tr = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    if (w == wid) {
+      cb = tb;
+      cr = tr;
+    }
+    tb += s_b[w];
+    tr += s_r[w];
+  }
+  for (int r = 0; r < RUN / 32; ++r) {
+    const int64_t t = t0 + 32 * r;
+    const int32_t cnt = t < t1 ? ws[pws::TCNT + t] : 0;
+    const int32_t rej = t < t1 ? cnt - ws[pws::ACCW + t] : 0;
+    int32_t xb = cnt, xr = rej;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int32_t yb = __shfl_up_sync(0xffffffffu, xb, o);
+      const int32_t yr = __shfl_up_sync(0xffffffffu, xr, o);
+      if (lane >= o) {
+        xb += yb;
+        xr += yr;
       }
-      for (int w = 0; w < THREADS / 32; ++w) s_wc[w][threadIdx.x] = 0;
-      __syncthreads();
-      const unsigned peers = __match_any_sync(0xffffffffu, d);
-      const int rank = __popc(peers & ((1u << lane) - 1u));
-      if (has && rank == 0) s_wc[wid][d] = __popc(peers);
-      __syncthreads();
-      if (has) {
-        int32_t dest = s_base[d] + rank;
-        for (int w = 0; w < wid; ++w) dest += s_wc[w][d];
-        kout[dest] = key;
-        vout[dest] = val;
+    }
+    if (t < t1) {
+      ws[pws::BLOC + t] = cb + xb - cnt;
+      ws[pws::ROFF + t] = cr + xr - rej;
+    }
+    cb += __shfl_sync(0xffffffffu, xb, 31);
+    cr += __shfl_sync(0xffffffffu, xr, 31);
+  }
+  __syncthreads();
+#else
+  for (int64_t t = c * CH; t < t1; ++t) {
+    const int32_t cnt = target_accept(a, ws, t);
+    ws[pws::BLOC + t] = cb;
+    ws[pws::ROFF + t] = cr;
+    cb += cnt;
+    cr += cnt - ws[pws::ACCW + t];
+    seg = cnt > seg ? cnt : seg;
+  }
+  const int32_t tb = cb, tr = cr;
+#endif
+  // The chunk that holds NL also holds the totals there.
+  if (c * CH <= W::NL && W::NL < (c + 1) * CH && g.tid == 0) {
+    ws[pws::BLOC + W::NL] = tb;
+    ws[pws::ROFF + W::NL] = tr;
+  }
+  seg = block_max(seg);
+  if (g.tid == 0) {
+    ws[pws::CTOT + c] = tb;
+    ws[pws::RTOT + c] = tr;
+    g_max(cur + A_SEGMAX, seg);
+  }
+}
+
+// Pass `pass`'s digit offsets, one warp a digit row: BCNT[d][b] becomes
+// where block b's first entry of digit d goes: the entries of smaller
+// digits (from the digit totals) plus digit d's entries in the blocks
+// before b.
+PONY_FN void digit_rows(const Grid& g, int32_t* ws, int pass) {
+  const int32_t* tot = ws + pws::GTOT + pass * RADIX;
+#ifdef __CUDACC__
+  const int lane = threadIdx.x & 31;
+  const int64_t nwarps = (g.nblocks * g.nthreads) >> 5;
+  for (int64_t d = (g.block * g.nthreads + g.tid) >> 5; d < RADIX;
+       d += nwarps) {
+    int32_t base = 0;
+    for (int64_t k = lane; k < d; k += 32) base += tot[k];
+    int32_t carry = __reduce_add_sync(0xffffffffu, base);
+    int32_t* row = ws + pws::BCNT + d * GMAX;
+    for (int64_t b0 = 0; b0 < g.nblocks; b0 += 32) {
+      const int64_t b = b0 + lane;
+      const int32_t v = b < g.nblocks ? row[b] : 0;
+      int32_t x = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int32_t y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
       }
-      __syncthreads();
-      int32_t sum = 0;
-      for (int w = 0; w < THREADS / 32; ++w) sum += s_wc[w][threadIdx.x];
-      s_base[threadIdx.x] += sum;
-      __syncthreads();
+      if (b < g.nblocks) row[b] = carry + x - v;
+      carry += __shfl_sync(0xffffffffu, x, 31);
     }
   }
 #else
-  PONY_FOR_BLOCKS(tile, NTILE) {
-    int32_t run = 0;
-    for (int d = 0; d < RADIX; ++d) {
-      s_base[d] = run + counts[d * NTILE + tile];
-      run += dtot[d];
+  int32_t base = 0;
+  for (int64_t d = 0; d < RADIX; ++d) {
+    ws[pws::BCNT + d * GMAX] = base;        // one block
+    base += tot[d];
+  }
+#endif
+}
+
+PONY_FN void ph_scan(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                     int32_t* cur) {
+  PONY_FOR_BLOCKS(b, NCH + 1) {
+    if (b < NCH) {
+      target_chunk(a, g, ws, cur, b);
+    } else {
+      const int32_t tot = block_scan_array(g, ws + pws::LCNT, NTILE);
+      if (g.tid == 0) ws[pws::LCNT + NTILE] = tot;
     }
+  }
+}
+
+// Add each chunk's prefix of the chunk totals (run in the sort phase).
+PONY_FN void fix_chunk(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                       int64_t c) {
+  int32_t* bounds = PI32(P_PLAN_BOUNDS);
+  int32_t pb = 0, pr = 0;
+  for (int64_t k = g.tid; k < c; k += g.nthreads) {
+    pb += ws[pws::CTOT + k];
+    pr += ws[pws::RTOT + k];
+  }
+  pb = block_sum(pb);
+  pr = block_sum(pr);
+  const int64_t end = (c + 1) * CH < W::NL + 1 ? (c + 1) * CH : W::NL + 1;
+  for (int64_t t = c * CH + g.tid; t < end; t += g.nthreads) {
+    bounds[t] = ws[pws::BLOC + t] + pb;
+    ws[pws::ROFF + t] += pr;
+  }
+}
+
+
+// ---- phase 4, wide tick: LSD radix passes, reduce then scan ---------------
+
+// Each pass first counts its digit over each block's tiles of its input
+// (BCNT[d][block], and the digit totals in GTOT), then a scan phase
+// (`digit_rows`) turns the counts into offsets.
+PONY_FN void ph_count(const Grid& g, int32_t* ws, Smem& sm,
+                      const int32_t* kin, int pass) {
+  for (int64_t d = g.tid; d < RADIX; d += g.nthreads) sm.u.hist[d] = 0;
+  PONY_BSYNC();
+  PONY_FOR_MY_TILES(tile) {
     const int64_t e1 = (tile + 1) * TILE < W::E ? (tile + 1) * TILE : W::E;
-    for (int64_t idx = tile * TILE; idx < e1; ++idx) {
-      const int32_t key = keys[idx];
-      const int d = (key >> shift) & (RADIX - 1);
-      const int32_t dest = s_base[d]++;
+    for (int64_t e = tile * TILE + g.tid; e < e1; e += g.nthreads) {
+#ifdef __CUDACC__
+      atomicAdd(&sm.u.hist[digit(kin[e], pass)], 1);
+#else
+      ++sm.u.hist[digit(kin[e], pass)];
+#endif
+    }
+  }
+  PONY_BSYNC();
+  for (int64_t d = g.tid; d < RADIX; d += g.nthreads) {
+    const int32_t v = sm.u.hist[d];
+    ws[pws::BCNT + d * GMAX + g.block] = v;
+    if (v) g_add(ws + pws::GTOT + pass * RADIX + d, v);
+  }
+}
+
+// Pass `pass` moves (key, value) from kin/vin to kout/vout (vin null: the
+// value is the entry's index), stably by digit `pass`: each block walks
+// its tiles in order from its digit offsets (BCNT[d][block]).
+PONY_FN void ph_scatter(const Grid& g, int32_t* ws, Smem& sm,
+                        const int32_t* kin, const int32_t* vin,
+                        int32_t* kout, int32_t* vout, int pass) {
+  for (int64_t d = g.tid; d < RADIX; d += g.nthreads)
+    sm.off[d] = ws[pws::BCNT + d * GMAX + g.block];
+#ifdef __CUDACC__
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const unsigned lt = (1u << lane) - 1u;
+  PONY_FOR_MY_TILES(tile) {
+    uint32_t* whw = (uint32_t*)&sm.u.wh[0][0];
+    for (int k = threadIdx.x; k < WARPS * RADIX / 2; k += THREADS) whw[k] = 0;
+    __syncthreads();
+    // Warp w owns the tile's w-th run of 32 * WROUNDS entries and walks it
+    // in order, 32 at a time: first counting each digit, then (after the
+    // warps' exclusive prefix per digit) replaying the same walk to place
+    // each entry at its stable rank.
+    const int64_t e0 = tile * TILE + (int64_t)wid * 32 * WROUNDS + lane;
+    for (int r = 0; r < WROUNDS; ++r) {
+      const int64_t e = e0 + 32 * r;
+      const bool has = e < W::E;
+      const int d = has ? digit(kin[e], pass) : RADIX;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (has && (peers & lt) == 0)
+        sm.u.wh[wid][d] = (uint16_t)(sm.u.wh[wid][d] + __popc(peers));
+      __syncwarp();
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < RADIX; d += THREADS) {
+      uint32_t run = 0;
+      for (int w = 0; w < WARPS; ++w) {
+        const uint32_t c = sm.u.wh[w][d];
+        sm.u.wh[w][d] = (uint16_t)run;
+        run += c;
+      }
+    }
+    __syncthreads();
+    for (int r = 0; r < WROUNDS; ++r) {
+      const int64_t e = e0 + 32 * r;
+      const bool has = e < W::E;
+      const int32_t key = has ? kin[e] : 0;
+      const int d = has ? digit(key, pass) : RADIX;
+      const unsigned peers = __match_any_sync(0xffffffffu, d);
+      if (has) {
+        const int32_t dest = sm.off[d] + sm.u.wh[wid][d] + __popc(peers & lt);
+        kout[dest] = key;
+        vout[dest] = vin ? vin[e] : (int32_t)e;
+      }
+      __syncwarp();
+      if (has && (peers & lt) == 0)
+        sm.u.wh[wid][d] = (uint16_t)(sm.u.wh[wid][d] + __popc(peers));
+      __syncwarp();
+    }
+    __syncthreads();
+    // The last warp's running count is now the tile's count of each digit.
+    for (int d = threadIdx.x; d < RADIX; d += THREADS)
+      sm.off[d] += sm.u.wh[WARPS - 1][d];
+    __syncthreads();
+  }
+#else
+  PONY_FOR_MY_TILES(tile) {
+    const int64_t e1 = (tile + 1) * TILE < W::E ? (tile + 1) * TILE : W::E;
+    for (int64_t e = tile * TILE; e < e1; ++e) {
+      const int32_t key = kin[e];
+      const int32_t dest = sm.off[digit(key, pass)]++;
       kout[dest] = key;
-      vout[dest] = vals ? vals[idx] : (int32_t)idx;
+      vout[dest] = vin ? vin[e] : (int32_t)e;
     }
   }
 #endif
 }
 
-// ---- segment bounds and rejection offsets ------------------------------
+// ---- phase 4, segment tick: each live entry into its target's segment ---
 
-// Per chunk of targets: accepted = min(count, free space), rejected =
-// count - accepted, and the chunk-local exclusive scans of both.
-PONY_FN void ph_target_scan(const PonyMegaArgs& a, const Grid& g,
-                            int32_t* ws) {
-  const int32_t* tail = PI32(P_TAIL);
-  int32_t* bounds = PI32(P_PLAN_BOUNDS);
-  PONY_FOR_BLOCKS(c, NCH) {
-    const int64_t end = (c + 1) * CH < W::NL + 1 ? (c + 1) * CH : W::NL + 1;
-    int32_t cb = 0, cr = 0;
-    for (int64_t b = c * CH; b < end; b += g.nthreads) {
-      const int64_t t = b + g.tid;
-      int32_t cnt = 0, rej = 0;
-      if (t < W::NL) {
-        cnt = ws[pws::TCNT + t];
-        const int32_t occ =
-            (int32_t)((uint32_t)tail[t] - (uint32_t)ws[pws::NEWHEAD + t]);
-        int32_t space = (int32_t)((uint32_t)W::CAP - (uint32_t)occ);
-        space = space < 0 ? 0 : space;
-        const int32_t acc = cnt < space ? cnt : space;
-        ws[pws::ACCW + t] = acc;
-        rej = cnt - acc;
-      }
-      int32_t tb, tr;
-      const int32_t eb = block_excl_scan(cnt, &tb);
-      const int32_t er = block_excl_scan(rej, &tr);
-      if (t < end) {
-        bounds[t] = cb + eb;
-        ws[pws::ROFF + t] = cr + er;
-      }
-      cb += tb;
-      cr += tr;
-    }
-    if (g.tid == 0) {
-      ws[pws::CTOT + c] = cb;
-      ws[pws::RTOT + c] = cr;
-    }
+// The dead entries of one tile, in entry order, after the `nlive` live
+// ones. LCNT holds the tiles' exclusive live prefix.
+PONY_FN void dead_tile(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                       int32_t nlive, int64_t tile) {
+  const int32_t* key = PI32(P_PLAN_KEY);
+  int32_t* perm = PI32(P_PLAN_PERM);
+  // Dead entries before this tile: its start minus the live ones.
+  const int32_t at0 = nlive + (int32_t)(tile * TILE) - ws[pws::LCNT + tile];
+  const int64_t e1 = (tile + 1) * TILE < W::E ? (tile + 1) * TILE : W::E;
+#ifdef __CUDACC__
+  // Warp w takes the tile's w-th run of 32 * WROUNDS entries: it counts
+  // its dead entries, the warps exchange counts once, and it places them.
+  __shared__ int32_t s_dead[WARPS];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int64_t e0 = tile * TILE + (int64_t)wid * 32 * WROUNDS + lane;
+  int32_t n = 0;
+  for (int r = 0; r < WROUNDS; ++r) {
+    const int64_t e = e0 + 32 * r;
+    n += __popc(__ballot_sync(0xffffffffu, e < e1 && key[e] == DEAD));
+  }
+  if (lane == 0) s_dead[wid] = n;
+  __syncthreads();
+  int32_t at = at0;
+  for (int w = 0; w < wid; ++w) at += s_dead[w];
+  for (int r = 0; r < WROUNDS; ++r) {
+    const int64_t e = e0 + 32 * r;
+    const bool dead = e < e1 && key[e] == DEAD;
+    const unsigned m = __ballot_sync(0xffffffffu, dead);
+    if (dead) perm[at + __popc(m & ((1u << lane) - 1u))] = (int32_t)e;
+    at += __popc(m);
+  }
+  __syncthreads();
+#else
+  int32_t at = at0;
+  for (int64_t e = tile * TILE; e < e1; ++e)
+    if (key[e] == DEAD) perm[at++] = (int32_t)e;
+#endif
+}
+
+// The dead entries of every tile and every chunk's bounds, one job a
+// block.
+PONY_FN void dead_and_bounds(const PonyMegaArgs& a, const Grid& g,
+                             int32_t* ws, int32_t nlive) {
+  const int64_t jobs = NTILE + NCH;
+  for (int64_t j = g.block; j < jobs; j += g.nblocks) {
+    if (j < NTILE) dead_tile(a, g, ws, nlive, j);
+    else fix_chunk(a, g, ws, j - NTILE);
   }
 }
 
-// Add each chunk's prefix of the chunk totals.
-PONY_FN void ph_target_fix(const PonyMegaArgs& a, const Grid& g,
-                           int32_t* ws) {
-  int32_t* bounds = PI32(P_PLAN_BOUNDS);
-  PONY_FOR_BLOCKS(c, NCH) {
-    int32_t pb = 0, pr = 0;
-    for (int64_t k = g.tid; k < c; k += g.nthreads) {
-      pb += ws[pws::CTOT + k];
-      pr += ws[pws::RTOT + k];
+// Where every target's segment is short (at most SEG entries), each live
+// entry goes to the slot of its target's segment that the keys phase's
+// atomic gave it (in no particular order), as level * E + entry, and the
+// deliver phase sorts each segment by that, which is the stable order
+// (key, entry) within a target; the dead entries go after them in entry
+// order. Segment starts are the chunk-local bounds plus the chunk totals'
+// prefix, scanned by every block into shared memory.
+constexpr bool SEG_FITS = (uint64_t)W::NLEV * W::E <= 0xffffffffull;
+
+PONY_FN void ph_place(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                      Smem& sm) {
+  if constexpr (SEG_FITS) {
+    // With more blocks than dead-placement and bounds jobs, blocks
+    // [0, jobs) take one job each and the others place the live entries,
+    // so the two chains of dependent loads run side by side.
+    const int64_t jobs = NTILE + NCH;
+    const bool split = g.nblocks > jobs;
+    if (!split || g.block >= jobs) {
+      int32_t* cpre = sm.u.cpre;
+      for (int64_t c = g.tid; c < NCH; c += g.nthreads)
+        cpre[c] = ws[pws::CTOT + c];
+      PONY_BSYNC();
+      block_scan_array(g, cpre, NCH);
+      PONY_BSYNC();
+      const int32_t* key = PI32(P_PLAN_KEY);
+      int32_t* perm = PI32(P_PLAN_PERM);
+      const int64_t b0 = split ? g.block - jobs : g.block;
+      const int64_t nb = split ? g.nblocks - jobs : g.nblocks;
+      for (int64_t e = b0 * g.nthreads + g.tid; e < W::E;
+           e += nb * g.nthreads) {
+        const int32_t k = key[e];
+        if (k == DEAD) continue;
+        const int32_t t = k / (int32_t)W::NLEV;
+        int32_t slot = ws[pws::SLOT + e];
+#ifndef __CUDACC__
+        // The host build's slots come in entry order; reverse them, so the
+        // CPU tests exercise the segment sort as the card's atomics do.
+        slot = ws[pws::TCNT + t] - 1 - slot;
+#endif
+        perm[ws[pws::BLOC + t] + cpre[t / CH] + slot] =
+            (int32_t)((uint32_t)(k - t * (int32_t)W::NLEV) *
+                          (uint32_t)W::E +
+                      (uint32_t)e);
+      }
     }
-    pb = block_sum(pb);
-    pr = block_sum(pr);
-    const int64_t end = (c + 1) * CH < W::NL + 1 ? (c + 1) * CH : W::NL + 1;
-    for (int64_t t = c * CH + g.tid; t < end; t += g.nthreads) {
-      bounds[t] += pb;
-      ws[pws::ROFF + t] += pr;
-    }
+    if (!split || g.block < jobs)
+      dead_and_bounds(a, g, ws, ws[pws::LCNT + NTILE]);
   }
 }
 
-// ---- phase 6: ring rebuild, spill, mute triggers ------------------------
+// ---- phase 5: ring rebuild, spill, mute triggers ------------------------
 
 // Ring slot c of target t takes sorted entry bounds[t] + (c - tail) mod
 // cap where that is below the accepted count (delivery.py's slot planes).
@@ -711,36 +1017,68 @@ template <class C>
 PONY_FN void ring_fill(const PonyMegaArgs& a, const int32_t* ws, int64_t t,
                        uint32_t tl, int32_t acc, int32_t b, bool inject) {
   const int64_t i = t - C::S0;
-  int16_t* lo = (int16_t*)a.p[C::PBUF];
-  int32_t* esc = (int32_t*)a.p[C::PBUF + 1];
+  int32_t* buf = (int32_t*)a.p[C::PBUF];
   const int32_t* perm = PI32(P_PLAN_PERM);
+  // The slots' entries first (independent loads), then their words.
+  int32_t es[C::CAP];
   for (int c = 0; c < C::CAP; ++c) {
     const uint32_t rel = ((uint32_t)c - tl) & (uint32_t)(C::CAP - 1);
-    if ((int64_t)rel >= acc) continue;
     int64_t p = (int64_t)b + rel;
     p = p < W::E - 1 ? p : W::E - 1;
-    const int64_t e = perm[p];
+    es[c] = (int64_t)rel < acc ? perm[p] : -1;
+  }
+  for (int c = 0; c < C::CAP; ++c) {
+    if (es[c] < 0) continue;
+    int32_t w[C::W1_IN];
+    for (int j = 0; j < C::W1_IN; ++j) w[j] = entry_word(a, ws, es[c], j, inject);
     for (int j = 0; j < C::W1_IN; ++j)
-      pack_word(lo, esc, ((int64_t)c * C::W1_IN + j) * C::ROWS + i,
-                entry_word(a, ws, e, j, inject));
+      buf[((int64_t)c * C::W1_IN + j) * C::ROWS + i] = w[j];
   }
 }
 
-PONY_FN int32_t occ_after(const int32_t* tail, const int32_t* ws,
-                          int64_t x) {
-  return (int32_t)((uint32_t)tail[x] + (uint32_t)ws[pws::ACCW + x] -
-                   (uint32_t)ws[pws::NEWHEAD + x]);
+// Mute trigger (≙ actor.c:898-921): a valid send whose receiver rejected
+// it, is overloaded or pressured mutes its sender, unless the sender is
+// itself overloaded or pressured. kt is the receiver, e the entry.
+PONY_FN void mute_trigger(const PonyMegaArgs& a, int32_t* ws, int32_t kt,
+                          int32_t e) {
+  const int32_t snd = entry_sender(a, e);
+  if (snd < 0 || snd >= W::NL) return;
+  if (!ws[pws::HOT + snd]) {
+    ws[pws::NEWLY + snd] = 1;
+    const int64_t k = kt % W::K;
+    g_max(ws + pws::RMAX + k * W::NL + snd, kt);
+    g_min(ws + pws::RMIN + k * W::NL + snd, kt);
+  }
 }
 
+// `seg`: a segment tick, whose target segments are unsorted (ph_place);
+// the thread of each target sorts its segment by (key, entry) first and
+// walks its own entries for the mute triggers.
 PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
-                        bool inject) {
+                        bool inject, bool seg) {
   const int32_t* bounds = PI32(P_PLAN_BOUNDS);
-  const int32_t* perm = PI32(P_PLAN_PERM);
+  int32_t* perm = PI32(P_PLAN_PERM);
   const int32_t* tail = PI32(P_TAIL);
-  const uint8_t* pr = PU8(P_PRESSURED);
   PONY_FOR(t, W::NL) {
     const int32_t acc = ws[pws::ACCW + t];
     const int32_t b = bounds[t];
+    if (seg) {
+      const int32_t n = bounds[t + 1] - b;
+      // Insertion sort of at most SEG (level * E + entry), then entries.
+      uint32_t v[SEG > 1 ? SEG : 1];
+      for (int32_t j = 0; j < n; ++j) v[j] = (uint32_t)perm[b + j];
+      for (int32_t j = 1; j < n; ++j) {
+        const uint32_t x = v[j];
+        int32_t i = j - 1;
+        for (; i >= 0 && v[i] > x; --i) v[i + 1] = v[i];
+        v[i + 1] = x;
+      }
+      for (int32_t j = 0; j < n; ++j)
+        perm[b + j] = (int32_t)(v[j] % (uint32_t)W::E);
+      const bool recv_hot = ws[pws::HOT + t] != 0;
+      for (int32_t j = 0; j < n; ++j)
+        if (j >= acc || recv_hot) mute_trigger(a, ws, (int32_t)t, perm[b + j]);
+    }
     if (acc > 0) {
       const uint32_t tl = (uint32_t)tail[t];
 #define PONY_FILL(C) \
@@ -748,43 +1086,39 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
       PONY_COHORTS(PONY_FILL) {}
 #undef PONY_FILL
     }
-    // The rejected entries, in sorted order, after those of lower targets.
+    // The rejected entries, in sorted order, after those of lower targets;
+    // how many of them the new spill keeps is the next tick's
+    // spill-pending count of t.
     const int32_t nrej = bounds[t + 1] - b - acc;
     const int32_t ro = ws[pws::ROFF + t];
-    for (int32_t j = 0; j < nrej && (int64_t)ro + j < W::SPILL; ++j) {
-      const int64_t e = perm[(int64_t)b + acc + j];
-      const int64_t q = (int64_t)ro + j;
+    int32_t kept = 0;
+    for (; kept < nrej && (int64_t)ro + kept < W::SPILL; ++kept) {
+      const int64_t e = perm[(int64_t)b + acc + kept];
+      const int64_t q = (int64_t)ro + kept;
       ws[pws::NSP_TGT + q] = (int32_t)t;
       ws[pws::NSP_SND + q] = entry_sender(a, e);
       for (int k = 0; k < W::W1; ++k)
         ws[pws::NSP_W + (int64_t)k * W::SPILL + q] =
             entry_word(a, ws, e, k, inject);
     }
+    ws[pws::DSP_CNT + t] = kept;
   }
-  // Mute triggers (≙ actor.c:898-921): a valid send whose receiver
-  // rejected it, is overloaded or pressured mutes its sender, unless the
-  // sender is itself overloaded or pressured.
+  if (seg) return;
+  // The radix sort's mute triggers, per sorted live entry (valid entries
+  // sort first); the sender is read only for an entry that can trigger.
   const int32_t* skey = ws + pws::SKEY;
-  PONY_FOR(p, W::E) {
+  PONY_FOR(p, bounds[W::NL]) {
     const int32_t kt = skey[p] / (int32_t)W::NLEV;
-    if (kt >= W::NL) continue;
-    const int32_t snd = entry_sender(a, perm[p]);
-    if (snd < 0 || snd >= W::NL) continue;
+    const int32_t e = perm[p];                 // loaded beside the key
     const bool rej = p - bounds[kt] >= ws[pws::ACCW + kt];
-    const bool recv_hot = occ_after(tail, ws, kt) > W::OVERLOAD || pr[kt];
-    const bool send_hot = occ_after(tail, ws, snd) > W::OVERLOAD || pr[snd];
-    if ((rej || recv_hot) && !send_hot) {
-      ws[pws::NEWLY + snd] = 1;
-      const int64_t k = kt % W::K;
-      g_max(ws + pws::RMAX + k * W::NL + snd, kt);
-      g_min(ws + pws::RMIN + k * W::NL + snd, kt);
-    }
+    if (rej || ws[pws::HOT + kt]) mute_trigger(a, ws, kt, e);
   }
 }
 
-// ---- phase 7: destroys, mute bookkeeping, commit ------------------------
+// ---- phase 6: destroys, mute bookkeeping, commit ------------------------
 
-PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
+PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                       int32_t* cur) {
   int32_t* head = PI32(P_HEAD);
   int32_t* tail = PI32(P_TAIL);
   uint8_t* alive = PU8(P_ALIVE);
@@ -794,7 +1128,7 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
   uint8_t* ovf = PU8(P_MUTE_OVF);
   uint8_t* pinned = PU8(P_PINNED);
   uint8_t* pr = PU8(P_PRESSURED);
-  int32_t any_occ = 0, any_m = 0, any_p = 0, became_n = 0;
+  int32_t any_occ = 0, any_m = 0, any_p = 0, became_n = 0, occ_max = INT_MIN;
   PONY_FOR(r, W::NL) {
     const uint32_t nt = (uint32_t)tail[r] + (uint32_t)ws[pws::ACCW + r];
     uint32_t nh = (uint32_t)ws[pws::NEWHEAD + r];
@@ -832,12 +1166,13 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
     alive[r] = al;
     muted[r] = m2;
     ovf[r] = o;
-    any_occ |= (int32_t)(nt - nh) > 0;
+    const int32_t occ = (int32_t)(nt - nh);
+    any_occ |= occ > 0;
+    occ_max = occ > occ_max ? occ : occ_max;
     any_m |= m2;
     any_p |= pr[r];
     became_n += became;
     // This tick's per-lane scratch, cleared for the next.
-    ws[pws::DSP_CNT + r] = 0;
     ws[pws::TCNT + r] = 0;
     ws[pws::NEWLY + r] = 0;
     for (int k = 0; k < W::K; ++k) {
@@ -845,6 +1180,8 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
       ws[pws::RMIN + (int64_t)k * W::NL + r] = INT_MAX;
     }
   }
+  PONY_FOR(d, NPASS * RADIX) ws[pws::GTOT + d] = 0;
+  PONY_FOR(k, NTILE) ws[pws::LCNT + k] = 0;
   // The new spill replaces the old (rejections beyond spill_cap are lost
   // and flagged as an overflow at the gate).
   const int32_t rtot = ws[pws::ROFF + W::NL];
@@ -854,23 +1191,24 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
     PI32(P_DSPILL_TGT)[q] = v ? ws[pws::NSP_TGT + q] : -1;
     PI32(P_DSPILL_SENDER)[q] = v ? ws[pws::NSP_SND + q] : -1;
     for (int k = 0; k < W::W1; ++k)
-      pack_word(PI16(P_DSPILL_LO), PI32(P_DSPILL_ESC),
-                (int64_t)k * W::SPILL + q,
-                v ? ws[pws::NSP_W + (int64_t)k * W::SPILL + q] : 0);
+      PI32(P_DSPILL_WORDS)[(int64_t)k * W::SPILL + q] =
+          v ? ws[pws::NSP_W + (int64_t)k * W::SPILL + q] : 0;
   }
   any_occ = block_sum(any_occ);
   any_m = block_sum(any_m);
   any_p = block_sum(any_p);
   became_n = block_sum(became_n);
+  occ_max = block_max(occ_max);
   if (g.tid == 0) {
-    if (any_occ) g_add(ws + pws::ACC + A_ANY_OCC, 1);
-    if (any_m) g_add(ws + pws::ACC + A_ANY_MUTED, 1);
-    if (any_p) g_add(ws + pws::ACC + A_ANY_PR_END, 1);
-    if (became_n) g_add(ws + pws::ACC + A_BECAME, became_n);
+    if (any_occ) g_add(cur + A_ANY_OCC, 1);
+    if (any_m) g_add(cur + A_ANY_MUTED, 1);
+    if (any_p) g_add(cur + A_ANY_PR_END, 1);
+    if (became_n) g_add(cur + A_BECAME, became_n);
+    g_max(cur + A_OCC_MAX, occ_max);
   }
 }
 
-// ---- phase 8: counters, aux and the gate (one thread) -------------------
+// ---- the gate: counters and aux, computed by every block ----------------
 
 // engine.StepAux's fields in order: 0-2 and 4-8 are bool, the rest int32.
 // Host and device: pony_mega_aux_layout reports it to the wrapper.
@@ -884,7 +1222,7 @@ inline bool aux_is_bool(int k) { return k <= 8 && k != 3; }
 // occ_max, n_muted_now, n_overloaded_now, n_rejected, n_badmsg,
 // n_deadletter, n_mutes, qw_p99, then ticks run.
 enum { OB_PENDING, OB_HOST, OB_EXIT, OB_OVERFLOW, OB_SPAWN, OB_BLOB,
-       OB_BUDGET, OB_MUTED };
+       OB_BUDGET, OB_MUTED, OB_N };
 enum { OI_CODE, OI_NPROC, OI_NDELIV, OI_TICKS = 12 };
 
 PONY_FN bool aux_go(const uint8_t* b) {
@@ -892,62 +1230,134 @@ PONY_FN bool aux_go(const uint8_t* b) {
          !b[OB_SPAWN] && !b[OB_BLOB] && !b[OB_BUDGET];
 }
 
-PONY_FN void acc_reset(int32_t* acc) {
-  for (int k = 0; k < A_NACC; ++k) acc[k] = 0;
-  acc[A_OCC_MAX] = INT_MIN;
-}
+// What every block keeps across ticks, so that no block reads a state
+// scalar that block 0 rewrites at the gate.
+struct Sticky {
+  bool ef, so, spawn;
+  int32_t ec, dsp;
+};
 
-PONY_FN void ph_gate(const PonyMegaArgs& a, int32_t* ws, int32_t i) {
-  int32_t* acc = ws + pws::ACC;
-  uint8_t* ob = PU8(P_OUT_BOOL);
-  int32_t* oi = PI32(P_OUT_INT);
-  const unsigned long long key = *(unsigned long long*)(acc + A_EXITKEY);
-  uint8_t* ef = PU8(P_EXIT_FLAG);
-  int32_t* ec = PI32(P_EXIT_CODE);
-  if (key && !ef[0]) ec[0] = (int32_t)(uint32_t)(key & 0xffffffffull);
-  ef[0] = ef[0] || key;
+// After tick i's commit: every block reads the tick's accumulators `cur`
+// and the scans' totals, and returns whether tick i + 1 runs; block 0's
+// first thread writes the counters, the spill length and the aux.
+PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
+                  const int32_t* cur, int32_t i, Sticky& s) {
+  const unsigned long long key = *(const unsigned long long*)(cur + A_EXITKEY);
+  if (key && !s.ef) s.ec = (int32_t)(uint32_t)(key & 0xffffffffull);
+  s.ef = s.ef || key;
   const int32_t nb = PI32(P_PLAN_BOUNDS)[W::NL];
   const int32_t rtot = ws[pws::ROFF + W::NL];
   const int32_t n_sp = rtot < W::SPILL ? rtot : (int32_t)W::SPILL;
-  int32_t* c;
-  c = PI32(P_N_PROCESSED); c[0] = wadd(c[0], acc[A_NPROC]);
-  c = PI32(P_N_DELIVERED); c[0] = wadd(c[0], nb - rtot);
-  c = PI32(P_N_REJECTED); c[0] = wadd(c[0], rtot);
-  c = PI32(P_N_BADMSG); c[0] = wadd(c[0], acc[A_NBAD]);
-  c = PI32(P_N_DEADLETTER); c[0] = wadd(c[0], acc[A_NDEAD]);
-  c = PI32(P_N_MUTES); c[0] = wadd(c[0], acc[A_BECAME]);
-  c = PI32(P_N_DESTROYED); c[0] = wadd(c[0], acc[A_NDESTROYED]);
-  c = PI32(P_N_ERRORS); c[0] = wadd(c[0], acc[A_NERR]);
-  c = PI32(P_STEP_NO); c[0] = wadd(c[0], 1);
-  PI32(P_DSPILL_COUNT)[0] = n_sp;
-  uint8_t* so = PU8(P_SPILL_OVERFLOW);
-  so[0] = so[0] || rtot > W::SPILL;
+  s.so = s.so || rtot > W::SPILL;
+  s.dsp = n_sp;
   const bool rsp = PI32(P_RSPILL_COUNT)[0] > 0;
-  const bool pending = acc[A_ANY_OCC] > 0 || n_sp > 0 || rsp;
-  const bool any_m = acc[A_ANY_MUTED] > 0;
-  PI32(P_WORLD_BITS)[0] =
-      (acc[A_ANY_PR_END] > 0) | (any_m << 1) | ((int32_t)rsp << 2);
-  ob[OB_PENDING] = pending;
-  ob[OB_HOST] = 0;
-  ob[OB_EXIT] = ef[0];
-  ob[OB_OVERFLOW] = so[0];
-  ob[OB_SPAWN] = PU8(P_SPAWN_FAIL)[0];
-  ob[OB_BLOB] = 0;
-  ob[OB_BUDGET] = 0;
+  const bool any_m = cur[A_ANY_MUTED] > 0;
+  uint8_t ob[OB_N] = {0};
+  ob[OB_PENDING] = cur[A_ANY_OCC] > 0 || n_sp > 0 || rsp;
+  ob[OB_EXIT] = s.ef;
+  ob[OB_OVERFLOW] = s.so;
+  ob[OB_SPAWN] = s.spawn;
   ob[OB_MUTED] = any_m;
-  for (int k = 0; k < OI_TICKS; ++k) oi[k] = 0;
-  oi[OI_CODE] = ec[0];
-  oi[OI_NPROC] = PI32(P_N_PROCESSED)[0];
-  oi[OI_NDELIV] = PI32(P_N_DELIVERED)[0];
-  oi[OI_TICKS] = i + 1;
-  acc_reset(acc);
-  acc[A_GO] = (i + 1 < a.limit) && (a.forced || aux_go(ob));
+  if (g.block == 0) {
+    // One counter a thread of block 0, so their round trips overlap.
+    const int ptr[] = {P_N_REJECTED, P_N_BADMSG, P_N_DEADLETTER, P_N_MUTES,
+                       P_N_DESTROYED, P_N_ERRORS, P_STEP_NO};
+    const int32_t add[] = {rtot, cur[A_NBAD], cur[A_NDEAD], cur[A_BECAME],
+                           cur[A_NDESTROYED], cur[A_NERR], 1};
+    for (int64_t k = g.tid; k < 7; k += g.nthreads)
+      PI32(ptr[k])[0] = wadd(PI32(ptr[k])[0], add[k]);
+  }
+  if (g.first()) {
+    int32_t* c;
+    c = PI32(P_N_PROCESSED); c[0] = wadd(c[0], cur[A_NPROC]);
+    c = PI32(P_N_DELIVERED); c[0] = wadd(c[0], nb - rtot);
+    PI32(P_DSPILL_COUNT)[0] = n_sp;
+    PU8(P_SPILL_OVERFLOW)[0] = s.so;
+    PU8(P_EXIT_FLAG)[0] = s.ef;
+    PI32(P_EXIT_CODE)[0] = s.ec;
+    PI32(P_WORLD_BITS)[0] =
+        (cur[A_ANY_PR_END] > 0) | (any_m << 1) | ((int32_t)rsp << 2);
+    uint8_t* outb = PU8(P_OUT_BOOL);
+    int32_t* oi = PI32(P_OUT_INT);
+    for (int k = 0; k < OB_N; ++k) outb[k] = ob[k];
+    for (int k = 0; k < OI_TICKS; ++k) oi[k] = 0;
+    oi[OI_CODE] = s.ec;
+    oi[OI_NPROC] = PI32(P_N_PROCESSED)[0];
+    oi[OI_NDELIV] = PI32(P_N_DELIVERED)[0];
+    oi[OI_TICKS] = i + 1;
+  }
+  return (i + 1 < a.limit) && (a.forced || aux_go(ob));
 }
+
+// ---- the per-phase clock ---------------------------------------------------
+
+// A measurement hook: where P_CLOCK is not null, thread 0 of block 0 writes
+// after every grid sync of tick i (and after its gate) the pair (phase id,
+// %globaltimer in ns) into the int64 buffer [max(1, limit), CLOCK_SLOTS,
+// 2]. A phase's time is its stamp minus the one before it (CK_START opens
+// the tick), so it includes the sync that ends it. A null pointer costs
+// one branch; the host build writes nothing. ops/megakernel.py reads these
+// names.
+enum PonyPhase {
+  CK_START, CK_LANES, CK_KEYS, CK_SCAN, CK_PLACE, CK_COUNT, CK_RSCAN,
+  CK_SCATTER, CK_DELIVER, CK_COMMIT, CK_GATE
+};
+constexpr int CLOCK_SLOTS = 32;
+
+struct Clock {
+  int64_t* p;
+  int32_t tick, slot, rows;
+  PONY_FN void stamp(const Grid& g, int ph) {
+#ifdef __CUDACC__
+    if (p != nullptr && g.first() && tick < rows && slot < CLOCK_SLOTS) {
+      uint64_t t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      int64_t* q = p + ((int64_t)tick * CLOCK_SLOTS + slot) * 2;
+      q[0] = ph;
+      q[1] = (int64_t)t;
+    }
+    ++slot;
+#else
+    (void)g;
+    (void)ph;
+#endif
+  }
+};
+
+#define PONY_GSYNC_AT(ph) \
+  do {                     \
+    PONY_GSYNC();          \
+    ck.stamp(g, ph);       \
+  } while (0)
 
 // ---- the window ---------------------------------------------------------
 
-PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g) {
+PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
   int32_t* ws = (int32_t*)a.p[P_WS];
+  int32_t* acc = ws + pws::ACC;
+  // Every block reads the previous aux and the sticky scalars before the
+  // first sync; nothing writes them before the first gate.
+  uint8_t ob[OB_N];
+  int32_t oi[OI_TICKS];
+  {
+    int nb = 0, ni = 0;
+    for (int k = 0; k < 20; ++k) {
+      if (aux_is_bool(k)) ob[nb++] = *(const uint8_t*)a.p[P_AUX_IN + k] != 0;
+      else oi[ni++] = *(const int32_t*)a.p[P_AUX_IN + k];
+    }
+  }
+  Sticky s = {PU8(P_EXIT_FLAG)[0] != 0, PU8(P_SPILL_OVERFLOW)[0] != 0,
+              PU8(P_SPAWN_FAIL)[0] != 0, PI32(P_EXIT_CODE)[0],
+              PI32(P_DSPILL_COUNT)[0]};
+  bool go = a.forced ? a.limit > 0 : (a.force || aux_go(ob));
+  if (g.first()) {
+    // A window that runs no tick returns the previous aux unchanged.
+    for (int k = 0; k < OB_N; ++k) PU8(P_OUT_BOOL)[k] = ob[k];
+    for (int k = 0; k < OI_TICKS; ++k) PI32(P_OUT_INT)[k] = oi[k];
+    PI32(P_OUT_INT)[OI_TICKS] = 0;
+    acc_reset(acc);
+    acc_reset(acc + ACC_SET);
+  }
   PONY_FOR(r, W::NL) {
     ws[pws::DSP_CNT + r] = 0;
     ws[pws::TCNT + r] = 0;
@@ -957,58 +1367,56 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g) {
       ws[pws::RMIN + (int64_t)k * W::NL + r] = INT_MAX;
     }
   }
-  if (g.first()) {
-    // A window that runs no tick returns the previous aux unchanged.
-    uint8_t* ob = PU8(P_OUT_BOOL);
-    int32_t* oi = PI32(P_OUT_INT);
-    int nb = 0, ni = 0;
-    for (int k = 0; k < 20; ++k) {
-      if (aux_is_bool(k)) ob[nb++] = *(const uint8_t*)a.p[P_AUX_IN + k] != 0;
-      else oi[ni++] = *(const int32_t*)a.p[P_AUX_IN + k];
-    }
-    oi[OI_TICKS] = 0;
-    acc_reset(ws + pws::ACC);
-    ws[pws::ACC + A_GO] = a.forced ? a.limit > 0 : (a.force || aux_go(ob));
-  }
+  PONY_FOR(d, NPASS * RADIX) ws[pws::GTOT + d] = 0;
+  PONY_FOR(k, NTILE) ws[pws::LCNT + k] = 0;
   PONY_GSYNC();
-  for (int32_t i = 0;; ++i) {
-    if (!*(volatile int32_t*)(ws + pws::ACC + A_GO)) break;
+  if (go) ph_pending(a, g, ws, acc + ACC_SET);   // tick 0's "previous"
+  PONY_GSYNC();
+  Clock ck = {(int64_t*)a.p[P_CLOCK], 0, 0, a.limit > 1 ? a.limit : 1};
+  for (int32_t i = 0; go; ++i) {
+    int32_t* cur = acc + (i & 1) * ACC_SET;
+    int32_t* prev = acc + ((i + 1) & 1) * ACC_SET;
     const bool inject = a.forced || i == 0;
-    ph_pending(a, g, ws);
-    PONY_GSYNC();
-    ph_lanes(a, g, ws);
-    PONY_GSYNC();
-    ph_keys(a, g, ws, inject);
-    PONY_GSYNC();
-    ph_scan(g, ws);
-    ph_target_scan(a, g, ws);
-    PONY_GSYNC();
-    for (int pass = 0; pass < W::NPASS; ++pass) {
-      if (pass > 0) {
-        ph_hist(g, ws, ws + (pass % 2 ? pws::KA : pws::KB), pass);
-        PONY_GSYNC();
-        ph_scan(g, ws);
-        PONY_GSYNC();
+    ck.tick = i;
+    ck.slot = 0;
+    ck.stamp(g, CK_START);
+    ph_lanes(a, g, ws, cur, prev, s.dsp);
+    PONY_GSYNC_AT(CK_LANES);
+    ph_keys(a, g, ws, inject, cur, prev);
+    PONY_GSYNC_AT(CK_KEYS);
+    ph_scan(a, g, ws, cur);
+    PONY_GSYNC_AT(CK_SCAN);
+    const bool seg = SEG_FITS && cur[A_SEGMAX] <= SEG;
+    if (seg) {
+      ph_place(a, g, ws, sm);
+      PONY_GSYNC_AT(CK_PLACE);
+    } else {
+      for (int pass = 0; pass < NPASS; ++pass) {
+        const bool last = pass == NPASS - 1;
+        const int32_t* kin = pass == 0 ? PI32(P_PLAN_KEY)
+                                       : ws + (pass % 2 ? pws::KA : pws::KB);
+        const int32_t* vin = pass == 0 ? nullptr
+                                       : ws + (pass % 2 ? pws::VA : pws::VB);
+        int32_t* kout = last ? ws + pws::SKEY
+                             : ws + (pass % 2 ? pws::KB : pws::KA);
+        int32_t* vout = last ? PI32(P_PLAN_PERM)
+                             : ws + (pass % 2 ? pws::VB : pws::VA);
+        ph_count(g, ws, sm, kin, pass);
+        PONY_GSYNC_AT(CK_COUNT);
+        digit_rows(g, ws, pass);
+        PONY_GSYNC_AT(CK_RSCAN);
+        ph_scatter(g, ws, sm, kin, vin, kout, vout, pass);
+        if (pass == 0)
+          PONY_FOR_BLOCKS(c, NCH) fix_chunk(a, g, ws, c);
+        PONY_GSYNC_AT(CK_SCATTER);
       }
-      const bool last = pass == W::NPASS - 1;
-      const int32_t* kin = pass == 0 ? PI32(P_PLAN_KEY)
-                                     : ws + (pass % 2 ? pws::KA : pws::KB);
-      const int32_t* vin = pass == 0 ? nullptr
-                                     : ws + (pass % 2 ? pws::VA : pws::VB);
-      int32_t* kout = last ? ws + pws::SKEY
-                           : ws + (pass % 2 ? pws::KB : pws::KA);
-      int32_t* vout = last ? PI32(P_PLAN_PERM)
-                           : ws + (pass % 2 ? pws::VB : pws::VA);
-      ph_scatter(g, ws, kin, vin, kout, vout, pass);
-      if (pass == 0) ph_target_fix(a, g, ws);
-      PONY_GSYNC();
     }
-    ph_deliver(a, g, ws, inject);
-    PONY_GSYNC();
-    ph_commit(a, g, ws);
-    PONY_GSYNC();
-    if (g.first()) ph_gate(a, ws, i);
-    PONY_GSYNC();
+    ph_deliver(a, g, ws, inject, seg);
+    PONY_GSYNC_AT(CK_DELIVER);
+    ph_commit(a, g, ws, cur);
+    PONY_GSYNC_AT(CK_COMMIT);
+    go = gate(a, g, ws, cur, i, s);
+    ck.stamp(g, CK_GATE);
   }
 }
 
@@ -1038,14 +1446,16 @@ extern "C" int pony_mega_aux_layout(int* out) {
 
 #ifdef __CUDACC__
 
-__global__ void __launch_bounds__(THREADS) pony_mega_kernel(
+__global__ void __launch_bounds__(THREADS, 4) pony_mega_kernel(
     const PonyMegaArgs a) {
+  __shared__ Smem sm;
   const Grid g = {blockIdx.x, gridDim.x, threadIdx.x, blockDim.x};
-  pony_window(a, g);
+  pony_window(a, g, sm);
 }
 
-// out: blocks per SM, SMs, grid, registers a thread, local (spill) bytes
-// a thread, static shared bytes a block, cooperative launch supported.
+// out: blocks per SM, SMs, resident blocks (their product), registers a
+// thread, local (spill) bytes a thread, static shared bytes a block,
+// cooperative launch supported, threads a block.
 extern "C" int pony_mega_info(int* out) {
   cudaFuncAttributes fa;
   cudaError_t err = cudaFuncGetAttributes(&fa, pony_mega_kernel);
@@ -1064,6 +1474,7 @@ extern "C" int pony_mega_info(int* out) {
   out[4] = (int)fa.localSizeBytes;
   out[5] = (int)fa.sharedSizeBytes;
   out[6] = coop;
+  out[7] = THREADS;
   return 0;
 }
 
@@ -1097,7 +1508,8 @@ extern "C" int pony_mega_launch(void* const* ptrs, int limit, int force,
   a.force = force;
   a.forced = forced;
   const Grid g = {0, 1, 0, 1};
-  pony_window(a, g);
+  static thread_local Smem sm;
+  pony_window(a, g, sm);
   return 0;
 }
 

@@ -6,11 +6,13 @@ counterpart of ``ponyc_tpu/ops/megakernel.py``).
 mute bookkeeping: the entire gated window of engine.build_multi_step_gated
 as ONE persistent kernel. The JAX package replays the window's jaxpr
 inside one Pallas call; here it is the hand-written CUDA kernel
-``csrc/mega_window.cu``, launched cooperatively: a grid that fits on the
-card at once, with a grid-wide sync between the phases of a tick, and the
-gate (`engine.aux_go`) evaluated on the device, so a window is one launch
-whatever its tick count. The behaviour bodies reach it as lane programs
-(``ops/lanecode.py``), every cohort of the program in one generated header.
+``csrc/mega_window.cu``, launched cooperatively on a grid sized to the
+world (`grid_blocks`), with a grid-wide sync after each phase of a tick
+(six, more on a tick that takes the radix sort) and the gate
+(`engine.aux_go`) evaluated by every block on the device, so a window is
+one launch whatever its tick count. The
+behaviour bodies reach it as lane programs (``ops/lanecode.py``), every
+cohort of the program in one generated header.
 
 Two things, as in the JAX package:
 
@@ -24,13 +26,22 @@ Two things, as in the JAX package:
    every tick. It chooses by where the state lies and by nothing else:
    CUDA tensors launch the kernel (or raise), CPU tensors take the plain
    window. `MegaWindow.launches` counts kernel launches and nothing else.
+   The kernel reads and writes the state's int32 word tables (rings and
+   spill words) in place, in clones of the input's leaves. Its sort is
+   chosen on the device each tick (`tick_sort` names the choice): a
+   per-target segment sort where no target gets more than SEGMENT_MAX
+   entries, else an LSD radix sort in `radix_plan`'s passes. Bound and
+   design: the header of ``csrc/mega_window.cu``; `MegaWindow.clock` and
+   `phase_table` give its device time a tick, phase by phase.
 
-2. **The codec** (`pack_words`/`unpack_words`): word tables (mailbox
-   rings, spill words; state.PACKED_WORD_FIELDS) cross the kernel boundary
-   as an int16 plane plus an int32 escape plane. A word that fits int16
-   (and is not the sentinel ESC) travels in the int16 plane; any other
-   word reads ESC there and lives in the escape plane. Lossless for every
-   int32. `modelled_bytes_per_msg` gives the bytes a ring record costs
+2. **The codec** (`pack_words`/`unpack_words` and the numpy twins): word
+   tables can be stored as an int16 plane plus an int32 escape plane. A
+   word that fits int16 (and is not the sentinel ESC) travels in the
+   int16 plane; any other word reads ESC there and lives in the escape
+   plane. Lossless for every int32. The window kernel no longer uses it
+   (on this card the state stays int32 and the planes saved no time); it
+   is kept, held against the JAX package's, for the packed snapshots of
+   slice 8. `modelled_bytes_per_msg` gives the bytes a ring record costs
    packed and unpacked at a measured escape rate.
 
 Single shard only (`eligible`); an ineligible program runs the plain
@@ -165,11 +176,16 @@ _AUX_NAMED = ("device_pending", "host_pending", "exit_flag",
               "spill_overflow", "spawn_fail", "blob_fail",
               "blob_budget_fail", "any_muted", "exit_code", "n_processed",
               "n_delivered")
-# State leaves the kernel updates (copied before the launch, so the input
-# state stays as it was); the word tables travel packed.
+# State leaves the kernel updates in place: each is cloned before the
+# launch, since the caller's input state stays referenced (the window is a
+# function of it; Runtime and the checks read it again). The mailbox rings
+# and the cohorts' fields are cloned beside these; leaves the kernel only
+# reads (the route spill, spawn_fail, the injections) are passed as they
+# are.
 _UPDATED = ("head", "tail", "alive", "muted", "mute_refs", "mute_age",
             "mute_ovf", "pinned", "pressured", "dspill_tgt",
-            "dspill_sender", "dspill_count", "spill_overflow", "exit_flag",
+            "dspill_sender", "dspill_words", "dspill_count",
+            "spill_overflow", "exit_flag",
             "exit_code", "step_no", "n_processed", "n_delivered",
             "n_rejected", "n_badmsg", "n_deadletter", "n_mutes",
             "n_destroyed", "last_error", "last_error_loc", "n_errors",
@@ -201,6 +217,83 @@ def fixed_pointers() -> List[str]:
     body = re.search(r"enum PonyPtr \{(.*?)\};", text, re.S).group(1)
     names = re.findall(r"\bP_[A-Z0-9_]+\b", body)
     return names[:names.index("P_AUX_IN")]
+
+
+DIGIT_BITS_MAX = 11      # csrc/mega_window.cu: RADIX <= 2048
+SEGMENT_MAX = 32         # entries a target may get in a segment tick
+
+
+def radix_plan(key_max: int):
+    """(passes, digit bits) of the window kernel's radix sort over keys
+    0..key_max (the dead key, n_local * n_levels): the fewest passes of at
+    most 11-bit digits, the bits split evenly between them, so every key
+    range under 2^22 takes two passes."""
+    bits = max(1, int(key_max).bit_length())
+    npass = -(-bits // DIGIT_BITS_MAX)
+    return npass, -(-bits // npass)
+
+
+GRID_MAX = 1024          # csrc/mega_window.cu: GMAX, the block-count table
+
+
+def grid_blocks(resident: int, n_local: int, n_entries: int,
+                threads: int = 256) -> int:
+    """The window kernel's launch grid: the smallest of the blocks that fit
+    on the card at once (`resident`, occupancy x SMs), what the world's
+    widest phase can use (one thread a lane or an entry) and the kernel's
+    table of per-block digit counts (GRID_MAX). Every loop in the kernel
+    is grid-stride, so any grid from 1 up is correct."""
+    widest = max(-(-n_local // threads), -(-n_entries // threads))
+    return max(1, min(int(resident), widest, GRID_MAX))
+
+
+def tick_sort(world: Dict[str, int], plan_key: torch.Tensor) -> str:
+    """Which sort the window kernel chose for the tick whose keys are
+    `plan_key` (the kernel decides on the device from the same counts):
+    "segment" where no target got more than `world["SEG"]` live entries,
+    else "radix"."""
+    dead = world["NL"] * world["NLEV"]
+    live = plan_key[plan_key < dead]
+    most = int(torch.bincount(live.long() // world["NLEV"]).max()) \
+        if live.numel() else 0
+    return "segment" if most <= world["SEG"] else "radix"
+
+
+def clock_phases() -> Dict[int, str]:
+    """The per-phase clock's phase ids and names, read from the source
+    (enum PonyPhase: CK_START = 0, ...)."""
+    with open(SRC) as f:
+        text = f.read()
+    body = re.search(r"enum PonyPhase \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"\bCK_([A-Z0-9_]+)\b", body)
+    return {k: n.lower() for k, n in enumerate(names)}
+
+
+def clock_slots() -> int:
+    with open(SRC) as f:
+        return int(re.search(r"CLOCK_SLOTS = (\d+);", f.read()).group(1))
+
+
+def phase_table(clock: torch.Tensor, ticks: int) -> Dict[str, float]:
+    """Mean device µs a tick of each phase over the first `ticks` ticks of
+    a window run with `MegaWindow.clock` set: each stamp minus the one
+    before it in the same tick, summed by phase name (a phase met twice a
+    tick, such as a radix pass, sums), and "tick" the first stamp to the
+    last. Stamps are %globaltimer readings in ns."""
+    names = clock_phases()
+    c = clock[:ticks].cpu().numpy()
+    out: Dict[str, float] = {}
+    total = 0.0
+    for t in range(ticks):
+        ids, ns = c[t, :, 0], c[t, :, 1]
+        n = int(np.count_nonzero(ns))
+        for s in range(1, n):
+            name = names[int(ids[s])]
+            out[name] = out.get(name, 0.0) + (ns[s] - ns[s - 1]) / 1e3
+        total += (ns[n - 1] - ns[0]) / 1e3
+    out = {k: v / ticks for k, v in out.items()}
+    out["tick"] = total / ticks
+    return out
 
 
 class MegaWindow:
@@ -239,23 +332,29 @@ class MegaWindow:
                 base=ch.behaviours[0].global_id if ch.behaviours else 0,
                 extra=dict(S0=ch.local_start, ROWS=ch.local_capacity,
                            OUT_OFF=off, LEVEL=2 + pri.index(ch.priority),
-                           PBUF=ptr, PFIELD=ptr + 2)))
+                           PBUF=ptr, PFIELD=ptr + 1)))
             off += ch.local_capacity * ch.batch * ch.max_sends
-            ptr += 2 + len(names)
+            ptr += 1 + len(names)
         self.n_ptr = ptr
         e = n_entries
+        npass, dbits = radix_plan(nl * self.n_levels)
         self.world = dict(
             NL=nl, CAP=opts.mailbox_cap, SPILL=opts.spill_cap,
             INJ=opts.inject_slots, K=opts.mute_slots,
             W1=1 + opts.msg_words, E_OUT=e_out, E=e,
             NLEV=self.n_levels, UNMUTE=opts.unmute_occ,
             OVERLOAD=opts.overload_occ, AGE=opts.mute_age_limit,
-            NPASS=max(1, -(-(nl * self.n_levels).bit_length() // 8)))
+            NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX)
         self.header = self.source("cuda")      # refusals surface here
         self.tag = "pony_mega_" + re.sub(
             r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
         self._fn = self._host_fn = None
         self.info = None
+        # A measurement hook, not an option: an int64 CUDA tensor
+        # [max(1, limit), clock_slots(), 2] (zeroed by the caller) makes
+        # every launch stamp each phase of each tick into it
+        # (`phase_table` reads it); None passes a null pointer.
+        self.clock = None
         self._ws: Dict[Any, torch.Tensor] = {}
 
     @property
@@ -318,19 +417,22 @@ class MegaWindow:
         return fn
 
     def build(self, log=None) -> None:
-        """Build and bind the CUDA library, and read its occupancy (the
-        grid of every launch: blocks per SM x SMs)."""
+        """Build and bind the CUDA library, read its occupancy, and size
+        the grid of every launch to the world (`grid_blocks`)."""
         lib = _build.build([self.job()], log)[0]
         fn = self.bind(lib)
-        info = (ctypes.c_int * 7)()
+        info = (ctypes.c_int * 8)()
         err = lib.pony_mega_info(info)
         if err != 0:
             raise RuntimeError(f"window kernel: occupancy query failed: "
                                f"CUDA error {err}")
-        self.info = dict(zip(("blocks_per_sm", "sms", "grid", "registers",
-                              "local_bytes", "shared_bytes", "cooperative"),
-                             list(info)))
-        if self.info["grid"] < 1 or not self.info["cooperative"]:
+        self.info = dict(zip(("blocks_per_sm", "sms", "resident",
+                              "registers", "local_bytes", "shared_bytes",
+                              "cooperative", "threads"), list(info)))
+        self.info["grid"] = grid_blocks(
+            self.info["resident"], self.world["NL"], self.world["E"],
+            self.info["threads"])
+        if self.info["resident"] < 1 or not self.info["cooperative"]:
             raise RuntimeError(f"window kernel cannot launch "
                                f"cooperatively: {self.info}")
         self._fn = fn
@@ -384,6 +486,20 @@ class MegaWindow:
                                              device=dev)
         return ws
 
+    def _clock(self, dev, limit, host):
+        if self.clock is None or host:
+            return torch.empty((0,), dtype=torch.int64, device=dev)
+        c = self.clock
+        if c.dtype != torch.int64 or c.device != dev \
+                or not c.is_contiguous() or c.dim() != 3 \
+                or c.shape[0] < max(1, int(limit)) \
+                or tuple(c.shape[1:]) != (clock_slots(), 2):
+            raise ValueError(f"window kernel: clock {c.dtype} "
+                             f"{tuple(c.shape)} on {c.device}, expected "
+                             f"contiguous int64 [>= {max(1, int(limit))}, "
+                             f"{clock_slots()}, 2] on {dev}")
+        return c
+
     def _launch(self, fn, st, inject_tgt, inject_words, limit, force,
                 prev_aux, forced, host=False):
         from ..runtime.engine import _AUX_BOOL, StepAux, zero_aux
@@ -399,14 +515,11 @@ class MegaWindow:
         if forced:
             prev_aux = zero_aux(dev)
         new = {f: getattr(st, f).clone() for f in _UPDATED}
-        for f, t in new.items():
+        for f, t in list(new.items()) + [("rspill_words", st.rspill_words)]:
             if not t.is_contiguous() or t.device != dev:
                 raise ValueError(f"window kernel: state leaf {f} must be "
                                  f"contiguous on {dev}")
-        dsp = pack_words(st.dspill_words)
-        rsp = pack_words(st.rspill_words)
-        bufs = {sp["name"]: pack_words(st.buf[sp["name"]])
-                for sp in self.specs}
+        bufs = {sp["name"]: st.buf[sp["name"]].clone() for sp in self.specs}
         fields = {sp["name"]: {f: st.type_state[sp["name"]][f].clone()
                                for f in sp["fields"]} for sp in self.specs}
         ws = self.workspace(dev, fn.ws_words)
@@ -416,12 +529,11 @@ class MegaWindow:
         out_i = torch.empty((n_i + 1,), dtype=torch.int32, device=dev)
         table = {"P_" + f.upper(): t for f, t in new.items()}
         table.update(
-            P_DSPILL_LO=dsp[0], P_DSPILL_ESC=dsp[1], P_RSPILL_TGT=st.rspill_tgt,
-            P_RSPILL_SENDER=st.rspill_sender, P_RSPILL_LO=rsp[0],
-            P_RSPILL_ESC=rsp[1], P_RSPILL_COUNT=st.rspill_count,
+            P_RSPILL_TGT=st.rspill_tgt, P_RSPILL_SENDER=st.rspill_sender,
+            P_RSPILL_WORDS=st.rspill_words, P_RSPILL_COUNT=st.rspill_count,
             P_SPAWN_FAIL=st.spawn_fail, P_INJECT_TGT=inject_tgt,
             P_INJECT_WORDS=inject_words, P_WS=ws, P_OUT_BOOL=out_b,
-            P_OUT_INT=out_i)
+            P_OUT_INT=out_i, P_CLOCK=self._clock(dev, limit, host))
         tensors = [table[n] for n in self.fixed]
         for name, v in zip(StepAux._fields, prev_aux):
             want = torch.bool if name in _AUX_BOOL else torch.int32
@@ -430,7 +542,7 @@ class MegaWindow:
                                  f"{tuple(v.shape)} on {v.device}")
             tensors.append(v)
         for sp in self.specs:
-            tensors += list(bufs[sp["name"]])
+            tensors.append(bufs[sp["name"]])
             tensors += [fields[sp["name"]][f] for f in sp["fields"]]
         ptrs = _build.pointers(tensors)
         if host:
@@ -447,10 +559,7 @@ class MegaWindow:
         if not host:
             MegaWindow.launches += 1
         st2 = dataclasses.replace(
-            st, **new,
-            buf={n: unpack_words(*p) for n, p in bufs.items()},
-            dspill_words=unpack_words(*dsp),
-            type_state={**st.type_state, **fields})
+            st, **new, buf=bufs, type_state={**st.type_state, **fields})
         bools, ints = iter(range(n_b)), iter(range(n_i))
         aux = StepAux(*(out_b[next(bools)] if f in _AUX_BOOL
                         else out_i[next(ints)] for f in StepAux._fields))

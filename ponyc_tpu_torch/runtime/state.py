@@ -54,8 +54,8 @@ def layout_sizes(program: Program, opts: RuntimeOptions):
 
 
 # Word tables: mailbox rings, spill words (and trace lanes, with tracing):
-# what crosses the window kernel's boundary as the int16 + escape planes
-# of ops/megakernel.py's codec.
+# what ops/megakernel.py's int16 + escape codec packs (for snapshots; the
+# window kernel reads and writes them as int32).
 PACKED_WORD_FIELDS = ("buf", "dspill_words", "rspill_words", "trace_buf")
 
 

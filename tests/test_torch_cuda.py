@@ -206,3 +206,31 @@ def test_mega_walkers_card_matches_cpu():
                     {k: v.tolist() for k, v in
                      rt.cohort_state(TT.Walker).items()}))
     assert out[0] == out[1] and out[0][0]["n_mutes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", ["segment", "radix", "radix2"])
+def test_mega_sort_branches_card_matches_cpu(sort):
+    """The window kernel's two sorts on the card, on the spill/mute
+    world: at the default thresholds (the segment sort where its targets'
+    segments are short) and rebuilt with the segment sort ruled out (the
+    radix sort, in one pass and in two); each against the CPU."""
+    _need_cuda()
+    kw = dict(mailbox_cap=2, batch=1, msg_words=1, max_sends=2,
+              spill_cap=512, inject_slots=16, delivery="pallas_mega")
+    world = {"segment": {}, "radix": dict(SEG=-1),
+             "radix2": dict(SEG=-1, NPASS=2, DBITS=8)}[sort]
+    out = []
+    for device in ("cuda", "cpu"):
+        rt = build_walkers(ponyc_tpu_torch, TT, 7, n_seeds=30,
+                           device=device, **kw)
+        mw = rt._multi_g
+        if device == "cuda" and world:
+            mw.world.update(world)
+            mw.header = mw.source("cuda")
+            mw.build()
+        rt.run(max_steps=2000)
+        out.append((counters(rt), rt.steps_run,
+                    {k: v.tolist() for k, v in
+                     rt.cohort_state(TT.Walker).items()}))
+    assert out[0] == out[1] and out[0][0]["n_rejected"] > 0

@@ -19,7 +19,9 @@ import ponyc_tpu_torch
 from ponyc_tpu_torch import RuntimeOptions
 from ponyc_tpu_torch.models import mixed, nbody, ring, ubench
 from ponyc_tpu_torch.ops import _build
-from ponyc_tpu_torch.ops.megakernel import MegaWindow
+from ponyc_tpu_torch.ops.megakernel import (GRID_MAX, MegaWindow,
+                                            grid_blocks, radix_plan,
+                                            tick_sort)
 from ponyc_tpu_torch.runtime import engine
 
 from _torch_programs import (CORPUS, build_fifo, build_mixers,
@@ -187,3 +189,155 @@ def test_gated_out_window(host_checked):
     got = rt._multi_g.run_host(rt.state, *rt._empty_inject, 4, False, quiet)
     assert int(got[2]) == 0
     assert all(torch.equal(a, b) for a, b in zip(got[1], quiet))
+
+
+# ---- the redesign's branches: radix passes, sorts, ticks within and
+# beyond one tile, grid ----------------------------------------------------
+
+H100_RESIDENT = 4 * 132      # a grid of 4 blocks an SM on 132 SMs
+TILE = 4096                  # entries of one tile of the kernel's sort
+
+
+@pytest.mark.parametrize("key_max,plan", [
+    (1, (1, 1)), (64 * 3, (1, 8)), (512 * 3, (1, 11)), (2047, (1, 11)),
+    (2048, (2, 6)), (1024 * 3, (2, 6)), ((1 << 20) * 3, (2, 11)),
+    ((1 << 22) - 1, (2, 11)), (1 << 22, (3, 8)), ((1 << 31) - 1, (3, 11))])
+def test_radix_plan(key_max, plan):
+    """The fewest passes of at most 11-bit digits: two for any key range
+    under 2^22 (ubench's and mixed's 2^20 x 3), one up to 11 bits."""
+    assert radix_plan(key_max) == plan
+    npass, dbits = plan
+    assert npass * dbits >= key_max.bit_length() and dbits <= 11
+
+
+@pytest.mark.parametrize("nl,e,grid", [
+    (1024, 9352, 37),                    # the ring: entries are widest
+    (1 << 20, 4196360, H100_RESIDENT),   # ubench: capped by residency
+    (32, 296, 2), (1, 1, 1), (70000, 100, 274)])
+def test_grid_blocks(nl, e, grid):
+    """The grid is the smaller of what is resident and what the widest
+    phase (one thread a lane or an entry) can use."""
+    assert grid_blocks(H100_RESIDENT, nl, e) == grid
+    assert grid_blocks(1, nl, e) == 1
+    # Never more blocks than the kernel's table of per-block digit counts.
+    assert grid_blocks(4096, nl, e) == min(max(grid, -(-max(nl, e) // 256)),
+                                           GRID_MAX)
+
+
+# World overrides that choose a tick's sort: the segment tick's largest
+# segment (-1: never, so every tick takes the radix sort).
+SORTS = {"segment": {}, "radix": dict(SEG=-1)}
+
+
+def _passes(w, npass):
+    """World `w`'s radix sort in `npass` passes of equal digits."""
+    bits = (w["NL"] * w["NLEV"]).bit_length()
+    w["NPASS"], w["DBITS"] = npass, -(-bits // npass)
+
+
+def test_constants_match_the_kernel_source():
+    """The wrapper's copies of the kernel's limits agree with
+    csrc/mega_window.cu: the block-count table, the tile the tests'
+    worlds fit or exceed and the widest digit."""
+    import re
+    from ponyc_tpu_torch.ops import megakernel as mk
+    src = open(mk.SRC).read()
+    threads = int(re.search(r"int THREADS = (\d+);", src).group(1))
+    items = int(re.search(r"int ITEMS = (\d+);", src).group(1))
+    assert int(re.search(r"GMAX = (\d+);", src).group(1)) == GRID_MAX
+    assert TILE == threads * items
+    assert re.search(r"RADIX <= %d" % (1 << mk.DIGIT_BITS_MAX), src)
+
+
+def _pingers(n, pings, cap, sort=None, plan=None, hops=1 << 20):
+    opts = RuntimeOptions(mailbox_cap=cap, batch=pings, max_sends=1,
+                          msg_words=1, spill_cap=64, inject_slots=8,
+                          quiesce_interval=3, **OPTS)
+    rt, ids = ubench.build(n, opts, pings=pings, device="cpu")
+    w = rt._multi_g.world
+    w.update(SORTS[sort] if sort else {})
+    if plan is not None:
+        w["NPASS"], w["DBITS"] = plan
+    ubench.seed_all(rt, ids, hops=hops, pings=pings)
+    return rt
+
+
+@pytest.mark.parametrize("n,pings,cap,plan,npass", [
+    (512, 16, 16, None, 1),          # keys under 2^11: one pass
+    (4096, 2, 4, None, 2),           # 14-bit keys: two passes of 7 bits
+    (4096, 2, 4, (3, 5), 3)])        # the same keys in three passes
+def test_radix_passes(host_checked, n, pings, cap, plan, npass):
+    """Ticks of 8192 live entries (more than one tile), with the segment
+    tick ruled out, take the radix sort; the number of passes follows the
+    key range."""
+    rt = _pingers(n, pings, cap, sort="radix", plan=plan)
+    assert rt._multi_g.world["NPASS"] == npass
+    rt.run(max_steps=6)
+    assert tick_sort(rt._multi_g.world, rt.state.plan_key) == "radix"
+    assert _ran(host_checked) >= 6
+    assert int(rt.state.plan_bounds[-1]) == n * pings > TILE
+    assert rt.counter("n_processed") == n * pings * 6
+
+
+@pytest.mark.parametrize("sort,npass", [
+    ("segment", None), ("radix", 1), ("radix", 2)])
+def test_small_and_wide_tick(host_checked, sort, npass):
+    """64 pingers' ticks hold 128 live entries, within one tile: at the
+    default thresholds they take the segment sort (per-target slots, then
+    each segment sorted); with it ruled out, the radix sort (in one pass
+    or two), which is what a fan-in tick within one tile takes. All equal
+    the plain window."""
+    rt = _pingers(64, 2, 4, sort=sort)
+    if npass:
+        _passes(rt._multi_g.world, npass)
+    rt.run(max_steps=6)
+    assert _ran(host_checked) >= 6
+    assert 0 < int(rt.state.plan_bounds[-1]) <= TILE
+    assert tick_sort(rt._multi_g.world, rt.state.plan_key) == sort
+
+
+def test_segment_tick_at_width(host_checked):
+    """4096 pingers: 8192 live entries a tick, more than one tile, and no
+    target gets more than SEGMENT_MAX of them, so the ticks take the
+    segment sort at the default thresholds."""
+    rt = _pingers(4096, 2, 4)
+    rt.run(max_steps=6)
+    assert _ran(host_checked) >= 6
+    assert tick_sort(rt._multi_g.world, rt.state.plan_key) == "segment"
+    assert int(rt.state.plan_bounds[-1]) == 8192 > TILE
+
+
+@pytest.mark.parametrize("npass", [1, 2])
+@pytest.mark.parametrize("world", ["walkers", "mixers"])
+def test_wide_sort_spill_mute_and_effects(host_checked, world, npass):
+    """Every tick through the radix sort, in one pass or two, on the
+    spill/mute and effect worlds: rejections, the spill in sorted order
+    and mute triggers (the other tests' defaults take the segment
+    sort)."""
+    if world == "walkers":
+        rt = build_walkers(ponyc_tpu_torch, TT, 7, n_seeds=30,
+                           mailbox_cap=2, batch=1, msg_words=1, max_sends=2,
+                           spill_cap=512, inject_slots=16, quiesce_interval=8,
+                           **MEGA)
+    else:
+        rt = build_mixers(ponyc_tpu_torch, TT, 5, mailbox_cap=4,
+                          spill_cap=256, inject_slots=32, quiesce_interval=8,
+                          **MEGA)
+    rt._multi_g.world.update(SORTS["radix"])
+    _passes(rt._multi_g.world, npass)
+    rt.run(max_steps=300)
+    _ran(host_checked)
+    if world == "walkers":
+        assert rt.counter("n_mutes") > 0 and rt.counter("n_rejected") > 0
+
+
+def test_small_world_grid_below_residency(host_checked):
+    """The ring of 32 nodes: its grid is 2 blocks, well below a full
+    H100's 528, and its windows equal the plain window."""
+    rt = ring.run(32, 60, opts=RuntimeOptions(
+        mailbox_cap=8, batch=1, max_sends=1, msg_words=1, spill_cap=128,
+        inject_slots=8, quiesce_interval=16, **OPTS), device="cpu")
+    w = rt._multi_g.world
+    assert grid_blocks(H100_RESIDENT, w["NL"], w["E"]) < H100_RESIDENT
+    _ran(host_checked)
+    assert int(rt.cohort_state(ring.RingNode)["passes"].sum()) == 60
