@@ -63,9 +63,26 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
   7. nbody    — one all-pairs round at 1024 bodies with the fused and
                 the window kernel, against the NumPy oracle
                 (`reference_accels`);
-  8. profile  — kernels launched a tick and the device's busy share
+  8. spawn    — the spawn tree (models/spawn_tree.py) at depth 20: 2**20
+                leaves, 2**21 - 1 actors created on the device, Node
+                declared at 2**22 rows, through Runtime.run() on each
+                path: exit code 2**20, n_spawned 2**21 - 2, the parent,
+                acc and pending columns and the alive mask equal across
+                the paths, one launch of the path's kernel per tick
+                enqueued (a window kernel per window), ms a tick;
+  9. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
+
+Device spawns run through all three kernels: the fused kernel's spawn
+planes are checked in `kernels` on the spawning cohorts (the tree's Node
+at 2**22 lanes, timed there too), the window kernel's spawn phases in
+`kernels-mega` on the tree at depth 20 (a world whose per-phase line
+shows the census and reserve phases; the other worlds have none), and
+`agree` runs the tree, the spawn/destroy churn and a spawn_sync world on
+the card and the CPU. Each run prints, per cohort, whether the fused
+kernel or the plain dispatch ran it (a cohort that sync-constructs takes
+the plain dispatch, as in the JAX package).
 
 Output: the card's name and power limit (nvidia-smi) first, one line per
 phase, one JSON line listing every kernel, and as the last line
@@ -244,6 +261,16 @@ def nbody_opts(fused):
                           **_mode_kw(fused))
 
 
+SPAWN_DEPTH = 20         # the spawn tree on the card: 2^21 - 1 nodes
+
+
+def spawn_opts(mode, ticks=16):
+    # examples/spawn_tree.py's options
+    from ponyc_tpu_torch.models import spawn_tree
+    return spawn_tree.options(quiesce_interval=ticks, tuning_cache="off",
+                              **_mode_kw(mode))
+
+
 def corpus_opts():
     from ponyc_tpu_torch import RuntimeOptions
     return RuntimeOptions(mailbox_cap=8, batch=4, max_sends=2, msg_words=2,
@@ -269,12 +296,14 @@ def fused_cases():
     the cohorts of the agree phase's small worlds."""
     import ponyc_tpu_torch
     from ponyc_tpu_torch import RuntimeOptions
-    from ponyc_tpu_torch.models import nbody, ring, ubench
+    from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
     tp, _T = programs()
     cases = [("ubench", [ubench.Pinger], ubench_opts(True), 1 << 20),
              ("mixed", [mixed_type()], mixed_opts(True), 1 << 20),
              ("nbody", [nbody.Body], nbody_opts(True), 1024),
-             ("ring", [ring.RingNode], ring_opts(True), 1024)]
+             ("ring", [ring.RingNode], ring_opts(True), 1024),
+             ("spawn_tree", [spawn_tree.Node], spawn_opts(True),
+              4 << SPAWN_DEPTH)]
     # Each program below gets actor types of its own: a behaviour's
     # global id belongs to its definition and is set by the last program
     # that declared it, and the plain version reads it when it runs.
@@ -283,6 +312,10 @@ def fused_cases():
         cases.append((f"corpus N={n}", [T.Mixer, T.TriF, T.Yielder,
                                          T.Exiter, T.Ephemeral, T.Errs,
                                          T.Arith], corpus_opts(), n))
+    T = tp.define(ponyc_tpu_torch)
+    cases.append(("spawn corpus N=257", [T.Boss, T.Worker, T.Spawner,
+                                         T.SpawnChild, T.Relay, T.Temp,
+                                         T.Collector], corpus_opts(), 257))
     worlds = [("walkers", ("Walker", "Splitter"), WALKERS_KW),
               ("mixers", ("Mixer",), MIXERS_KW)]
     worlds += [(n, names, kw) for n, (names, kw) in tp.CORPUS_WORLDS.items()]
@@ -295,13 +328,38 @@ def fused_cases():
 
 
 def fused_dispatches(types, opts, lanes):
+    """The fused dispatch of every eligible cohort of a program declaring
+    `types` at `lanes` rows each (a cohort that sync-constructs has none:
+    it takes the plain dispatch)."""
     from ponyc_tpu_torch.ops import fused_dispatch as fdm
     from ponyc_tpu_torch.program import Program
+    from ponyc_tpu_torch.runtime.engine import spawn_meta_of
     prog = Program(opts)
     for t in types:
         prog.declare(t, lanes)
     prog.finalize()
-    return [fdm.build_fused_dispatch(prog.by_type[t], opts) for t in types]
+    out = []
+    for t in types:
+        ch = prog.by_type[t]
+        meta = spawn_meta_of(prog, ch)
+        progs = fdm.trace_cohort(ch, opts, meta)
+        if fdm.eligible(ch, progs):
+            out.append(fdm.build_fused_dispatch(ch, opts, meta, progs))
+    return out
+
+
+def dispatch_paths(rt):
+    """Per cohort of a started Runtime, the dispatch its ticks take:
+    "fused kernel" or "plain dispatch" (the window kernel runs every
+    cohort itself)."""
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    mw = rt._multi_g
+    if isinstance(mw, MegaWindow):
+        return {ch.atype.__name__: "window kernel"
+                for ch in rt.program.device_cohorts}
+    fused = {fd.name for fd in mw.fused}
+    return {ch.atype.__name__: "fused kernel" if ch.atype.__name__ in fused
+            else "plain dispatch" for ch in rt.program.device_cohorts}
 
 
 @phase("build")
@@ -356,7 +414,7 @@ def mega_windows():
     delivery="pallas_mega": the four main paths at full width (from their
     Programs) and the agree phase's small worlds (started on the CPU,
     which traces and emits without building)."""
-    from ponyc_tpu_torch.models import nbody, ring, ubench
+    from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
     from ponyc_tpu_torch.program import Program
     from ponyc_tpu_torch.runtime import engine
 
@@ -371,7 +429,9 @@ def mega_windows():
                ubench.Pinger, 1 << 20, ubench_opts("mega", MEGA_TICKS))),
            "mixed": window(mixed_type(), 1 << 20, mixed_opts("mega")),
            "ring": window(ring.RingNode, 1024, ring_opts("mega")),
-           "nbody": window(nbody.Body, 1024, nbody_opts("mega"))}
+           "nbody": window(nbody.Body, 1024, nbody_opts("mega")),
+           "spawn tree": window(spawn_tree.Node, 4 << SPAWN_DEPTH,
+                                spawn_opts("mega"))}
     for name, build, _finish in agree_worlds():
         out[f"agree {name}"] = build("cpu", "mega")._multi_g
     return out
@@ -394,7 +454,7 @@ def _leaves(x, name="out"):
 
 
 FUSED_OUT = ("fields", "outbox", "head", "any_exit", "exit_code", "nproc",
-             "nbad", "destroy", "errors")
+             "nbad", "destroy", "errors", "claims", "inits", "spawn_fail")
 
 
 def compare_fused(a, b, label):
@@ -460,14 +520,16 @@ def fused_bound(fd, inputs, out):
     message runs over the float32 peak."""
     import torch
     from ponyc_tpu_torch.ops import lanecode
-    fields, buf, head, n_run, ids = inputs
+    fields, buf, head, n_run, ids, resv = inputs
     rows = fd.rows
     consumed = ((out[2].long() - head.long()) & 0xffffffff)
     fbytes = sum(t.numel() * t.element_size() for t in fields.values())
-    read = fbytes + 3 * 4 * rows + int(consumed.sum()) * fd.w1_in * 4
+    read = (fbytes + 3 * 4 * rows + int(consumed.sum()) * fd.w1_in * 4
+            + sum(4 * r.numel() for r in resv))
     e = fd.batch * fd.ms * rows
     write = (fbytes + 4 * e + 4 * fd.w1 * e + 4 * rows
-             + (rows if fd.destroy else 0) + (9 * rows if fd.error else 0))
+             + (rows if fd.destroy else 0) + (9 * rows if fd.error else 0)
+             + 4 * fd.batch * fd.ns * rows)
     ops = 0
     lanes = torch.arange(rows, device=buf.device)
     for k in range(fd.batch):
@@ -565,17 +627,23 @@ def check_kernels(rec, frec):
             err, ulp, nout = compare_fused(got, want, f"{label} {fd.name}")
             f_err, f_ulp = max(f_err, err), max(f_ulp, ulp)
             checked.append(f"{label}:{fd.name}")
+            spawns = ""
+            if fd.sites:
+                clm = torch.cat(want[9])
+                spawns = (f", {fd.ns} spawn sites: {int((clm >= 0).sum())} "
+                          f"claims, spawn fail {bool(want[11])}")
             print(f"fused {label} {fd.name} ({fd.rows} lanes, cap "
                   f"{fd.cap}, w1_in {fd.w1_in}, w1 {fd.w1}, batch "
                   f"{fd.batch}, ms {fd.ms}, {len(fd.progs)} behaviours): "
                   f"{nout} outputs bit-equal (nproc {int(want[5])}, nbad "
-                  f"{int(want[6])}, exit {bool(want[3])})", flush=True)
+                  f"{int(want[6])}, exit {bool(want[3])}{spawns})",
+                  flush=True)
     times = {}
-    for label in ("ubench", "mixed"):
+    for label in ("ubench", "mixed", "spawn_tree"):
         fd = _CACHE["fused"][label][0]
         sets = [fd.sample_inputs(seed=100 + s, device="cuda", steady=True)
                 for s in range(3)]
-        reps = 3 if label == "mixed" else 10
+        reps = 10 if label == "ubench" else 3
         t = dict(ms=device_ms(fd, 20, sets, "pony_fused_kernel"),
                  plain_ms=device_ms(fd.plain, reps, sets),
                  call_ms=cuda_ms(fd, 20, sets),
@@ -598,7 +666,8 @@ def check_kernels(rec, frec):
                 replaces="ponyc_tpu/ops/fused_dispatch.py:97",
                 max_abs_err=f_err, max_ulp=f_ulp, bit_equal=f_ulp == 0
                 and f_err == 0, shapes=checked, library_ms=None,
-                **times["ubench"], mixed=times["mixed"])
+                **times["ubench"], mixed=times["mixed"],
+                spawn_tree=times["spawn_tree"])
     return True
 
 
@@ -729,6 +798,10 @@ def full_worlds():
                      np.stack([st["x"], st["y"]], axis=1), st["m"])
         return rt
 
+    def tree():
+        from ponyc_tpu_torch.models import spawn_tree
+        return spawn_tree.build(SPAWN_DEPTH, spawn_opts("mega"))[0]
+
     return [("ubench 2^20 hops=2^30 (every payload escaped)",
              pingers(1 << 30)),
             ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
@@ -738,7 +811,8 @@ def full_worlds():
             ("ubench 2^20 hops=2^30, radix sort forced",
              pingers(1 << 30, radix=True)),
             ("mixed 2^20", workers), ("ring 1024", nodes),
-            ("nbody 1024", bodies)]
+            ("nbody 1024", bodies),
+            (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree)]
 
 
 def graph_yardstick(mw, st, it, iw, ticks):
@@ -793,7 +867,9 @@ def check_mega(mrec):
         live = int(want[0].plan_bounds[-1])       # the last tick's
         branch = megakernel.tick_sort(mw.world, want[0].plan_key)
         print(f"window kernel {label}: 2 windows of up to {T} ticks "
-              f"({int(got[2])} ran in the second), {nout} leaves bit-equal "
+              f"({int(got[2])} ran in the second, "
+              f"{int(want[0].n_spawned[0])} device spawns in both), {nout} "
+              f"leaves bit-equal "
               f"to the plain window; {live} live entries in the last tick "
               f"({branch} sort); escape rate {esc:.6f} "
               f"(build+seed+check {time.perf_counter() - t0:.1f} s)",
@@ -832,6 +908,10 @@ def check_mega(mrec):
                      plain_ms=device_ms(plain, 1, [()], warm=1),
                      plain_call_ms=cuda_ms(plain, 2, [()], warm=1))
             try:
+                if label.startswith("spawn"):
+                    # 16 plain ticks at 2^22 rows hold tens of GB in one
+                    # graph's pool: no yardstick for this world.
+                    raise RuntimeError("not captured at 2^22 rows")
                 replay, gout = graph_yardstick(mw, st1, e_it, e_iw, T)
                 replay()
                 compare_window(mw.forced(st1, e_it, e_iw, T), gout,
@@ -985,9 +1065,52 @@ def agree_worlds():
                     **_mode_kw(mode)),
                 lambda rt: tp.run_corpus(ponyc_tpu_torch, T, name, rt=rt))
 
+    def tree(device, mode):
+        from ponyc_tpu_torch.models import spawn_tree
+        return spawn_tree.build(8, spawn_opts(mode), device=device)[0]
+
+    def tree_done(rt):
+        from ponyc_tpu_torch.models import spawn_tree
+        rt.run(max_steps=10_000)
+        if rt.exit_code != 256 or rt.counter("n_spawned") != 510:
+            raise AssertionError(f"spawn tree depth 8: exit code "
+                                 f"{rt.exit_code}, n_spawned "
+                                 f"{rt.counter('n_spawned')}")
+        return (_world_numbers(rt, spawn_tree.Node)
+                + (rt.state.alive.tolist(), rt.counter("n_spawned")))
+
+    def churn(device, mode):
+        return tp.churn(ponyc_tpu_torch, T, 301, device=device,
+                        **_mode_kw(mode))[0]
+
+    def churn_done(rt):
+        rt.run(max_steps=100_000)
+        return (_world_numbers(rt, T.Temp) + _world_numbers(rt, T.Collector)
+                + (rt.counter("n_spawned"), rt.counter("n_destroyed")))
+
+    def sync(device, mode):
+        rt = tp.new_runtime(ponyc_tpu_torch, dict(
+            mailbox_cap=8, batch=2, max_sends=1, msg_words=3,
+            inject_slots=8, **_mode_kw(mode)), device)
+        rt.declare(T.Maker, 3).declare(T.Kid, 6).start()
+        for m in rt.spawn_many(T.Maker, 3):
+            rt.send(int(m), T.Maker.make, int(m) + 5)
+        return rt
+
+    def sync_done(rt):
+        import numpy as np
+        rt.run(max_steps=100)
+        kid = rt.cohort_state(T.Kid)
+        return (_world_numbers(rt, T.Maker)[0], kid["tag"].tolist(),
+                np.asarray(kid["frac"]).view(np.int32).tolist(),
+                kid["boss"].tolist(), rt.counter("n_spawned"))
+
     worlds = [("walkers (spill/mute)", walkers, walkers_done),
               ("ring", rings, rings_done), ("ubench", pingers, pingers_done),
-              ("mixers (every effect)", mixers, mixers_done)]
+              ("mixers (every effect)", mixers, mixers_done),
+              ("spawn tree depth 8", tree, tree_done),
+              ("spawn/destroy churn", churn, churn_done),
+              ("spawn_sync", sync, sync_done)]
     worlds += [(f"corpus {n}", *corpus(n)) for n in tp.CORPUS]
     return worlds
 
@@ -996,12 +1119,15 @@ def agree_worlds():
 def agree_small_worlds():
     for mode in (False, True, "mega"):
         for name, build, finish in agree_worlds():
-            g, c = finish(build("cuda", mode)), finish(build("cpu", mode))
+            rt = build("cuda", mode)
+            paths = dispatch_paths(rt)
+            g, c = finish(rt), finish(build("cpu", mode))
             if g != c:
                 raise AssertionError(f"{name} ({_mode_name(mode)}): the "
                                      f"card and the CPU disagree: {g} vs "
                                      f"{c}")
-            print(f"{name} {_mode_name(mode)}: card == CPU", flush=True)
+            print(f"{name} {_mode_name(mode)}: card == CPU ({paths})",
+                  flush=True)
 
 
 def count_windows(rt):
@@ -1259,6 +1385,73 @@ def run_nbody(frec, mrec, bodies=1024):
     return out
 
 
+@phase("spawn")
+def run_spawn(rec, frec, mrec, depth=SPAWN_DEPTH):
+    """The spawn tree through Runtime.run() on each path (see the module
+    docstring): correctness, launches and ms a tick."""
+    import numpy as np
+    import torch
+    from ponyc_tpu_torch.models import spawn_tree
+    leaves = 1 << depth
+    cols, out = {}, {}
+    for mode in (False, True, "mega"):
+        t0 = time.perf_counter()
+        rt, _root = spawn_tree.build(depth, spawn_opts(mode))
+        windows = count_windows(rt)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        q0 = rt.ticks_enqueued
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        code = rt.run(max_steps=10_000)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        enqueued = rt.ticks_enqueued - q0
+        spawned = rt.counter("n_spawned")
+        if code != leaves or spawned != 2 * leaves - 2:
+            raise AssertionError(f"spawn tree {_mode_name(mode)}: exit "
+                                 f"code {code} (want {leaves}), n_spawned "
+                                 f"{spawned} (want {2 * leaves - 2})")
+        if rt.counter("n_rejected") or rt.counter("n_deadletter"):
+            raise AssertionError("spawn tree rejected or dead-lettered "
+                                 "messages")
+        want = expected_launches(mode, enqueued, windows[0])
+        if got != want or rt.steps_run > enqueued:
+            raise AssertionError(f"spawn tree {_mode_name(mode)}: launches "
+                                 f"(drain, fused, window) {got} for "
+                                 f"{enqueued} ticks enqueued, {windows[0]} "
+                                 f"windows (expected {want})")
+        st = rt.cohort_state(spawn_tree.Node)
+        cols[mode] = {k: st[k] for k in ("parent", "acc", "pending")}
+        cols[mode]["alive"] = rt.state.alive.cpu().numpy()
+        ticks = rt.steps_run
+        out[{False: "plain", True: "fused", "mega": "mega"}[mode]] = dict(
+            ms_per_tick=1e3 * elapsed / ticks, ticks=ticks,
+            enqueued=enqueued, windows=windows[0], seconds=elapsed)
+        {False: rec, True: frec, "mega": mrec}[mode]["launches_spawn"] = \
+            max(got)
+        print(f"spawn tree depth {depth} ({4 * leaves} rows) "
+              f"{_mode_name(mode)}: exit code {code}, n_spawned {spawned}, "
+              f"{ticks} ticks in {elapsed:.3f} s = "
+              f"{1e3 * elapsed / ticks:.3f} ms/tick (setup {setup:.1f} s);"
+              f" {enqueued} enqueued, {windows[0]} windows; launches "
+              f"(drain, fused, window) {got}; dispatch {dispatch_paths(rt)}",
+              flush=True)
+        del rt
+        torch.cuda.empty_cache()
+    for mode in (True, "mega"):
+        for k, v in cols[mode].items():
+            if not np.array_equal(v, cols[False][k]):
+                raise AssertionError(f"spawn tree: column {k} differs "
+                                     f"between {_mode_name(mode)} and the "
+                                     "plain tick")
+    print(f"spawn tree: parent, acc, pending and alive bit-equal across the "
+          f"plain tick, the fused kernel and the window kernel "
+          f"({int(cols[False]['alive'].sum())} actors alive)", flush=True)
+    return out
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -1468,6 +1661,8 @@ def main():
             summary["mixed_s_per_tick"] = run_mixed(frec, mrec)
         if want("nbody"):
             summary["nbody"] = run_nbody(frec, mrec)
+        if want("spawn"):
+            summary["spawn"] = run_spawn(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -1481,6 +1676,7 @@ def main():
         return 0
     extra = ("call_ms", "plain_call_ms", "library_call_ms",
              "launches_ring", "launches_mixed", "launches_nbody",
+             "launches_spawn", "spawn_tree",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
              "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",
              "design_ms", "info")

@@ -17,8 +17,8 @@ Behaviours are plain functions over torch tensors::
 
 ``self`` inside a behaviour is a Context: it carries the actors' global
 ids (an int32 tensor over the cohort's lanes) and collects the effects
-(sends, exit, yield, destroy, error) that the engine turns into batched
-tensor operations. The state dict ``st`` maps field names to [lanes]
+(sends, spawns, exit, yield, destroy, error) that the engine turns into
+batched tensor operations. The state dict ``st`` maps field names to [lanes]
 tensors; return the updated dict. A body that uses only Python operators
 runs unchanged in both packages. The number of ``self.send(...)`` calls
 per behaviour is fixed by the body; data-dependent sends use ``when=``
@@ -27,8 +27,7 @@ place (``st["x"] += 1``): tensors are shared across lanes, so the engine
 raises when a body does.
 
 Not served yet by the port (each raises NotImplementedError naming the
-slice that brings it, see ROADMAP.md): ``spawn``/``spawn_sync`` and the
-blob-pool operations.
+slice that brings it, see ROADMAP.md): the blob-pool operations.
 """
 
 from __future__ import annotations
@@ -231,9 +230,12 @@ class Context:
                  "exit_code", "yield_flag", "destroy_flag",
                  "destroy_called", "error_flag", "error_code", "error_loc",
                  "error_called", "ref_types", "cap_moves", "cap_types",
-                 "exit_called", "yield_called")
+                 "exit_called", "yield_called", "spawn_fail",
+                 "_spawn_resv", "spawn_claims", "_spawn_meta",
+                 "sync_inits")
 
-    def __init__(self, actor_id, msg_words: int):
+    def __init__(self, actor_id, msg_words: int, spawn_resv=None,
+                 spawn_meta=None):
         self.actor_id = actor_id          # [lanes] int32 global ids
         self.msg_words = msg_words
         self.device = actor_id.device
@@ -254,6 +256,17 @@ class Context:
         self.ref_types = pack.RefTypes()
         self.cap_moves = pack.CapMoves()
         self.cap_types = pack.CapTypes()
+        # Device spawns: {target type name: [n_sites, lanes] int32 refs
+        # reserved for this dispatch (-1: no free slot)}; the claims made
+        # so far per target; whether a wanted spawn found no slot.
+        self._spawn_resv = spawn_resv or {}
+        self.spawn_claims: Dict[str, List[Any]] = {
+            t: [] for t in self._spawn_resv}
+        self.spawn_fail = False
+        # {target type name: field specs}, for sync construction, and
+        # {target type name: {site: (state dict, ok mask)}}.
+        self._spawn_meta = spawn_meta or {}
+        self.sync_inits: Dict[str, Dict[int, Any]] = {}
 
     def _mask(self, when):
         return pack._tensor(when, torch.bool, self.device)
@@ -320,12 +333,143 @@ class Context:
                            words, self._mask(when)))
 
     def spawn(self, ctor: BehaviourDef, *args, when=True):
-        """≙ pony_create from behaviour code — not served by the port yet."""
-        raise unported("spawns")
+        """Create an actor of the constructor's type and send it `ctor` as
+        its first message (≙ pony_create, actor.c:688-734: in Pony
+        ``create`` is itself an asynchronous behaviour, so construction is
+        "claim a slot, deliver the constructor message").
+
+        Returns the new actor's ref (an int32 tensor over the lanes),
+        usable at once in this behaviour's sends and state. The spawner's
+        class declares ``SPAWNS = {TargetType: n_sites}``. Where no free
+        slot was reserved the ref is -1, the sticky `spawn_fail` flag
+        raises SpawnCapacityError on the host, and the masked
+        constructor send drops."""
+        tname, ref, ok = self._claim_slot(ctor, when, "spawn")
+        self.send(ref, ctor, *args, when=ok)
+        return self.ref_types.tag(torch.where(ok, ref, -1), tname)
+
+    def _claim_slot(self, ctor, when, what: str):
+        """The spawn preamble shared by `spawn` and `spawn_sync`: budget
+        checks and the claim of this site's reserved slot. Returns
+        (target type name, reserved ref, ok mask)."""
+        if not isinstance(ctor, BehaviourDef):
+            raise TypeError(f"{what}() takes a constructor behaviour "
+                            "(e.g. Worker.init)")
+        tname = ctor.actor_type.__name__
+        resv = self._spawn_resv.get(tname)
+        if resv is None:
+            raise RuntimeError(
+                f"{tname} is not in this actor type's SPAWNS declaration; "
+                f"add SPAWNS = {{{tname}: n}} to the spawning class")
+        used = len(self.spawn_claims[tname])
+        if used >= resv.shape[0]:
+            raise RuntimeError(
+                f"more than SPAWNS[{tname}]={resv.shape[0]} spawns in one "
+                "behaviour dispatch; raise the declared budget")
+        ref = resv[used]
+        w = self._mask(when)
+        ok = w & (ref >= 0)
+        self.spawn_claims[tname].append(torch.where(ok, ref, -1))
+        fail = w & (ref < 0)
+        self.spawn_fail = fail if self.spawn_fail is False \
+            else self.spawn_fail | fail
+        return tname, ref, ok
 
     def spawn_sync(self, ctor: BehaviourDef, *args, when=True):
-        """Synchronous construction — not served by the port yet."""
-        raise unported("sync")
+        """Spawn with a synchronous constructor (≙ the fork's
+        pony_sendv_synchronous_constructor, actor.c:836-848): `ctor` runs
+        inside this dispatch on the newborn's zeroed state, and its fields
+        are written when the slot is claimed, so same-tick sends to the
+        new ref find a constructed actor.
+
+        The constructor must only return the initial state: a send,
+        spawn, exit, destroy, yield or error inside it raises at build
+        (an effectful create needs the asynchronous `spawn`)."""
+        tname, ref, ok = self._claim_slot(ctor, when, "spawn_sync")
+        specs = self._spawn_meta.get(tname)
+        if specs is None:
+            raise RuntimeError(
+                "spawn_sync is only available in device behaviours")
+        site = len(self.spawn_claims[tname]) - 1
+        self._ctor_arg_checks(ctor, args, tname)
+        cctx = Context(ref, self.msg_words)
+        zero = {f: torch.full((), -1 if pack.is_ref(s) else 0,
+                              dtype=torch.float32 if s is pack.F32
+                              else torch.int32, device=self.device)
+                for f, s in specs.items()}
+        st2 = ctor.fn(cctx, zero, *args)
+        if st2 is None or set(st2.keys()) != set(specs.keys()):
+            raise TypeError(
+                f"sync constructor {ctor} must return the full state dict "
+                f"({sorted(specs)})")
+        if (cctx.sends or cctx.destroy_called or cctx.error_called
+                or any(cctx.spawn_claims.values()) or cctx.exit_called
+                or cctx.yield_called):
+            raise TypeError(
+                f"sync constructor {ctor} performs effects; effects need a "
+                "real dispatch — use ctx.spawn (async constructor message)")
+        for f, s in specs.items():
+            want = pack.ref_target(s)
+            got = self.ref_types.lookup(st2[f])
+            if want is not None and got is not None and got != want:
+                raise TypeError(
+                    f"sendability: sync constructor {ctor} stores a "
+                    f"Ref[{got}] into field {f!r} declared Ref[{want}]")
+            if pack.concrete_null_handle(st2[f]):
+                continue
+            src = self.cap_types.lookup(st2[f])
+            dst = pack.cap_mode(s)
+            if not pack.cap_store_ok(src, dst):
+                raise TypeError(
+                    f"capability: sync constructor {ctor} stores a "
+                    f"{src} payload into field {f!r} declared "
+                    f"{dst.capitalize()} — a {src} value cannot grant "
+                    f"the rights {dst} requires (is_cap_sub_cap)")
+            # The newborn is another actor: what lands in its fields
+            # crosses an actor boundary and must be sendable.
+            if src is not None and not pack.cap_sendable(src):
+                raise TypeError(
+                    f"capability: sync constructor {ctor} moves a "
+                    f"{src} payload into the newborn's field {f!r} — "
+                    f"{src} is not sendable; only iso/val/tag cross an "
+                    "actor boundary (CAP_SEND, type/cap.c:90)")
+        self.sync_inits.setdefault(tname, {})[site] = (st2, ok)
+        return self.ref_types.tag(torch.where(ok, ref, -1), tname)
+
+    def _ctor_arg_checks(self, ctor: BehaviourDef, args, tname: str):
+        """Constructor arguments obey a send's sendability and capability
+        rules (≙ expr/call.c parameter checks); handing a unique payload
+        to the newborn is a move."""
+        where = f"{tname}.{ctor.name} spawn_sync"
+        for spec, a in zip(ctor.arg_specs, args):
+            want = pack.ref_target(spec)
+            got = self.ref_types.lookup(a)
+            if want is not None and got is not None and got != want:
+                raise TypeError(
+                    f"sendability: {tname}.{ctor.name} expects Ref[{want}] "
+                    f"but was passed a Ref[{got}]")
+            if pack.concrete_null_handle(a):
+                continue
+            prev = self.cap_moves.was_moved(a)
+            if prev is not None:
+                raise TypeError(
+                    f"capability: use-after-move — payload already moved "
+                    f"by {prev} is passed to {where}")
+            cwant = pack.cap_mode(spec)
+            src = self.cap_types.lookup(a)
+            if not pack.cap_store_ok(src, cwant):
+                raise TypeError(
+                    f"capability: {where} declares its parameter "
+                    f"{cwant.capitalize()} but was passed a {src} "
+                    f"payload — a {src} value cannot grant the rights "
+                    f"{cwant} requires (is_cap_sub_cap, type/cap.c)")
+        for spec, a in zip(ctor.arg_specs, args):
+            if pack.concrete_null_handle(a):
+                continue
+            cwant = pack.cap_mode(spec)
+            if cwant == "iso" or (cwant is not None
+                                  and self.cap_types.lookup(a) == "iso"):
+                self.cap_moves.move(a, where)
 
     def destroy(self, when=True):
         """Mark *this* actor for destruction at the end of the step: slot

@@ -495,18 +495,16 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "host": ("host cohorts (HOST = True actor types)", 4),
-    "spawns": ("device spawns (SPAWNS, ctx.spawn)", 4),
-    "sync": ("sync construction (ctx.spawn_sync)", 4),
-    "cosort": ("cosort delivery (delivery='cosort')", 5),
+    "host": ("host cohorts (HOST = True actor types)", 5),
+    "cosort": ("cosort delivery (delivery='cosort')", 6),
     "tuner": ("the formulation tuner (delivery='auto', "
-              "pallas_fused='auto')", 5),
-    "blobs": ("the device blob pool and GC (blob_slots, ctx.blob_*)", 6),
-    "analysis": ("analysis and causal tracing (analysis > 0)", 7),
+              "pallas_fused='auto')", 6),
+    "blobs": ("the device blob pool and GC (blob_slots, ctx.blob_*)", 7),
+    "analysis": ("analysis and causal tracing (analysis > 0)", 8),
     "observability": ("the flight recorder, watchdog, metrics and cost "
-                      "capture", 7),
-    "durability": ("durable checkpoints (checkpoint_every_s)", 8),
-    "mesh": ("mesh sharding (mesh_shards > 1)", 9),
+                      "capture", 8),
+    "durability": ("durable checkpoints (checkpoint_every_s)", 9),
+    "mesh": ("mesh sharding (mesh_shards > 1)", 10),
 }
 
 

@@ -11,10 +11,15 @@
 //     local = msg[0] - base; in_range = 0 <= local < nb
 //     the behaviour `local` runs on (state, msg[1:], id)  (only when both)
 //     outbox entry (k, m, i): target (-1 = none) and w1 words
+//     spawns: the behaviour reads this dispatch's reserved refs (the
+//       `used` counter walks SD dispatches' worth of the reservation
+//       planes and advances on a slot that claimed or failed a wanted
+//       spawn); claim (k, site, i): the claimed ref (-1 = none)
 //     exit: the first code wins; error: the latest code and site win;
 //     destroy: OR; yield stops the batch (unless noyield)
 //   state out, head + consumed, and the cohort sums nproc, nbad, the
-//   first exiting lane's code and whether any lane exited.
+//   first exiting lane's code, whether any lane exited and whether any
+//   wanted spawn found no reserved slot (sticky spawn_fail).
 //
 // The per-lane drain is `pony_lane` (csrc/lane.cuh, shared with the window
 // kernel). The behaviour bodies come from a generated header
@@ -33,8 +38,11 @@
 // (k*ms + m)*rows + i; out_words int32 [w1, batch*ms*rows] (the engine's
 // final layout, so no permute pass follows); the destroy plane uint8
 // [rows] and the error planes uint8/int32/int32 [rows] only when a body
-// uses them; red int32 [8]: nproc, nbad, exit code, any exit, then a
-// 64-bit exit key and a block ticket (scratch).
+// uses them; the reservation planes int32 [SD * NS, rows] in and the claim
+// planes int32 [BATCH * NS, rows] out, target by target (the rows of flat
+// site g: the cohort's resv_row(g, d) and claim_row(g, k)), only when the
+// cohort spawns (NS > 0); red int32 [8]: nproc, nbad, exit code, any exit,
+// then a 64-bit exit key, a block ticket (scratch) and any spawn fail.
 //
 // Bound. One thread per lane; each lane reads its state, head, n_run and
 // id, the words of the slots it consumes, and writes its state, head and
@@ -79,6 +87,21 @@ struct PonyOutbox {
   }
 };
 
+// Spawn sites: reservations read from, claims written to the planes.
+struct PonyPlanes {
+  const int32_t* __restrict__ rplane;
+  int32_t* __restrict__ cplane;
+  int64_t rows, i;
+  PONY_FN int32_t resv(int d, int g) const {
+    return rplane[(int64_t)C::resv_row(g, d) * rows + i];
+  }
+  template <class O>
+  PONY_FN void claim(int k, const O& o) const {
+    for (int g = 0; g < C::NS; ++g)
+      cplane[(int64_t)C::claim_row(g, k) * rows + i] = o.clm[g];
+  }
+};
+
 // One actor lane: the part shared by the kernel and the host build.
 PONY_FN PonyLane pony_fused_lane(int64_t i, int64_t rows,
                                  const int32_t* __restrict__ buf,
@@ -92,13 +115,16 @@ PONY_FN PonyLane pony_fused_lane(int64_t i, int64_t rows,
                                  uint8_t* __restrict__ ds_out,
                                  uint8_t* __restrict__ erf_out,
                                  int32_t* __restrict__ erc_out,
-                                 int32_t* __restrict__ erl_out) {
+                                 int32_t* __restrict__ erl_out,
+                                 const int32_t* __restrict__ resv,
+                                 int32_t* __restrict__ claims) {
   C::State s;
   C::load(s, fin, i);
   const uint32_t h = (uint32_t)head[i];
   const PonyRing ring = {buf, rows, i};
   const PonyOutbox send = {out_tgt, out_words, rows, i};
-  const PonyLane r = pony_lane<C>(s, h, n_run[i], ids[i], ring, send);
+  const PonyPlanes spawn = {resv, claims, rows, i};
+  const PonyLane r = pony_lane<C>(s, h, n_run[i], ids[i], ring, send, spawn);
   C::store(s, fout, i);
   new_head[i] = (int32_t)(h + r.consumed);
   if constexpr (C::DESTROY) ds_out[i] = r.ds;
@@ -121,7 +147,8 @@ __global__ void __launch_bounds__(PONY_THREADS) pony_fused_kernel(
     int32_t* __restrict__ out_tgt, int32_t* __restrict__ out_words,
     int32_t* __restrict__ new_head, uint8_t* __restrict__ ds_out,
     uint8_t* __restrict__ erf_out, int32_t* __restrict__ erc_out,
-    int32_t* __restrict__ erl_out, int32_t* __restrict__ red) {
+    int32_t* __restrict__ erl_out, const int32_t* __restrict__ resv,
+    int32_t* __restrict__ claims, int32_t* __restrict__ red) {
   __shared__ int32_t s_np, s_nb;
   __shared__ unsigned long long s_key;
   if (threadIdx.x == 0) {
@@ -131,16 +158,21 @@ __global__ void __launch_bounds__(PONY_THREADS) pony_fused_kernel(
   }
   __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  PonyLane r = {0, 0, 0, 0, 0, 0u, false, false, false};
+  PonyLane r = {0, 0, 0, 0, 0, 0, 0u, false, false, false, false};
   if (i < rows)
     r = pony_fused_lane(i, rows, buf, head, n_run, ids, fin, fout, out_tgt,
                         out_words, new_head, ds_out, erf_out, erc_out,
-                        erl_out);
+                        erl_out, resv, claims);
   const int32_t np = __reduce_add_sync(0xffffffffu, r.nproc);
   const int32_t nb = __reduce_add_sync(0xffffffffu, r.nbad);
   if ((threadIdx.x & 31) == 0) {
     if (np) atomicAdd(&s_np, np);
     if (nb) atomicAdd(&s_nb, nb);
+  }
+  if constexpr (C::NS > 0) {
+    // Any spawn fail: one store a warp that saw one (the flag only rises).
+    if (__any_sync(0xffffffffu, r.sf) && (threadIdx.x & 31) == 0)
+      atomicOr(&red[7], 1);
   }
   if (r.ef) {
     // The lowest exiting lane wins: its key is the largest.
@@ -180,8 +212,8 @@ extern "C" int PONY_ENTRY(const void* buf, const void* head,
                           void* const* fin, void* const* fout,
                           void* out_tgt, void* out_words, void* new_head,
                           void* ds_out, void* erf_out, void* erc_out,
-                          void* erl_out, void* red, long long rows,
-                          void* stream) {
+                          void* erl_out, const void* resv, void* claims,
+                          void* red, long long rows, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(red, 0, 8 * sizeof(int32_t), st);
   if (err != cudaSuccess) return (int)err;
@@ -192,7 +224,8 @@ extern "C" int PONY_ENTRY(const void* buf, const void* head,
       (const int32_t*)n_run, (const int32_t*)ids, pony_fields(fin),
       pony_fields(fout), (int32_t*)out_tgt, (int32_t*)out_words,
       (int32_t*)new_head, (uint8_t*)ds_out, (uint8_t*)erf_out,
-      (int32_t*)erc_out, (int32_t*)erl_out, (int32_t*)red);
+      (int32_t*)erc_out, (int32_t*)erl_out, (const int32_t*)resv,
+      (int32_t*)claims, (int32_t*)red);
   return (int)cudaGetLastError();
 }
 
@@ -203,8 +236,8 @@ extern "C" int PONY_ENTRY(const void* buf, const void* head,
                           void* const* fin, void* const* fout,
                           void* out_tgt, void* out_words, void* new_head,
                           void* ds_out, void* erf_out, void* erc_out,
-                          void* erl_out, void* red, long long rows,
-                          void* stream) {
+                          void* erl_out, const void* resv, void* claims,
+                          void* red, long long rows, void* stream) {
   (void)stream;
   Fields fi, fo;
   for (int k = 0; k < C::NF; ++k) {
@@ -220,7 +253,8 @@ extern "C" int PONY_ENTRY(const void* buf, const void* head,
         (const int32_t*)n_run, (const int32_t*)ids, fi, fo,
         (int32_t*)out_tgt, (int32_t*)out_words, (int32_t*)new_head,
         (uint8_t*)ds_out, (uint8_t*)erf_out, (int32_t*)erc_out,
-        (int32_t*)erl_out);
+        (int32_t*)erl_out, (const int32_t*)resv, (int32_t*)claims);
+    r[7] |= l.sf;
     r[0] = (int32_t)((uint32_t)r[0] + (uint32_t)l.nproc);
     r[1] = (int32_t)((uint32_t)r[1] + (uint32_t)l.nbad);
     if (l.ef && !any) {

@@ -3,9 +3,11 @@
 //
 // A cohort reaches this code as a struct generated by
 // ponyc_tpu_torch/ops/lanecode.py (emit_cohort): its constants (NB, BATCH,
-// CAP, MS, W1, W1_IN, BASE, NOYIELD, ...), its State struct, load/store of
-// the state columns, one function beh_<j> per behaviour and the `dispatch`
-// switch that picks one by message id. Each cohort is a struct of its own,
+// CAP, MS, W1, W1_IN, BASE, NOYIELD, NS spawn sites, SD dispatches that may
+// spawn, NI sync-construction words, ...), its State struct, load/store of
+// the state columns, one function beh_<j> per behaviour, the `dispatch`
+// switch that picks one by message id, and the per-site spawn layout
+// (resv_row, claim_row, site_target, site_off, site_per, site_n). Each cohort is a struct of its own,
 // so the window kernel holds every cohort of a program in one translation
 // unit.
 //
@@ -112,14 +114,28 @@ PONY_FN T pony_powi(T a, T b) {
   return (T)result;
 }
 
-// What one behaviour did on one lane for one message.
+// What one behaviour did on one lane for one message. A cohort with spawn
+// sites (NS > 0) also records, per flat site g, the claimed ref (-1: none)
+// and, for a sync construction, `has` and the constructor's field values
+// as int32 bits, and `sf`: a wanted spawn found no reserved slot. A cohort
+// without keeps the smaller struct (it may live in local memory, where
+// every byte counts against the window kernel's spills).
 template <int MS, int W1>
-struct PonyOutT {
+struct PonyOutBase {
   int32_t tgt[MS > 0 ? MS : 1];
   int32_t w[MS > 0 ? MS : 1][W1];
   bool ef, yf, ds, erf;
   int32_t ec, erc, erl;
 };
+template <int MS, int W1, int NS = 0, int NI = 0>
+struct PonyOutT : PonyOutBase<MS, W1> {
+  bool sf;
+  int32_t clm[NS];
+  bool has[NS];
+  int32_t iv[NS][NI > 0 ? NI : 1];
+};
+template <int MS, int W1, int NI>
+struct PonyOutT<MS, W1, 0, NI> : PonyOutBase<MS, W1> {};
 
 // A fixed list of pointers (state columns), passed to a kernel by value.
 template <int N>
@@ -128,11 +144,26 @@ struct PonyPtrs {
   PONY_FN void* operator[](int k) const { return p[k]; }
 };
 
-// What one lane's whole drain did.
+// What one lane's whole drain did (nclaim: spawns that claimed a slot;
+// sf: a wanted spawn found none).
 struct PonyLane {
-  int32_t nproc, nbad, ec, erc, erl;
+  int32_t nproc, nbad, ec, erc, erl, nclaim;
   uint32_t consumed;
-  bool ef, ds, erf;
+  bool ef, ds, erf, sf;
+};
+
+// The spawn hooks of a cohort without spawn sites.
+struct PonyNoSpawn {
+  PONY_FN int32_t resv(int d, int g) const {
+    (void)d;
+    (void)g;
+    return -1;
+  }
+  template <class O>
+  PONY_FN void claim(int k, const O& o) const {
+    (void)k;
+    (void)o;
+  }
 };
 
 // One actor lane's drain (≙ ponyint_actor_run's loop, actor.c:383-549):
@@ -142,11 +173,19 @@ struct PonyLane {
 // slot (k, m) to `send(k, m, target, words)` (target -1 = no message).
 // Exit: the first code wins; error: the latest code and site win; destroy
 // ORs. Heads wrap: the caller adds `consumed` in unsigned arithmetic.
-template <class C, class Ring, class Send>
+//
+// Spawns (C::NS sites): a `used` counter walks the SD dispatches' worth of
+// reserved refs, `spawn.resv(d, g)` for dispatch d and flat site g (-1 past
+// SD); it advances on a slot that claimed a slot or failed a wanted spawn
+// (a second spawn never reuses the first's reservation). Every slot k hands
+// its claims to `spawn.claim(k, o)`.
+template <class C, class Ring, class Send, class Spawn>
 PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
-                           int32_t id, const Ring& ring, const Send& send) {
-  PonyLane r = {0, 0, 0, 0, 0, 0u, false, false, false};
+                           int32_t id, const Ring& ring, const Send& send,
+                           const Spawn& spawn) {
+  PonyLane r = {0, 0, 0, 0, 0, 0, 0u, false, false, false, false};
   bool stopped = false;
+  int used = 0;
   for (int k = 0; k < C::BATCH; ++k) {
     typename C::Out o;
     for (int m = 0; m < (C::MS > 0 ? C::MS : 1); ++m) {
@@ -155,6 +194,13 @@ PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
     }
     o.ef = o.yf = o.ds = o.erf = false;
     o.ec = o.erc = o.erl = 0;
+    if constexpr (C::NS > 0) {
+      o.sf = false;
+      for (int g = 0; g < C::NS; ++g) {
+        o.clm[g] = -1;
+        o.has[g] = false;
+      }
+    }
     if (nr > k && !stopped) {
       const uint32_t slot = (h + (uint32_t)k) & (uint32_t)(C::CAP - 1);
       int32_t w[C::W1_IN];
@@ -162,13 +208,30 @@ PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
       const int32_t local = (int32_t)((uint32_t)w[0] - (uint32_t)C::BASE);
       if (local >= 0 && local < C::NB) {
         ++r.nproc;
-        C::dispatch(local, s, w + 1, id, o);
+        if constexpr (C::NS > 0) {
+          int32_t rv[C::NS];
+          for (int g = 0; g < C::NS; ++g)
+            rv[g] = used < C::SD ? spawn.resv(used, g) : -1;
+          C::dispatch(local, s, w + 1, id, rv, o);
+        } else {
+          C::dispatch(local, s, w + 1, id, nullptr, o);
+        }
       } else {
         ++r.nbad;
       }
       ++r.consumed;
     }
     for (int m = 0; m < C::MS; ++m) send(k, m, o.tgt[m], o.w[m]);
+    if constexpr (C::NS > 0) {
+      bool spawned = o.sf;
+      for (int g = 0; g < C::NS; ++g) {
+        spawned = spawned || o.clm[g] >= 0;
+        r.nclaim += o.clm[g] >= 0;
+      }
+      used += spawned;
+      r.sf = r.sf || o.sf;
+      spawn.claim(k, o);
+    }
     if (o.ef && !r.ef) r.ec = o.ec;        // exit: the first code wins
     r.ef = r.ef || o.ef;
     r.ds = r.ds || o.ds;

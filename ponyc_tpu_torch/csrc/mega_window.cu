@@ -17,11 +17,27 @@
 // to the world (ops/megakernel.py: grid_blocks): the smaller of occupancy
 // x SMs and what the widest phase can use (lanes or entries over the block
 // size). A tick is six phases on a segment tick and 5 + 3 * NPASS on a
-// radix tick, each ended by a grid-wide sync:
+// radix tick, each ended by a grid-wide sync, and two more first where the
+// program spawns on the device (W::SPAWN, a constant of pony_world.h, so
+// the other programs' kernels have no spawn code at all):
 //
-//   1. lanes: per lane, unmute (≙ engine.py step 1), then the drain and
-//      dispatch of its cohort through `pony_lane` (csrc/lane.cuh, the
-//      per-lane code of the fused kernel) into the outbox of the entry list;
+//   0. (spawn world only) census: per row, unmute (≙ engine.py step 1),
+//      and each block's count of the free rows of spawn targets (dead,
+//      mailbox empty, no spilled message addressed to them) and of the
+//      runnable rows of spawners, over a contiguous range of rows a
+//      block; reserve: every block's prefix of those counts, then the
+//      free rows compacted in row order and each runnable spawner's rank
+//      (engine.py step 1b: free_row_list, spawn_reservations);
+//   1. lanes: per lane, unmute (unless the census did), then the drain
+//      and dispatch of its cohort through `pony_lane` (csrc/lane.cuh, the
+//      per-lane code of the fused kernel) into the outbox of the entry
+//      list; a spawner reads its reservations from the free list at its
+//      window (offset + rank * SD * sites) and marks each row it claims
+//      (BORN, and its sync constructor's values); the claims apply where
+//      engine.py's step 2b would have them: a claimed row counts as alive
+//      in `keys`, its ring fills from 0 in `deliver`, and `commit` makes
+//      it alive with head and tail 0 and its fields set (no phase reads a
+//      claimed row's state in the phase that writes it);
 //   2. keys: per entry of the delivery list [dspill | inject | rspill |
 //      cohort 0 outbox (k, m, lane) | cohort 1 ...], its sort key
 //      (plan_key), dead letters, per-target counts (the atomic returns
@@ -113,13 +129,15 @@ enum PonyPtr {
   P_N_DESTROYED, P_SPAWN_FAIL, P_LAST_ERROR, P_LAST_ERROR_LOC, P_N_ERRORS,
   P_PLAN_KEY, P_PLAN_PERM, P_PLAN_BOUNDS, P_WORLD_BITS,
   P_INJECT_TGT, P_INJECT_WORDS, P_WS, P_OUT_BOOL, P_OUT_INT, P_CLOCK,
-  P_AUX_IN,
+  P_N_SPAWNED, P_AUX_IN,
   P_FIXED = P_AUX_IN + 20
 };
 
 // The world: PonyWorld's constants (NPASS and DBITS from
-// ops/megakernel.py: radix_plan) and one struct per cohort (lanecode.py
-// emit_cohort, with S0, ROWS, OUT_OFF, LEVEL, PBUF and PFIELD), and
+// ops/megakernel.py: radix_plan; SPAWN, whether any cohort spawns on the
+// device; NI, the words a sync construction writes; NCOH, the cohorts) and
+// one struct per cohort (lanecode.py emit_cohort, with S0, ROWS, OUT_OFF,
+// LEVEL, PBUF, PFIELD, CIDX and TARGET, and its spawn sites), and
 // PONY_COHORTS(X), which applies X to every cohort in row order.
 #include "pony_world.h"
 
@@ -186,7 +204,21 @@ constexpr int64_t BCNT = GTOT + NPASS * RADIX;   // [RADIX, GMAX] a block's
 constexpr int64_t NSP_TGT = BCNT + RADIX * GMAX;  // new spill
 constexpr int64_t NSP_SND = NSP_TGT + W::SPILL;
 constexpr int64_t NSP_W = NSP_SND + W::SPILL;    // [W1, SPILL]
-constexpr int64_t END = NSP_W + W::W1 * W::SPILL;
+// Device spawns (empty unless W::SPAWN): each block's free and runnable
+// counts, every cohort's prefix of both at its first row (and the totals
+// at NCOH), the compacted free rows, each runnable spawner's global
+// runnable prefix, each row's claim this tick (1, or 2 with its sync
+// constructor's values in BINIT [NI, NL]).
+constexpr int64_t SPN = W::SPAWN ? 1 : 0;
+constexpr int64_t BFREE = NSP_W + W::W1 * W::SPILL;  // [GMAX]
+constexpr int64_t BRUN = BFREE + SPN * GMAX;         // [GMAX]
+constexpr int64_t FPRE = BRUN + SPN * GMAX;          // [NCOH + 1]
+constexpr int64_t UPRE = FPRE + SPN * (W::NCOH + 1); // [NCOH + 1]
+constexpr int64_t FREE = UPRE + SPN * (W::NCOH + 1); // [NL]
+constexpr int64_t RANK = FREE + SPN * W::NL;         // [NL]
+constexpr int64_t BORN = RANK + SPN * W::NL;         // [NL]
+constexpr int64_t BINIT = BORN + SPN * W::NL;        // [NI, NL]
+constexpr int64_t END = BINIT + SPN * W::NI * W::NL;
 static_assert(ACC % 2 == 0, "the 64-bit exit key is aligned");
 }  // namespace pws
 
@@ -194,7 +226,8 @@ static_assert(ACC % 2 == 0, "the 64-bit exit key is aligned");
 enum PonyAcc {
   A_EXITKEY = 0,   // 64-bit: (0xffffffff - row) << 32 | code, max wins
   A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_SEGMAX,
-  A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NACC
+  A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NSPAWN,
+  A_SFAIL, A_NACC
 };
 
 struct PonyMegaArgs {
@@ -442,7 +475,7 @@ PONY_FN void ph_pending(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
 // ---- phase 1: unmute, then drain and dispatch, per lane -----------------
 
 struct PonySums {
-  int32_t nproc, nbad, ndes, nerr;
+  int32_t nproc, nbad, ndes, nerr, nspawn, sf;
 };
 
 template <class C>
@@ -472,6 +505,40 @@ struct MegaFields {
   PONY_FN void* operator[](int k) const { return a->p[base + k]; }
 };
 
+// A spawner's reservations and claims. Reservation (dispatch d, flat site
+// g) of the runnable spawner of rank `rank` in its cohort: the target
+// cohort's compacted free row at its static offset + rank * SD * sites +
+// d * sites + site, -1 past the free rows. A claim marks the row born
+// (BORN, 2 with its sync constructor's values in BINIT); the commit phase
+// applies it. Reservation windows are disjoint, so no two lanes claim one
+// row.
+template <class C>
+struct MegaSpawn {
+  int32_t* ws;
+  int64_t rank;
+  PONY_FN int32_t resv(int d, int g) const {
+    const int t = C::site_target(g);
+    const int32_t f0 = ws[pws::FPRE + t];
+    const int64_t idx = (int64_t)C::site_off(g) + rank * C::site_per(g) +
+                        (int64_t)d * C::site_n(g);
+    return idx < (int64_t)(ws[pws::FPRE + t + 1] - f0)
+               ? ws[pws::FREE + f0 + idx]
+               : -1;
+  }
+  template <class O>
+  PONY_FN void claim(int k, const O& o) const {
+    (void)k;
+    for (int g = 0; g < C::NS; ++g) {
+      const int32_t ref = o.clm[g];
+      if (ref < 0) continue;
+      ws[pws::BORN + ref] = o.has[g] ? 2 : 1;
+      if (o.has[g])
+        for (int f = 0; f < C::NI; ++f)
+          ws[pws::BINIT + (int64_t)f * W::NL + ref] = o.iv[g][f];
+    }
+  }
+};
+
 template <class C>
 PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
                            int32_t* cur, int64_t r, bool runnable,
@@ -483,7 +550,17 @@ PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
   C::load(s, f, i);
   const MegaRing<C> ring = {(const int32_t*)a.p[C::PBUF], i};
   const MegaSend<C> send = {ws + pws::OUT_TGT, ws + pws::OUT_W, i};
-  const PonyLane l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send);
+  PonyLane l;
+  if constexpr (C::NS > 0) {
+    const int64_t rank = runnable
+        ? (int64_t)(ws[pws::RANK + r] - ws[pws::UPRE + C::CIDX]) : 0;
+    const MegaSpawn<C> spawn = {ws, rank};
+    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, spawn);
+    sums.nspawn += l.nclaim;
+    sums.sf |= l.sf;
+  } else {
+    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, PonyNoSpawn());
+  }
   C::store(s, f, i);
   ws[pws::NEWHEAD + r] = (int32_t)(h + l.consumed);
   ws[pws::DSTR + r] = l.ds;
@@ -501,27 +578,34 @@ PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
                 (uint32_t)l.ec);
 }
 
+// Unmute (≙ ponyint_sched_unmute_senders, scheduler.c:1552-1635): a
+// sender releases when every muting receiver has recovered, or by age.
+// Writes row r's mute table and WMUTED[r]; returns whether r stays muted.
 // `prev` holds the previous tick's largest occupancy and pressure (the
 // prologue's for tick 0); `dsp` is the current spill's length.
-PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
-                      int32_t* cur, const int32_t* prev, int32_t dsp) {
-  const int32_t* head = PI32(P_HEAD);
-  const int32_t* tail = PI32(P_TAIL);
-  const uint8_t* alive = PU8(P_ALIVE);
-  const uint8_t* muted = PU8(P_MUTED);
-  const uint8_t* pr = PU8(P_PRESSURED);
-  int32_t* refs = PI32(P_MUTE_REFS);
-  uint8_t* ovf = PU8(P_MUTE_OVF);
-  const int32_t* age = PI32(P_MUTE_AGE);
-  const int32_t* dcnt = ws + pws::DSP_CNT;
-  const bool any_pr = prev[A_ANY_PR_END] > 0;
-  const int32_t rsp = PI32(P_RSPILL_COUNT)[0];
-  const bool quiet = prev[A_OCC_MAX] <= W::UNMUTE && dsp == 0 && rsp == 0 &&
-                     !any_pr;
-  PonySums sums = {0, 0, 0, 0};
-  PONY_FOR(r, W::NL) {
-    // Unmute (≙ ponyint_sched_unmute_senders, scheduler.c:1552-1635): a
-    // sender releases when every muting receiver has recovered, or by age.
+struct Unmute {
+  const int32_t *head, *tail, *age, *dcnt;
+  const uint8_t *alive, *muted, *pr;
+  int32_t* refs;
+  uint8_t* ovf;
+  bool any_pr, quiet;
+  int32_t rsp;
+  PONY_FN Unmute(const PonyMegaArgs& a, int32_t* ws, const int32_t* prev,
+                 int32_t dsp) {
+    head = PI32(P_HEAD);
+    tail = PI32(P_TAIL);
+    age = PI32(P_MUTE_AGE);
+    dcnt = ws + pws::DSP_CNT;
+    alive = PU8(P_ALIVE);
+    muted = PU8(P_MUTED);
+    pr = PU8(P_PRESSURED);
+    refs = PI32(P_MUTE_REFS);
+    ovf = PU8(P_MUTE_OVF);
+    any_pr = prev[A_ANY_PR_END] > 0;
+    rsp = PI32(P_RSPILL_COUNT)[0];
+    quiet = prev[A_OCC_MAX] <= W::UNMUTE && dsp == 0 && rsp == 0 && !any_pr;
+  }
+  PONY_FN bool row(int32_t* ws, int64_t r) const {
     bool all_ok = true, by_pr = false, by_live = false;
     for (int k = 0; k < W::K; ++k) {
       const int32_t ref = refs[(int64_t)k * W::NL + r];
@@ -551,10 +635,21 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     }
     const bool wm = m0 && !release;
     ws[pws::WMUTED + r] = wm;
-    // Drain and dispatch (≙ the actor run loop).
-    const uint32_t h = (uint32_t)head[r];
-    const int32_t occ0 = (int32_t)((uint32_t)tail[r] - h);
-    const bool runnable = alive[r] && !wm;
+    return wm;
+  }
+};
+
+// Drain and dispatch (≙ the actor run loop), after the unmute: here, or
+// in the spawn world's census phase, which also needs it (WMUTED).
+PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                      int32_t* cur, const int32_t* prev, int32_t dsp) {
+  const Unmute um(a, ws, prev, dsp);
+  PonySums sums = {0, 0, 0, 0, 0, 0};
+  PONY_FOR(r, W::NL) {
+    const bool wm = W::SPAWN ? ws[pws::WMUTED + r] != 0 : um.row(ws, r);
+    const uint32_t h = (uint32_t)um.head[r];
+    const int32_t occ0 = (int32_t)((uint32_t)um.tail[r] - h);
+    const bool runnable = um.alive[r] && !wm;
 #define PONY_LANE(C) \
     if (r < C::S0 + C::ROWS) lane_dispatch<C>(a, ws, cur, r, runnable, h, occ0, sums); else
     PONY_COHORTS(PONY_LANE) {}
@@ -568,6 +663,125 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     if (nd) g_add(cur + A_NDESTROYED, nd);
     if (ne) g_add(cur + A_NERR, ne);
   }
+  if constexpr (W::SPAWN) {
+    const int32_t ns = block_sum(sums.nspawn), sf = block_sum(sums.sf);
+    if (g.tid == 0) {
+      if (ns) g_add(cur + A_NSPAWN, ns);
+      if (sf) g_add(cur + A_SFAIL, 1);
+    }
+  }
+}
+
+// ---- the spawn world's phases 0a and 0b: reservations ----------------
+//
+// (≙ pony_create's slot allocation, actor.c:688-734, ahead of dispatch;
+// engine.py's free_row_list and spawn_reservations.) Both walk the rows in
+// contiguous ranges, one a block, so that two grid-wide prefix sums give
+// row order: the free rows of every target cohort (dead, mailbox empty,
+// no spilled message addressed to them, all at the tick's start) and the
+// runnable actors of every spawner cohort.
+
+// Row r's cohort: its index, whether it is a spawn target, whether it
+// spawns.
+PONY_FN void row_cohort(int64_t r, int* k, bool* target, bool* spawner) {
+#define PONY_ROW_COHORT(C)                   \
+  if (r >= C::S0 && r < C::S0 + C::ROWS) {  \
+    *k = C::CIDX;                            \
+    *target = C::TARGET != 0;                \
+    *spawner = C::NS > 0;                    \
+    return;                                  \
+  }
+  PONY_COHORTS(PONY_ROW_COHORT)
+#undef PONY_ROW_COHORT
+  *k = 0;
+  *target = *spawner = false;
+}
+
+PONY_FN bool row_is_start(int64_t r, int* k) {
+#define PONY_ROW_START(C) \
+  if (r == C::S0) {        \
+    *k = C::CIDX;          \
+    return true;           \
+  }
+  PONY_COHORTS(PONY_ROW_START)
+#undef PONY_ROW_START
+  return false;
+}
+
+// Row r's flags at the tick's start (after the unmute, WMUTED): a free
+// row of a target cohort, a runnable row of a spawner cohort.
+PONY_FN void spawn_flags(const PonyMegaArgs& a, const int32_t* ws,
+                         int64_t r, int32_t* f, int32_t* u) {
+  int k;
+  bool target, spawner;
+  row_cohort(r, &k, &target, &spawner);
+  const bool al = PU8(P_ALIVE)[r] != 0;
+  *f = target && !al && PI32(P_TAIL)[r] == PI32(P_HEAD)[r] &&
+       ws[pws::DSP_CNT + r] == 0;
+  *u = spawner && al && !ws[pws::WMUTED + r];
+}
+
+PONY_FN void block_rows(const Grid& g, int64_t* r0, int64_t* r1) {
+  *r0 = W::NL * g.block / g.nblocks;
+  *r1 = W::NL * (g.block + 1) / g.nblocks;
+}
+
+// 0a, census: the unmute of every row, and each block's counts.
+PONY_FN void ph_census(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                       const int32_t* prev, int32_t dsp) {
+  const Unmute um(a, ws, prev, dsp);
+  int64_t r0, r1;
+  block_rows(g, &r0, &r1);
+  int32_t nf = 0, nu = 0;
+  for (int64_t r = r0 + g.tid; r < r1; r += g.nthreads) {
+    um.row(ws, r);
+    int32_t f, u;
+    spawn_flags(a, ws, r, &f, &u);
+    nf += f;
+    nu += u;
+  }
+  nf = block_sum(nf);
+  nu = block_sum(nu);
+  if (g.tid == 0) {
+    ws[pws::BFREE + g.block] = nf;
+    ws[pws::BRUN + g.block] = nu;
+  }
+}
+
+// 0b, reserve: the free rows compacted in row order (FREE), each runnable
+// row's global runnable prefix (RANK), and each cohort's prefixes at its
+// first row (FPRE, UPRE; the totals at NCOH).
+PONY_FN void ph_reserve(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
+  int32_t pf = 0, pu = 0;
+  for (int64_t b = g.tid; b < g.block; b += g.nthreads) {
+    pf += ws[pws::BFREE + b];
+    pu += ws[pws::BRUN + b];
+  }
+  pf = block_sum(pf);
+  pu = block_sum(pu);
+  int64_t r0, r1;
+  block_rows(g, &r0, &r1);
+  for (int64_t base = r0; base < r1; base += g.nthreads) {
+    const int64_t r = base + g.tid;
+    int32_t f = 0, u = 0;
+    if (r < r1) spawn_flags(a, ws, r, &f, &u);
+    int32_t tf, tu;
+    const int32_t xf = block_excl_scan(f, &tf);
+    const int32_t xu = block_excl_scan(u, &tu);
+    if (f) ws[pws::FREE + pf + xf] = (int32_t)r;
+    if (u) ws[pws::RANK + r] = pu + xu;
+    int k;
+    if (r < r1 && row_is_start(r, &k)) {
+      ws[pws::FPRE + k] = pf + xf;
+      ws[pws::UPRE + k] = pu + xu;
+    }
+    pf += tf;
+    pu += tu;
+  }
+  if (g.block == g.nblocks - 1 && g.tid == 0) {
+    ws[pws::FPRE + W::NCOH] = pf;
+    ws[pws::UPRE + W::NCOH] = pu;
+  }
 }
 
 // ---- phase 2: keys, dead letters, per-target counts, digit counts -------
@@ -577,7 +791,9 @@ PONY_FN int32_t digit(int32_t key, int pass) {
 }
 
 PONY_FN void acc_reset(int32_t* acc) {
-  for (int k = 0; k < A_NACC; ++k) acc[k] = 0;
+  // The spawn accumulators only where the program spawns.
+  for (int k = 0; k < (W::SPAWN ? (int)A_NACC : (int)A_NSPAWN); ++k)
+    acc[k] = 0;
   acc[A_OCC_MAX] = INT_MIN;
 }
 
@@ -605,7 +821,9 @@ PONY_FN void ph_keys(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
       int32_t tgt, lvl;
       entry_target(a, ws, e, inject, &tgt, &lvl);
       const bool in_range = tgt >= 0 && tgt < W::NL;
-      const bool dead = in_range && !alive[tgt];
+      // A row claimed this tick is alive for its delivery.
+      const bool dead = in_range && !alive[tgt] &&
+                        !(W::SPAWN && ws[pws::BORN + tgt]);
       valid = in_range && !dead;
       const int32_t key = valid ? tgt * (int32_t)W::NLEV + lvl : DEAD;
       key_out[e] = key;
@@ -1080,7 +1298,9 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
         if (j >= acc || recv_hot) mute_trigger(a, ws, (int32_t)t, perm[b + j]);
     }
     if (acc > 0) {
-      const uint32_t tl = (uint32_t)tail[t];
+      // A row claimed this tick starts its mailbox at 0.
+      const uint32_t tl =
+          W::SPAWN && ws[pws::BORN + t] ? 0u : (uint32_t)tail[t];
 #define PONY_FILL(C) \
       if (t < C::S0 + C::ROWS) ring_fill<C>(a, ws, t, tl, acc, b, inject); else
       PONY_COHORTS(PONY_FILL) {}
@@ -1117,6 +1337,16 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
 
 // ---- phase 6: destroys, mute bookkeeping, commit ------------------------
 
+template <class C>
+PONY_FN void born_fields(const PonyMegaArgs& a, const int32_t* ws, int64_t r,
+                         int32_t born) {
+  const int64_t i = r - C::S0;
+  for (int f = 0; f < C::NF; ++f)
+    ((int32_t*)a.p[C::PFIELD + f])[i] =
+        born == 2 && f < W::NI ? ws[pws::BINIT + (int64_t)f * W::NL + r]
+                               : (int32_t)C::null_bits(f);
+}
+
 PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
                        int32_t* cur) {
   int32_t* head = PI32(P_HEAD);
@@ -1130,10 +1360,22 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   uint8_t* pr = PU8(P_PRESSURED);
   int32_t any_occ = 0, any_m = 0, any_p = 0, became_n = 0, occ_max = INT_MIN;
   PONY_FOR(r, W::NL) {
-    const uint32_t nt = (uint32_t)tail[r] + (uint32_t)ws[pws::ACCW + r];
-    uint32_t nh = (uint32_t)ws[pws::NEWHEAD + r];
+    // A claimed row (≙ engine.py's apply_claims) becomes alive with head
+    // and tail 0 and its fields at their null words or its sync
+    // constructor's values.
+    const int32_t born = W::SPAWN ? ws[pws::BORN + r] : 0;
+    if (born) {
+      ws[pws::BORN + r] = 0;
+#define PONY_BORN(C) \
+      if (r >= C::S0 && r < C::S0 + C::ROWS) born_fields<C>(a, ws, r, born); else
+      PONY_COHORTS(PONY_BORN) {}
+#undef PONY_BORN
+    }
+    const uint32_t nt = (born ? 0u : (uint32_t)tail[r]) +
+                        (uint32_t)ws[pws::ACCW + r];
+    uint32_t nh = born ? 0u : (uint32_t)ws[pws::NEWHEAD + r];
     const bool d = ws[pws::DSTR + r] != 0;
-    const bool al = alive[r] && !d;
+    const bool al = (alive[r] || born) && !d;
     bool wm = ws[pws::WMUTED + r] != 0;
     bool o = ovf[r];
     if (d) {                 // ≙ ponyint_actor_destroy, actor.c:570-664
@@ -1237,6 +1479,7 @@ struct Sticky {
   int32_t ec, dsp;
 };
 
+
 // After tick i's commit: every block reads the tick's accumulators `cur`
 // and the scans' totals, and returns whether tick i + 1 runs; block 0's
 // first thread writes the counters, the spill length and the aux.
@@ -1249,6 +1492,7 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
   const int32_t rtot = ws[pws::ROFF + W::NL];
   const int32_t n_sp = rtot < W::SPILL ? rtot : (int32_t)W::SPILL;
   s.so = s.so || rtot > W::SPILL;
+  if constexpr (W::SPAWN) s.spawn = s.spawn || cur[A_SFAIL] > 0;
   s.dsp = n_sp;
   const bool rsp = PI32(P_RSPILL_COUNT)[0] > 0;
   const bool any_m = cur[A_ANY_MUTED] > 0;
@@ -1273,6 +1517,10 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
     c = PI32(P_N_DELIVERED); c[0] = wadd(c[0], nb - rtot);
     PI32(P_DSPILL_COUNT)[0] = n_sp;
     PU8(P_SPILL_OVERFLOW)[0] = s.so;
+    if constexpr (W::SPAWN) {
+      c = PI32(P_N_SPAWNED); c[0] = wadd(c[0], cur[A_NSPAWN]);
+      PU8(P_SPAWN_FAIL)[0] = s.spawn;
+    }
     PU8(P_EXIT_FLAG)[0] = s.ef;
     PI32(P_EXIT_CODE)[0] = s.ec;
     PI32(P_WORLD_BITS)[0] =
@@ -1300,7 +1548,7 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
 // names.
 enum PonyPhase {
   CK_START, CK_LANES, CK_KEYS, CK_SCAN, CK_PLACE, CK_COUNT, CK_RSCAN,
-  CK_SCATTER, CK_DELIVER, CK_COMMIT, CK_GATE
+  CK_SCATTER, CK_DELIVER, CK_COMMIT, CK_GATE, CK_CENSUS, CK_RESERVE
 };
 constexpr int CLOCK_SLOTS = 32;
 
@@ -1362,6 +1610,7 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
     ws[pws::DSP_CNT + r] = 0;
     ws[pws::TCNT + r] = 0;
     ws[pws::NEWLY + r] = 0;
+    if constexpr (W::SPAWN) ws[pws::BORN + r] = 0;
     for (int k = 0; k < W::K; ++k) {
       ws[pws::RMAX + (int64_t)k * W::NL + r] = -1;
       ws[pws::RMIN + (int64_t)k * W::NL + r] = INT_MAX;
@@ -1380,6 +1629,12 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
     ck.tick = i;
     ck.slot = 0;
     ck.stamp(g, CK_START);
+    if constexpr (W::SPAWN) {
+      ph_census(a, g, ws, prev, s.dsp);
+      PONY_GSYNC_AT(CK_CENSUS);
+      ph_reserve(a, g, ws);
+      PONY_GSYNC_AT(CK_RESERVE);
+    }
     ph_lanes(a, g, ws, cur, prev, s.dsp);
     PONY_GSYNC_AT(CK_LANES);
     ph_keys(a, g, ws, inject, cur, prev);

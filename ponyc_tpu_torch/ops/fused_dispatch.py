@@ -12,19 +12,23 @@ kernel as lane programs (``ops/lanecode.py``): each body is recorded once
 at the ATen level and emitted as a C++ function into a per-cohort header
 the template includes.
 
-`build_fused_dispatch(cohort, opts)` traces and emits at once, so a body
-the kernel cannot run raises NotImplementedError when the runtime starts
-(on the CPU as on the card); `compile_all` builds the libraries with nvcc
-(Runtime.start does, on the card). The
-returned function takes (fields, buf, head, n_run, ids) and returns what
-the plain loop (`fused_dispatch_plain`, the engine's own loop) returns.
-It chooses by where its tensors lie and by nothing else: CUDA tensors
-launch the kernel (or raise), CPU tensors take the plain version.
+`build_fused_dispatch(cohort, opts, spawn_meta)` traces and emits at
+once, so a body the kernel cannot run raises NotImplementedError when the
+runtime starts (on the CPU as on the card); `compile_all` builds the
+libraries with nvcc (Runtime.start does, on the card). The returned
+function takes (fields, buf, head, n_run, ids, resv) and returns what the
+plain loop (`fused_dispatch_plain`, the engine's own loop) returns. It
+chooses by where its tensors lie and by nothing else: CUDA tensors launch
+the kernel (or raise), CPU tensors take the plain version.
 `FusedDispatch.launches` counts kernel launches and nothing else.
 
-Eligibility mirrors the JAX package's `eligible`: a cohort with at least
-one behaviour. Sync construction, blobs and device spawns are not served
-by the port yet and are refused before this point.
+Device spawns ride through as planes, as in the JAX kernel: the
+reservation planes [SPAWN_DISPATCHES * sites, rows] of each target in,
+the claim planes [batch * sites, rows] and the sticky spawn fail out.
+Eligibility mirrors the JAX package's `eligible`
+(ponyc_tpu/ops/fused_dispatch.py:51): a cohort with at least one
+behaviour, none of which sync-constructs (ctx.spawn_sync); such a cohort
+takes the plain loop under `pallas_fused` too.
 """
 
 from __future__ import annotations
@@ -39,16 +43,29 @@ import torch
 from . import _build, lanecode, pack
 
 
-def eligible(cohort) -> bool:
-    """The fused kernel serves every cohort that has a behaviour."""
-    return len(cohort.behaviours) >= 1
+def trace_cohort(cohort, opts, spawn_meta=None) -> List:
+    """Every behaviour of the cohort as a lane program (ops/lanecode.py),
+    spawn sites included; raises NotImplementedError for a body the
+    kernels cannot run."""
+    from ..runtime.engine import spawn_sites_of
+    return [lanecode.trace_behaviour(
+        b, field_specs=cohort.atype.field_specs, msg_words=opts.msg_words,
+        msg_words_in=cohort.msg_words, max_sends=cohort.max_sends,
+        spawn_sites=spawn_sites_of(cohort), spawn_meta=spawn_meta or {})
+        for b in cohort.behaviours]
 
 
-def fused_dispatch_plain(cohort, opts):
+def eligible(cohort, progs) -> bool:
+    """The fused kernel serves a cohort with a behaviour, none of whose
+    behaviours (`progs`, from `trace_cohort`) sync-constructs."""
+    return len(cohort.behaviours) >= 1 and not any(p.sync for p in progs)
+
+
+def fused_dispatch_plain(cohort, opts, spawn_meta=None):
     """The plain version: the engine's per-cohort drain loop
     (engine._plain_dispatch), with the same signature and results."""
     from ..runtime.engine import _plain_dispatch
-    return _plain_dispatch(cohort, opts)
+    return _plain_dispatch(cohort, opts, spawn_meta)
 
 
 class FusedDispatch:
@@ -56,8 +73,8 @@ class FusedDispatch:
 
     launches = 0          # kernel launches, all cohorts
 
-    def __init__(self, cohort, opts):
-        from ..runtime.engine import _dtype_of
+    def __init__(self, cohort, opts, spawn_meta=None, progs=None):
+        from ..runtime.engine import _dtype_of, spawn_sites_of
         self.cohort = cohort
         self.name = cohort.atype.__name__
         specs = cohort.atype.field_specs
@@ -72,15 +89,19 @@ class FusedDispatch:
         self.noyield = bool(opts.noyield)
         behaviours = list(cohort.behaviours)
         self.base = behaviours[0].global_id
-        self.progs = [lanecode.trace_behaviour(
-            b, field_specs=specs, msg_words=opts.msg_words,
-            msg_words_in=cohort.msg_words, max_sends=self.ms)
-            for b in behaviours]
+        self.progs = progs if progs is not None else trace_cohort(
+            cohort, opts, spawn_meta)
+        if not eligible(cohort, self.progs):
+            raise ValueError(f"cohort {self.name} sync-constructs: the "
+                             "fused kernel does not serve it")
+        self.sites = spawn_sites_of(cohort)
+        self.ns = sum(n for _, n in self.sites)
+        self.sd = cohort.spawn_dispatches
         self.destroy = any(p.destroy_called for p in self.progs)
         self.error = any(p.error_called for p in self.progs)
         self.entry = "pony_fused_" + re.sub(r"\W", "_", self.name)
         self.header = self.source("cuda")      # refusals surface here
-        self.plain = fused_dispatch_plain(cohort, opts)
+        self.plain = fused_dispatch_plain(cohort, opts, spawn_meta)
         self._fn = None
 
     def source(self, target: str = "cuda") -> str:
@@ -90,7 +111,8 @@ class FusedDispatch:
             field_dtypes=self.field_dtypes, base=self.base,
             batch=self.batch, cap=self.cap, ms=self.ms, w1=self.w1,
             w1_in=self.w1_in, noyield=self.noyield, destroy=self.destroy,
-            error=self.error, target=target)
+            error=self.error, target=target, spawn_sites=self.sites,
+            sd=self.sd)
             + f"#define PONY_ENTRY {self.entry}\n")
 
     def job(self, host: bool = False) -> _build.Job:
@@ -100,36 +122,39 @@ class FusedDispatch:
 
     def bind(self, lib: ctypes.CDLL):
         fn = getattr(lib, self.entry)
-        fn.argtypes = ([ctypes.c_void_p] * (4 + 2 + 8)
+        fn.argtypes = ([ctypes.c_void_p] * (4 + 2 + 10)
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         return fn
 
-    def __call__(self, fields, buf, head, n_run, ids):
+    def __call__(self, fields, buf, head, n_run, ids, resv=()):
         if buf.device.type == "cuda":
             if self._fn is None:
                 compile_all([self])
-            return self._launch(self._fn, fields, buf, head, n_run, ids)
+            return self._launch(self._fn, fields, buf, head, n_run, ids,
+                                resv)
         if buf.device.type != "cpu":
             raise ValueError(f"fused dispatch: unsupported device "
                              f"{buf.device}")
-        return self.plain(fields, buf, head, n_run, ids)
+        return self.plain(fields, buf, head, n_run, ids, resv)
 
-    def run_host(self, fields, buf, head, n_run, ids):
+    def run_host(self, fields, buf, head, n_run, ids, resv=()):
         """The kernel's source built for the host CPU and run on CPU
         tensors (the lanes in order). For tests: it holds the generated
         bodies against the plain version where there is no card."""
         fn = self.bind(_build.build([self.job(host=True)])[0])
-        return self._launch(fn, fields, buf, head, n_run, ids, host=True)
+        return self._launch(fn, fields, buf, head, n_run, ids, resv,
+                            host=True)
 
     def sample_inputs(self, seed: int, device="cpu", steady=False):
-        """A seeded input (fields, buf, head, n_run, ids) for holding the
-        kernel against its plain version: every behaviour id plus ids
-        just out of range, argument words typed by the behaviour each
-        message names (finite floats for F32 words, small ints else),
-        heads next to the int32 wrap, and any n_run up to `batch`.
-        `steady`: every lane has `batch` messages, all with valid ids
-        (a busy main path)."""
+        """A seeded input (fields, buf, head, n_run, ids, resv) for
+        holding the kernel against its plain version: every behaviour id
+        plus ids just out of range, argument words typed by the behaviour
+        each message names (finite floats for F32 words, small ints else),
+        heads next to the int32 wrap, any n_run up to `batch`, and for a
+        spawning cohort reservation planes with about one ref in five -1
+        (no free slot). `steady`: every lane has `batch` messages, all
+        with valid ids (a busy main path)."""
         rng = np.random.default_rng(seed)
         rows, nb = self.rows, len(self.progs)
         fields = {}
@@ -163,16 +188,28 @@ class FusedDispatch:
                  rng.integers(0, self.batch + 1, rows).astype(np.int32))
         ids = (self.cohort.local_start + np.arange(rows)).astype(np.int32)
 
+        resv = []
+        for _, n in self.sites:
+            r = rng.integers(0, 1 << 20, (self.sd * n, rows))
+            resv.append(np.where(rng.random(r.shape) < 0.2, -1, r)
+                        .astype(np.int32))
+
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
         return ({f: dev(v) for f, v in fields.items()}, dev(buf),
-                dev(head), dev(n_run), dev(ids))
+                dev(head), dev(n_run), dev(ids), tuple(dev(r) for r in resv))
 
-    def _check(self, fields, buf, head, n_run, ids):
+    def _check(self, fields, buf, head, n_run, ids, resv):
         rows = self.rows
         want = [(buf, torch.int32, (self.cap, self.w1_in, rows)),
                 (head, torch.int32, (rows,)), (n_run, torch.int32, (rows,)),
                 (ids, torch.int32, (rows,))]
+        if len(resv) != len(self.sites):
+            raise ValueError(f"fused dispatch {self.name}: {len(resv)} "
+                             f"reservation planes for {len(self.sites)} "
+                             "spawn targets")
+        want += [(r, torch.int32, (self.sd * n, rows))
+                 for r, (_, n) in zip(resv, self.sites)]
         want += [(fields[f], self.field_dtypes[f], (rows,))
                  for f in self.field_names]
         for t, dt, shape in want:
@@ -187,9 +224,10 @@ class FusedDispatch:
                 raise ValueError("fused dispatch tensors must share one "
                                  "device")
 
-    def _launch(self, fn, fields, buf, head, n_run, ids, host=False):
+    def _launch(self, fn, fields, buf, head, n_run, ids, resv=(),
+                host=False):
         from ..runtime.delivery import Entries
-        self._check(fields, buf, head, n_run, ids)
+        self._check(fields, buf, head, n_run, ids, resv)
         dev = buf.device
         rows = self.rows
         e = self.batch * self.ms * rows
@@ -206,6 +244,11 @@ class FusedDispatch:
         erf = empty((rows,), torch.uint8) if self.error else None
         erc = empty((rows,)) if self.error else None
         erl = empty((rows,)) if self.error else None
+        # Reservations of all targets as one [SD * NS, rows] plane, claims
+        # as one [BATCH * NS * rows], target by target.
+        rv = (resv[0] if len(resv) == 1 else torch.cat(resv)) \
+            if resv else None
+        clm = empty((self.batch * self.ns * rows,)) if self.ns else None
         red = empty((8,))
 
         def ptr(t):
@@ -215,7 +258,8 @@ class FusedDispatch:
         fout = _build.pointers([out_fields[f] for f in self.field_names])
         args = ([ptr(buf), ptr(head), ptr(n_run), ptr(ids), fin, fout]
                 + [ptr(out_tgt), ptr(out_words), ptr(new_head), ptr(ds),
-                   ptr(erf), ptr(erc), ptr(erl), ptr(red), rows])
+                   ptr(erf), ptr(erc), ptr(erl), ptr(rv), ptr(clm),
+                   ptr(red), rows])
         if host:
             err = fn(*args, None)
         else:
@@ -229,22 +273,30 @@ class FusedDispatch:
             FusedDispatch.launches += 1
         out = Entries(tgt=out_tgt, sender=ids.repeat(self.batch * self.ms),
                       words=out_words)
-        any_exit = red.view(torch.uint8)[12].view(torch.bool)
+        bytes_ = red.view(torch.uint8)
+        any_exit = bytes_[12].view(torch.bool)
+        claims, at = [], 0
+        for _, n in self.sites:
+            claims.append(clm[at:at + self.batch * n * rows])
+            at += self.batch * n * rows
         return (out_fields, out, new_head, any_exit, red[2], red[0],
                 red[1], None if ds is None else ds.view(torch.bool),
-                None if erf is None else (erf.view(torch.bool), erc, erl))
+                None if erf is None else (erf.view(torch.bool), erc, erl),
+                tuple(claims), (None,) * len(self.sites),
+                bytes_[28].view(torch.bool) if self.sites else None)
 
 
-def build_fused_dispatch(cohort, opts) -> FusedDispatch:
+def build_fused_dispatch(cohort, opts, spawn_meta=None,
+                         progs=None) -> FusedDispatch:
     """The fused dispatch of one eligible cohort: fn(fields, buf, head,
-    n_run, ids) with the plain loop's results. Traces and emits every
-    behaviour now (raising NotImplementedError for a body the kernel
-    cannot run); the kernel itself builds at `compile_all` or first
-    use."""
-    if not eligible(cohort):
+    n_run, ids, resv) with the plain loop's results. Traces and emits
+    every behaviour now (raising NotImplementedError for a body the
+    kernel cannot run; `progs` from `trace_cohort` saves the trace); the
+    kernel itself builds at `compile_all` or first use."""
+    if not cohort.behaviours:
         raise ValueError(f"cohort {cohort.atype.__name__} has no "
                          "behaviour to fuse")
-    return FusedDispatch(cohort, opts)
+    return FusedDispatch(cohort, opts, spawn_meta, progs)
 
 
 def compile_all(fds: List[FusedDispatch], log=None) -> None:

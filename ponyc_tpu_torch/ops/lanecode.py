@@ -12,14 +12,16 @@ settles type promotion and how an operator is spelt (``1.0 / x`` reaches
 ATen as ``reciprocal`` then ``mul``, so it is not a float division).
 
 A *lane program* is a list of nodes, each one value per actor lane:
-inputs (a state field, a payload word, the actor id), constants, and
-lane-wise ATen ops over earlier nodes. Shape ops (select, slice, view,
+inputs (a state field, a payload word, the actor id, a spawn site's
+reserved ref), constants, and lane-wise ATen ops over earlier nodes. Shape ops (select, slice, view,
 expand, cat, ...) never become nodes: a tensor of shape ``[*lead,
 lanes]`` is held as one node per lead element, and shape ops only
 rearrange those. The body's whole Context is recorded as nodes too: each
 send's target (already masked by ``when``) and packed words (with the
-F32 bit-casts of ``pack.pack_args``), exit, yield, destroy and
-``error_int`` (whose site id is a constant).
+F32 bit-casts of ``pack.pack_args``), exit, yield, destroy,
+``error_int`` (whose site id is a constant), each spawn site's claimed
+ref, the spawn fail flag and, for ``spawn_sync``, the constructor's
+`has` mask and field values per site.
 
 Two ways to run a lane program: `replay` evaluates it with the recorded
 ATen ops on CPU tensors (it equals eager evaluation bit for bit, which
@@ -103,7 +105,8 @@ class _Ref:
 @dataclasses.dataclass
 class Node:
     """One value per actor lane. kind: "field" (key = field name),
-    "word" (key = payload word index), "id", "const" (key = the Python
+    "word" (key = payload word index), "id", "resv" (key = flat spawn
+    site: this dispatch's reserved ref there), "const" (key = the Python
     value; `dimmed` when it came from a tensor with dimensions, which
     matters for type promotion), or "op" (func over `leaves`, the
     flattened (args, kwargs) with `_Ref` for tensor operands; `cdtype`
@@ -124,7 +127,11 @@ class LaneProgram:
     value's node; `sends` holds, per send slot the body uses, the target
     node (-1 where `when` is false) and the w1 word nodes; `effects` maps
     each Context effect to its node, or None where the body never
-    touched it."""
+    touched it. Spawns, per flat site (the cohort's spawn sites, target
+    by target): `claims` the claimed ref's node (None: the body never
+    claims there), `inits` the sync constructor's (has, [value node per
+    target field]) (None: no spawn_sync there), and `spawn_fail` the
+    fail flag's node (None: no spawn)."""
     name: str
     nodes: List[Node]
     fields: Dict[str, int]
@@ -132,6 +139,15 @@ class LaneProgram:
     effects: Dict[str, Optional[int]]
     destroy_called: bool
     error_called: bool
+    claims: List[Optional[int]] = dataclasses.field(default_factory=list)
+    inits: List[Optional[Tuple[int, List[int]]]] = dataclasses.field(
+        default_factory=list)
+    spawn_fail: Optional[int] = None
+
+    @property
+    def sync(self) -> bool:
+        """Does the body sync-construct (ctx.spawn_sync)?"""
+        return any(i is not None for i in self.inits)
 
 
 def _named(func, args, kwargs) -> Dict[str, Any]:
@@ -327,12 +343,16 @@ def probe_lanes(w1: int) -> int:
 
 
 def trace_behaviour(bdef, *, field_specs, msg_words: int,
-                    msg_words_in: int, max_sends: int) -> LaneProgram:
+                    msg_words_in: int, max_sends: int, spawn_sites=(),
+                    spawn_meta=None) -> LaneProgram:
     """Record one behaviour's body as a lane program. `msg_words` is the
     outbox width (program-wide), `msg_words_in` the cohort's mailbox
-    payload width. Raises NotImplementedError for a body the fused kernel
-    cannot run, and whatever eval_behaviour raises for a bad body."""
-    from ..runtime.engine import _dtype_of, eval_behaviour
+    payload width; `spawn_sites` and `spawn_meta` are the cohort's spawn
+    budget and its targets' field specs (engine.spawn_sites_of,
+    engine.spawn_meta_of). Raises NotImplementedError for a body the
+    fused kernel cannot run, and whatever eval_behaviour raises for a bad
+    body."""
+    from ..runtime.engine import _dtype_of, eval_behaviour, spawn_outputs
     owner = bdef.actor_type.__name__ if bdef.actor_type else "?"
     where = f"{owner}.{bdef.name}"
     P = probe_lanes(1 + msg_words)
@@ -359,11 +379,22 @@ def trace_behaviour(bdef, *, field_specs, msg_words: int,
              msg_words_in, 1))
     tr.input(ids, torch.full((1,), tr.add(Node("id", torch.int32)),
                              dtype=torch.int64))
+    resv, g = {}, 0
+    for tname, n in spawn_sites:
+        resv[tname] = torch.from_numpy(rng.integers(-1, 1 << 20, (n, P))
+                                       .astype(np.int32))
+        tr.input(resv[tname], torch.tensor(
+            [[tr.add(Node("resv", torch.int32, key=g + s))]
+             for s in range(n)], dtype=torch.int64).reshape(n, 1))
+        g += n
+    meta = spawn_meta or {}
     with tr:
         ctx, st2, tgts, words = eval_behaviour(
             bdef, st, payload, ids, msg_words=msg_words,
             field_specs=field_specs, field_dtypes=field_dtypes, lanes=P,
-            max_sends=max_sends)
+            max_sends=max_sends, spawn_resv=resv, spawn_meta=meta)
+        claims, inits, sf = spawn_outputs(ctx, spawn_sites, meta, P,
+                                          ids.device)
     fields = {f: tr.one(st2[f]) for f in field_specs}
     sends = []
     for m in range(len(ctx.sends)):
@@ -377,8 +408,19 @@ def trace_behaviour(bdef, *, field_specs, msg_words: int,
         if tr.nodes[i].dtype != field_dtypes[f]:
             raise AssertionError(f"{where}: field {f} traced as "
                                  f"{tr.nodes[i].dtype}")
+    site_claims, site_inits = [], []
+    for (tname, n), got, ini in zip(spawn_sites, claims, inits):
+        site_claims += [None if c is None else tr.one(c) for c in got]
+        for s in range(n):
+            if ini is None or ini[0][s] is None:
+                site_inits.append(None)
+                continue
+            site_inits.append((tr.one(ini[0][s]),
+                               [tr.one(ini[1][f][s]) for f in meta[tname]]))
     return LaneProgram(where, tr.nodes, fields, sends, effects,
-                       ctx.destroy_called, ctx.error_called)
+                       ctx.destroy_called, ctx.error_called,
+                       claims=site_claims, inits=site_inits,
+                       spawn_fail=None if sf is None else tr.one(sf))
 
 
 # --- CPU replay --------------------------------------------------------
@@ -824,6 +866,8 @@ def _expr(nodes, i, target) -> str:
         raise AssertionError("field nodes are emitted by the caller")
     if node.kind == "word":
         return f"w[{node.key}]"
+    if node.kind == "resv":
+        return f"rv[{node.key}]"
     if node.kind == "id":
         return "id"
     if node.kind == "const":
@@ -839,6 +883,12 @@ def _outputs(prog: LaneProgram) -> List[int]:
     for t, ws in prog.sends:
         outs += [t] + ws
     outs += [i for i in prog.effects.values() if i is not None]
+    outs += [i for i in prog.claims if i is not None]
+    for ini in prog.inits:
+        if ini is not None:
+            outs += [ini[0]] + ini[1]
+    if prog.spawn_fail is not None:
+        outs.append(prog.spawn_fail)
     return outs
 
 
@@ -865,14 +915,15 @@ def op_count(prog: LaneProgram) -> int:
 def emit_behaviour(prog: LaneProgram, j: int, field_names: List[str],
                    target: str = "cuda") -> str:
     """The C++ of one behaviour, a static member of its cohort's struct:
-    `beh_<j>(s, w, id, o)` reads the lane's state `s`, payload words `w`
-    and actor id, and writes the new state into `s` and its sends and
-    effects into `o`."""
+    `beh_<j>(s, w, id, rv, o)` reads the lane's state `s`, payload words
+    `w`, actor id and this dispatch's reserved refs `rv` (one a spawn
+    site), and writes the new state into `s` and its sends, effects and
+    spawns into `o` (sync-construction values as their int32 bits)."""
     slot = {f: k for k, f in enumerate(field_names)}
     lines = [f"  // {prog.name}",
              f"  static PONY_FN void beh_{j}(State& s, const int32_t* w, "
-             "int32_t id, Out& o) {",
-             "    (void)w; (void)id;"]
+             "int32_t id, const int32_t* rv, Out& o) {",
+             "    (void)w; (void)id; (void)rv;"]
     for i in _needed(prog):
         node = prog.nodes[i]
         ct = CTYPE[node.dtype]
@@ -896,8 +947,28 @@ def emit_behaviour(prog: LaneProgram, j: int, field_names: List[str],
     for e, i in prog.effects.items():
         if i is not None:
             lines.append(f"    o.{_EFFECT_SLOT[e]} = v{i};")
+    for g, i in enumerate(prog.claims):
+        if i is not None:
+            lines.append(f"    o.clm[{g}] = v{i};")
+    for g, ini in enumerate(prog.inits):
+        if ini is None:
+            continue
+        lines.append(f"    o.has[{g}] = v{ini[0]};")
+        for f, i in enumerate(ini[1]):
+            lines.append(f"    o.iv[{g}][{f}] = "
+                         f"pony_bitcast<int32_t>(v{i});")
+    if prog.spawn_fail is not None:
+        lines.append(f"    o.sf = v{prog.spawn_fail};")
     lines.append("  }")
     return "\n".join(lines)
+
+
+def _switch(fn: str, arg: str, cases: List[str]) -> str:
+    """A static member function of g (a flat spawn site, or a field) and
+    `arg`: a switch over g's cases, 0 past them."""
+    body = " ".join(f"case {g}: return {c};" for g, c in enumerate(cases))
+    return (f"  static PONY_FN int {fn}(int g{arg}) {{ switch (g) {{ "
+            f"{body} default: return 0; }} }}")
 
 
 def emit_cohort(progs: List[LaneProgram], *, name: str,
@@ -905,22 +976,60 @@ def emit_cohort(progs: List[LaneProgram], *, name: str,
                 field_dtypes: Dict[str, torch.dtype], base: int,
                 batch: int, cap: int, ms: int, w1: int, w1_in: int,
                 noyield: bool, destroy: bool, error: bool,
-                target: str = "cuda", extra: Dict[str, int] = None) -> str:
+                target: str = "cuda", extra: Dict[str, int] = None,
+                spawn_sites=(), sd: int = 1, init_words: int = 0,
+                site_targets=None, site_offsets=None,
+                field_nulls: Dict[str, int] = None) -> str:
     """One cohort as a C++ struct named `name` (csrc/lane.cuh says what
     the kernels take from it): its constants (and the `extra` ones, as
     further `static constexpr int`s), its state struct, load/store of the
-    state columns from a pointer list, one function per behaviour and the
-    dispatch switch. Each cohort is a struct of its own, so a program's
-    cohorts share one translation unit."""
+    state columns from a pointer list, `null_bits(f)`, the int32 bits of
+    field f's null word (`field_nulls`, default 0), one function per
+    behaviour and the dispatch switch. Each cohort is a
+    struct of its own, so a program's cohorts share one translation
+    unit.
+
+    Spawns: `spawn_sites` ((target, sites), ...) lay out NS flat sites,
+    target by target; `sd` is SPAWN_DISPATCHES, `init_words` the widest
+    target's field count where a body sync-constructs (else 0). Per flat
+    site g the struct gives `resv_row(g, d)` and `claim_row(g, k)`, the
+    rows of the fused kernel's reservation planes [SD * NS, rows] and
+    claim planes [BATCH * NS, rows]; `site_target(g)`
+    (`site_targets[t]`, default t) and, for the window kernel,
+    `site_off(g)` (`site_offsets[t]` + the site) and `site_per(g)` and
+    `site_n(g)` (the target's SD * sites and sites)."""
     nf = len(field_names)
     ct = [CTYPE[field_dtypes[f]] for f in field_names]
+    ns = sum(n for _, n in spawn_sites)
     consts = dict(NF=nf, NB=len(progs), BATCH=batch, CAP=cap, MS=ms, W1=w1,
                   W1_IN=w1_in, BASE=base, NOYIELD=int(bool(noyield)),
                   DESTROY=int(bool(destroy)), ERROR=int(bool(error)),
-                  **(extra or {}))
+                  NS=ns, SD=sd, NI=init_words, **(extra or {}))
+    for p in progs:
+        if p.sync and not init_words:
+            raise ValueError(f"{p.name} sync-constructs; emit_cohort "
+                             "needs init_words")
     out = [f"struct {name} {{"]
     out += [f"  static constexpr int {k} = {v};" for k, v in consts.items()]
-    out.append("  typedef PonyOutT<MS, W1> Out;")
+    out.append("  typedef PonyOutT<MS, W1, NS, NI> Out;")
+    rr, cr, tg, off, per, nn = [], [], [], [], [], []
+    t_off = 0
+    for t, (_, n) in enumerate(spawn_sites):
+        for s in range(n):
+            rr.append(f"{sd * t_off + s} + d * {n}")
+            cr.append(f"{batch * t_off + s} + k * {n}")
+            tg.append(str(t if site_targets is None else site_targets[t]))
+            off.append(str((site_offsets[t] if site_offsets else 0) + s))
+            per.append(str(sd * n))
+            nn.append(str(n))
+        t_off += n
+    out += [_switch("resv_row", ", int d", rr),
+            _switch("claim_row", ", int k", cr),
+            _switch("site_target", "", tg), _switch("site_off", "", off),
+            _switch("site_per", "", per), _switch("site_n", "", nn)]
+    nulls = field_nulls or {}
+    out.append(_switch("null_bits", "", [str(int(nulls.get(f, 0)))
+                                          for f in field_names]))
     out.append("  struct State {")
     out += [f"    {ct[k]} f{k};  // {field_names[k]}" for k in range(nf)]
     out.append("  };")
@@ -936,12 +1045,12 @@ def emit_cohort(progs: List[LaneProgram], *, name: str,
     out.append("  }")
     for j, p in enumerate(progs):
         out.append(emit_behaviour(p, j, field_names, target))
-    cases = " ".join(f"case {j}: beh_{j}(s, w, id, o); break;"
+    cases = " ".join(f"case {j}: beh_{j}(s, w, id, rv, o); break;"
                      for j in range(len(progs)))
     out.append("  static PONY_FN void dispatch(int32_t local, State& s, "
-               "const int32_t* w, int32_t id, Out& o) {")
+               "const int32_t* w, int32_t id, const int32_t* rv, Out& o) {")
     out.append(f"    switch (local) {{ {cases} default: "
-               "(void)s; (void)w; (void)id; (void)o; break; }")
+               "(void)s; (void)w; (void)id; (void)rv; (void)o; break; }")
     out.append("  }")
     out.append("};")
     return "\n".join(out) + "\n"

@@ -8,7 +8,8 @@ as ONE persistent kernel. The JAX package replays the window's jaxpr
 inside one Pallas call; here it is the hand-written CUDA kernel
 ``csrc/mega_window.cu``, launched cooperatively on a grid sized to the
 world (`grid_blocks`), with a grid-wide sync after each phase of a tick
-(six, more on a tick that takes the radix sort) and the gate
+(six, more on a tick that takes the radix sort, two more in a program
+with device spawns: its `census` and `reserve` phases) and the gate
 (`engine.aux_go`) evaluated by every block on the device, so a window is
 one launch whatever its tick count. The
 behaviour bodies reach it as lane programs (``ops/lanecode.py``), every
@@ -154,7 +155,8 @@ def modelled_bytes_per_msg(opts, esc_rate: float = 0.0) -> Dict[str, Any]:
 def eligible(program, opts) -> bool:
     """The kernel's preconditions: one shard, the other kernels of the
     tick off (the window kernel is the fused form of both), and some
-    device cohort with behaviours."""
+    device cohort with behaviours. Device spawns and sync construction
+    are served, as in the JAX package's `eligible`."""
     if program.shards != 1:
         return False
     if getattr(opts, "pallas", False) is True:
@@ -180,16 +182,16 @@ _AUX_NAMED = ("device_pending", "host_pending", "exit_flag",
 # launch, since the caller's input state stays referenced (the window is a
 # function of it; Runtime and the checks read it again). The mailbox rings
 # and the cohorts' fields are cloned beside these; leaves the kernel only
-# reads (the route spill, spawn_fail, the injections) are passed as they
-# are.
+# reads (the route spill, the injections) are passed as they are.
 _UPDATED = ("head", "tail", "alive", "muted", "mute_refs", "mute_age",
             "mute_ovf", "pinned", "pressured", "dspill_tgt",
             "dspill_sender", "dspill_words", "dspill_count",
             "spill_overflow", "exit_flag",
             "exit_code", "step_no", "n_processed", "n_delivered",
             "n_rejected", "n_badmsg", "n_deadletter", "n_mutes",
-            "n_destroyed", "last_error", "last_error_loc", "n_errors",
-            "plan_key", "plan_perm", "plan_bounds", "world_bits")
+            "n_destroyed", "n_spawned", "spawn_fail", "last_error",
+            "last_error_loc", "n_errors", "plan_key", "plan_perm",
+            "plan_bounds", "world_bits")
 
 
 def aux_layout():
@@ -303,8 +305,10 @@ class MegaWindow:
     fused = ()            # no fused dispatch kernels: `eligible` excludes them
 
     def __init__(self, program, opts, plain, plain_forced):
-        from ..runtime.engine import StepAux, _dtype_of
+        from ..runtime.engine import (StepAux, _dtype_of, spawn_meta_of,
+                                      spawn_sites_of)
         from ..runtime.state import layout_sizes
+        from . import pack
         self.program, self.opts = program, opts
         self.plain, self.plain_forced = plain, plain_forced
         self.enqueued_kernel = 0     # ticks offered to launched windows
@@ -318,24 +322,37 @@ class MegaWindow:
         self.n_fixed = len(self.fixed) + len(StepAux._fields)
         self.specs = []
         off, ptr = 0, self.n_fixed
+        index = {ch.atype.__name__: k for k, ch in enumerate(self.cohorts)}
+        targets = set(program.spawn_target_names)
         for k, ch in enumerate(self.cohorts):
             fspecs = ch.atype.field_specs
             names = list(fspecs)
             dtypes = {f: _dtype_of(s) for f, s in fspecs.items()}
+            sites = spawn_sites_of(ch)
             progs = [lanecode.trace_behaviour(
                 b, field_specs=fspecs, msg_words=opts.msg_words,
-                msg_words_in=ch.msg_words, max_sends=ch.max_sends)
+                msg_words_in=ch.msg_words, max_sends=ch.max_sends,
+                spawn_sites=sites, spawn_meta=spawn_meta_of(program, ch))
                 for b in ch.behaviours]
             self.specs.append(dict(
                 cohort=ch, name=ch.atype.__name__, progs=progs,
-                fields=names, dtypes=dtypes,
+                fields=names, dtypes=dtypes, sites=sites,
+                nulls={f: pack.null_word(sp) for f, sp in fspecs.items()},
                 base=ch.behaviours[0].global_id if ch.behaviours else 0,
                 extra=dict(S0=ch.local_start, ROWS=ch.local_capacity,
                            OUT_OFF=off, LEVEL=2 + pri.index(ch.priority),
-                           PBUF=ptr, PFIELD=ptr + 1)))
+                           PBUF=ptr, PFIELD=ptr + 1, CIDX=k,
+                           TARGET=int(ch.atype.__name__ in targets))))
             off += ch.local_capacity * ch.batch * ch.max_sends
             ptr += 1 + len(names)
         self.n_ptr = ptr
+        self.site_targets = {sp["name"]: [index[t] for t, _ in sp["sites"]]
+                             for sp in self.specs}
+        # Words a sync construction hands the commit: the widest target's
+        # fields, where some body sync-constructs.
+        sync = any(p.sync for sp in self.specs for p in sp["progs"])
+        n_init = max((len(program.by_type_name(t).atype.field_specs)
+                      for t in targets), default=0) if sync else 0
         e = n_entries
         npass, dbits = radix_plan(nl * self.n_levels)
         self.world = dict(
@@ -344,7 +361,9 @@ class MegaWindow:
             W1=1 + opts.msg_words, E_OUT=e_out, E=e,
             NLEV=self.n_levels, UNMUTE=opts.unmute_occ,
             OVERLOAD=opts.overload_occ, AGE=opts.mute_age_limit,
-            NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX)
+            NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX,
+            SPAWN=int(program.has_device_spawns), NI=n_init,
+            NCOH=len(self.cohorts))
         self.header = self.source("cuda")      # refusals surface here
         self.tag = "pony_mega_" + re.sub(
             r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
@@ -385,7 +404,11 @@ class MegaWindow:
                 noyield=opts.noyield,
                 destroy=any(p.destroy_called for p in progs),
                 error=any(p.error_called for p in progs), target=target,
-                extra=sp["extra"]))
+                extra=sp["extra"], spawn_sites=sp["sites"],
+                sd=ch.spawn_dispatches, init_words=self.world["NI"],
+                site_targets=self.site_targets[sp["name"]],
+                site_offsets=[ch.spawn_offsets[t] for t, _ in sp["sites"]],
+                field_nulls=sp["nulls"]))
         out.append("#define PONY_COHORTS(X) " + " ".join(
             f"X(PonyC{k})" for k in range(len(self.specs))))
         return "\n".join(out) + "\n"
@@ -531,7 +554,7 @@ class MegaWindow:
         table.update(
             P_RSPILL_TGT=st.rspill_tgt, P_RSPILL_SENDER=st.rspill_sender,
             P_RSPILL_WORDS=st.rspill_words, P_RSPILL_COUNT=st.rspill_count,
-            P_SPAWN_FAIL=st.spawn_fail, P_INJECT_TGT=inject_tgt,
+            P_INJECT_TGT=inject_tgt,
             P_INJECT_WORDS=inject_words, P_WS=ws, P_OUT_BOOL=out_b,
             P_OUT_INT=out_i, P_CLOCK=self._clock(dev, limit, host))
         tensors = [table[n] for n in self.fixed]

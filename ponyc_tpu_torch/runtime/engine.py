@@ -8,12 +8,18 @@ scheduler.c:953-1090) popping actors and `ponyint_actor_run`
 actor. The whole world advances in lockstep:
 
   1. unmute senders whose muting receivers recovered;
+  1b. reserve device spawns: each spawn target's free rows, compacted,
+     in disjoint windows per runnable spawner (≙ pony_create's slot
+     allocation, done ahead of dispatch);
   2. per device cohort, drain ≤batch messages per actor
      (ops/mailbox_kernel.py: the CUDA kernel on the card) and evaluate
      every behaviour of the type on all lanes, selecting per lane by
      message id (what a vmapped switch executes); under `pallas_fused`
      one kernel a cohort does the drain, the dispatch and the outbox
      (ops/fused_dispatch.py);
+  2b. apply the spawn claims: claimed rows become alive with an empty
+     mailbox and their fields set (null words, or ctx.spawn_sync's
+     values), before delivery;
   3. deliver spill, injections and the produced messages (delivery.py);
   4. apply destroys and errors, then mute bookkeeping, and vote the
      small aux scalars the host reads.
@@ -133,15 +139,19 @@ def _dtype_of(spec):
 
 
 def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
-                   field_specs, field_dtypes, lanes: int, max_sends: int):
+                   field_specs, field_dtypes, lanes: int, max_sends: int,
+                   spawn_resv=None, spawn_meta=None):
     """Evaluate one behaviour on all lanes of a cohort: build the
     Context, tag typed refs and capabilities, run the body, validate and
     broadcast the state update, and collect the when-masked send planes
-    padded to the send budget (an unused slot is None). Returns
-    (ctx, st2, tgts, words)."""
+    padded to the send budget (an unused slot is None). `spawn_resv`
+    ({target: [sites, lanes] reserved refs}) and `spawn_meta` ({target:
+    field specs}) serve ctx.spawn and ctx.spawn_sync. Returns (ctx, st2,
+    tgts, words)."""
     dev = ids_vec.device
     w1 = 1 + msg_words
-    ctx = Context(ids_vec, msg_words)
+    ctx = Context(ids_vec, msg_words, spawn_resv=spawn_resv,
+                  spawn_meta=spawn_meta)
     args = pack.unpack_args(bdef.arg_specs, payload)
     for k, v in st.items():
         ctx.ref_types.tag(v, pack.ref_target(field_specs[k]))
@@ -224,16 +234,90 @@ def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
     return ctx, st2, tgts, words
 
 
-def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
+def spawn_sites_of(cohort: Cohort):
+    """The cohort's spawn budget in the order every dispatch uses:
+    ((target type name, sites a dispatch), ...) sorted by name."""
+    return tuple(sorted(cohort.spawns.items()))
+
+
+def spawn_outputs(ctx, spawn_sites, spawn_meta, lanes: int, device):
+    """A behaviour's spawns as [lanes] planes, per target of
+    `spawn_sites`: the claimed ref of every site (-1 where the body made
+    no claim there or it failed; None for a site the body never reaches),
+    and, where the body sync-constructs, per site the `has` mask and the
+    constructor's field values (None where it does not). Also the spawn
+    fail plane (None when no spawn can fail)."""
+    claims, inits = [], []
+    for tname, n in spawn_sites:
+        got = [_bcast_lanes(g, torch.int32, lanes, device)
+               for g in ctx.spawn_claims.get(tname, [])]
+        claims.append(got + [None] * (n - len(got)))
+        site_map = ctx.sync_inits.get(tname)
+        if not site_map:
+            inits.append(None)
+            continue
+        specs = spawn_meta[tname]
+        has, vals = [], {f: [] for f in specs}
+        for s in range(n):
+            ent = site_map.get(s)
+            if ent is None:
+                has.append(None)
+                for f in specs:
+                    vals[f].append(None)
+                continue
+            ist, ok = ent
+            has.append(_bcast_lanes(ok, torch.bool, lanes, device))
+            for f, sp in specs.items():
+                vals[f].append(_bcast_lanes(ist[f], _dtype_of(sp), lanes,
+                                            device))
+        inits.append((has, vals))
+    sf = ctx.spawn_fail
+    sf = None if sf is False else _bcast_lanes(sf, torch.bool, lanes, device)
+    return claims, inits, sf
+
+
+def reservation_slot(resv, used, spawn_sites, sd: int, rows: int):
+    """This batch slot's reservations from the [sd * sites, rows] planes
+    of each target: the `used` counter walks the SPAWN_DISPATCHES axis;
+    past the budget every ref is -1. Returns {target: [sites, rows]}."""
+    out = {}
+    for (tname, n), plane in zip(spawn_sites, resv):
+        sel = torch.full((n, rows), -1, dtype=torch.int32,
+                         device=plane.device)
+        for d in range(sd):
+            sel = torch.where((used == d)[None, :],
+                              plane[d * n:(d + 1) * n], sel)
+        out[tname] = sel
+    return out
+
+
+def spawn_meta_of(program: Program, cohort: Cohort):
+    """{target type name: field specs} of the cohort's spawn targets (for
+    ctx.spawn_sync)."""
+    return {t: program.by_type_name(t).atype.field_specs
+            for t, _ in spawn_sites_of(cohort)}
+
+
+def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
     """Build the planar per-cohort drain loop (≙ ponyint_actor_run,
     actor.c:383-549): pop ≤batch messages per actor, dispatch each,
     honour yield (fork: actor.c:675-679), count consumption — for every
     actor of the cohort at once. The reference's `lax.scan` over batch
     slots is a Python loop over the static batch here. Returns
-    dispatch(fields, buf, head, n_run, ids) → (fields, outbox Entries,
-    new head, any exit, exit code, nproc, nbad, destroy plane or None,
-    error planes or None); ops/fused_dispatch.py computes the same in one
-    kernel, and uses this as its plain version."""
+    dispatch(fields, buf, head, n_run, ids, resv=()) → (fields, outbox
+    Entries, new head, any exit, exit code, nproc, nbad, destroy plane or
+    None, error planes or None, claims, inits, spawn fail or None).
+
+    Spawns (≙ pony_create from a behaviour): `resv` holds, per target of
+    `spawn_sites_of(cohort)`, the [sd * sites, rows] reserved refs; a
+    per-lane `used` counter hands each batch slot one dispatch's worth,
+    and advances on a slot that claimed or failed a wanted spawn. The
+    claims come back per target as [batch * sites * rows] refs in (k,
+    site, lane) order (-1: none), the inits per target as (has, {field:
+    values}) in the same order where a behaviour sync-constructs, else
+    None, and the spawn fail as one bool (None without spawn sites).
+    ops/fused_dispatch.py computes the same in one kernel, and uses this
+    as its plain version."""
     msg_words = opts.msg_words          # outbox width (program-wide max)
     ms = cohort.max_sends
     batch = cohort.batch
@@ -245,8 +329,11 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
     nb = len(behaviours)
     base = behaviours[0].global_id if nb else 0
     noyield = opts.noyield
+    sites = spawn_sites_of(cohort)
+    sd = cohort.spawn_dispatches
+    meta = spawn_meta or {}
 
-    def dispatch(ts_rows, buf_rows, head_rows, n_run, ids):
+    def dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv=()):
         dev = ids.device
         i32, b = torch.int32, torch.bool
         e = rows * batch * ms
@@ -272,25 +359,34 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
         # yield, destroy or error planes).
         stopped = ef = ec = dstr = errf = errc = errl = None
         nproc, nbad = z(i32), z(i32)
-        effects = {"destroy": False, "error": False}
+        effects = {"destroy": False, "error": False, "sync": False}
+        used = z(i32)
+        sfail = None
         stgt, swrd, consumed = [], [], []
+        sclm = [[] for _ in sites]        # per target: [batch] of [n, rows]
+        sini = [[] for _ in sites]        # per target: [batch] of inits
         for k in range(batch):
             msg, valid = msgs[k], valids[k]         # [w1_in, rows], [rows]
             local = msg[0] - base
             in_range = (local >= 0) & (local < nb)
             do = valid if stopped is None else valid & ~stopped
+            resv_k = reservation_slot(resv, used, sites, sd, rows)
             st_n = dict(st)
             tgt_n = [torch.full((rows,), -1, dtype=i32, device=dev)
                      for _ in range(ms)]
             wrd_n = [torch.zeros((w1, rows), dtype=i32, device=dev)
                      for _ in range(ms)]
+            clm_n = [[None] * n for _, n in sites]
+            ini_n = [None for _ in sites]
             ef_n = ec_n = yf_n = ds_n = erf_n = erc_n = erl_n = None
+            sf_n = None
             for j, bdef in enumerate(behaviours):
                 take = do & in_range & (local == j)
                 ctx, st2, btgt, bwrd = eval_behaviour(
                     bdef, st, msg[1:], ids, msg_words=msg_words,
                     field_specs=field_specs, field_dtypes=field_dtypes,
-                    lanes=rows, max_sends=ms)
+                    lanes=rows, max_sends=ms, spawn_resv=resv_k,
+                    spawn_meta=meta)
                 effects["destroy"] |= ctx.destroy_called
                 effects["error"] |= ctx.error_called
                 # Selects that cannot change anything are skipped: on
@@ -313,6 +409,20 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
                 erf_n = sel(take, ctx.error_flag, erf_n, b)
                 erc_n = sel(take, ctx.error_code, erc_n, i32)
                 erl_n = sel(take, ctx.error_loc, erl_n, i32)
+                if sites:
+                    bclm, bini, bsf = spawn_outputs(ctx, sites, meta, rows,
+                                                    dev)
+                    sf_n = sel(take, False if bsf is None else bsf, sf_n, b)
+                    for t, (tname, n) in enumerate(sites):
+                        clm_n[t] = [
+                            c if g is None else torch.where(
+                                take, g, -1 if c is None else c)
+                            for c, g in zip(clm_n[t], bclm[t])]
+                        if bini[t] is None:
+                            continue
+                        effects["sync"] = True
+                        ini_n[t] = _merge_inits(take, bini[t], ini_n[t],
+                                                meta[tname], n, rows, dev)
             if ef_n is not None:         # exit: the first code wins
                 if ef is None:
                     ef, ec = z(b), z(i32)
@@ -331,6 +441,21 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
                                    else erc_n, errc)
                 errl = torch.where(erf_n, z(i32) if erl_n is None
                                    else erl_n, errl)
+            if sites:
+                # A slot that claimed, or failed a wanted spawn, used up
+                # one dispatch's reservations.
+                spawned = z(b) if sf_n is None else sf_n
+                for t in range(len(sites)):
+                    clm_n[t] = [torch.full((rows,), -1, dtype=i32,
+                                           device=dev) if c is None else c
+                                for c in clm_n[t]]
+                    for c in clm_n[t]:
+                        spawned = spawned | (c >= 0)
+                    sclm[t].append(torch.stack(clm_n[t]))
+                    sini[t].append(ini_n[t])
+                used = used + spawned.to(i32)
+                if sf_n is not None:
+                    sfail = sf_n if sfail is None else sfail | sf_n
             nproc = nproc + (do & in_range).to(i32)
             nbad = nbad + (do & ~in_range).to(i32)
             st = st_n
@@ -357,31 +482,175 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions):
             dstr = z(b)
         if effects["error"] and errf is None:
             errf, errc, errl = z(b), z(i32), z(i32)
+        claims = tuple(torch.stack(c).reshape(-1) for c in sclm)
+        inits = tuple(
+            _stack_inits(ini, meta[tname], n, rows, dev)
+            if effects["sync"] else None
+            for ini, (tname, n) in zip(sini, sites))
+        if sites:
+            sfail = torch.zeros((), dtype=b, device=dev) if sfail is None \
+                else sfail.any()
         return (st, out, head_rows + n_consumed, any_exit, code,
                 _isum(nproc), _isum(nbad),
                 dstr if effects["destroy"] else None,
-                (errf, errc, errl) if effects["error"] else None)
+                (errf, errc, errl) if effects["error"] else None,
+                claims, inits, sfail)
 
     return dispatch
 
 
-def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions):
+def _merge_inits(take, new, old, specs, n: int, rows: int, dev):
+    """Select one behaviour's sync-construction planes (has, {field:
+    values}, each a list over sites with None for a site it leaves
+    alone) into the slot's where `take` holds."""
+    has_new, vals_new = new
+    if old is None:
+        old = ([None] * n, {f: [None] * n for f in specs})
+    has_old, vals_old = old
+
+    def pick(x, y, fill, dtype):
+        if x is None:
+            return y
+        return torch.where(take, x, torch.full((rows,), fill, dtype=dtype,
+                                               device=dev)
+                           if y is None else y)
+    has = [pick(x, y, False, torch.bool) for x, y in zip(has_new, has_old)]
+    vals = {f: [pick(x, y, pack.null_word(sp), _dtype_of(sp))
+                for x, y in zip(vals_new[f], vals_old[f])]
+            for f, sp in specs.items()}
+    return has, vals
+
+
+def _stack_inits(per_slot, specs, n: int, rows: int, dev):
+    """The batch slots' sync-construction planes as one (has, {field:
+    values}) of [batch * sites * rows], (k, site, lane) order; a value
+    no behaviour wrote is the field's null word, under has = False."""
+    has, vals = [], {f: [] for f in specs}
+    for ini in per_slot:
+        h, v = ini if ini is not None else (
+            [None] * n, {f: [None] * n for f in specs})
+        for s in range(n):
+            has.append(torch.zeros((rows,), dtype=torch.bool, device=dev)
+                       if h[s] is None else h[s])
+            for f, sp in specs.items():
+                vals[f].append(torch.full((rows,), pack.null_word(sp),
+                                          dtype=_dtype_of(sp), device=dev)
+                               if v[f][s] is None else v[f][s])
+    return (torch.stack(has).reshape(-1),
+            {f: torch.stack(x).reshape(-1) for f, x in vals.items()})
+
+
+def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions,
+                     program: Program):
     """The cohort's tick: the runnable actors' message counts, then the
     fused dispatch kernel (`pallas_fused`, ops/fused_dispatch.py) or the
-    plain drain loop. Returns (run_cohort, the FusedDispatch or None)."""
+    plain drain loop. A cohort whose behaviours sync-construct takes the
+    plain loop under `pallas_fused` too, as in the JAX package. Returns
+    (run_cohort, the FusedDispatch or None)."""
     batch = cohort.batch
+    meta = spawn_meta_of(program, cohort)
     fused = None
-    if opts.pallas_fused and fused_dispatch.eligible(cohort):
-        fused = dispatch = fused_dispatch.build_fused_dispatch(cohort, opts)
-    else:
-        dispatch = _plain_dispatch(cohort, opts)
+    dispatch = None
+    if opts.pallas_fused and cohort.behaviours:
+        progs = fused_dispatch.trace_cohort(cohort, opts, meta)
+        if fused_dispatch.eligible(cohort, progs):
+            fused = dispatch = fused_dispatch.build_fused_dispatch(
+                cohort, opts, meta, progs)
+    if dispatch is None:
+        dispatch = _plain_dispatch(cohort, opts, meta)
 
     def run_cohort(ts_rows, buf_rows, head_rows, occ_rows, runnable_rows,
-                   ids):
+                   ids, resv=()):
         n_run = torch.where(runnable_rows, occ_rows.clamp(max=batch), 0)
-        return dispatch(ts_rows, buf_rows, head_rows, n_run, ids)
+        return dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv)
 
     return run_cohort, fused
+
+
+def free_row_list(tc: Cohort, alive, occ0, dspill_pending):
+    """Target cohort `tc`'s free rows this tick, in row order, padded
+    with -1 to its capacity: dead, with an empty mailbox and no spilled
+    message still addressed to the row (a previous life's message must
+    not reach a newborn)."""
+    s0, s1 = tc.local_start, tc.local_stop
+    free_ok = (~alive[s0:s1] & (occ0[s0:s1] == 0)
+               & (dspill_pending[s0:s1] == 0))
+    n = tc.local_capacity
+    pos = torch.where(free_ok, torch.cumsum(free_ok.to(torch.int32), 0)
+                      - 1, n)
+    out = torch.full((n + 1,), -1, dtype=torch.int32, device=alive.device)
+    out[pos.long()] = s0 + torch.arange(n, dtype=torch.int32,
+                                        device=alive.device)
+    return out[:n]
+
+
+def spawn_reservations(ch: Cohort, runnable, free_rows, base: int):
+    """Spawner cohort `ch`'s reservations, per target of
+    `spawn_sites_of(ch)`, as [sd * sites, rows] refs: the runnable actors,
+    ranked by a prefix sum over the runnable mask, get disjoint windows of
+    sd * sites free rows at the cohort's static offset
+    (Program._resolve_spawns); an index past the free list, or an actor
+    that cannot run, reserves -1."""
+    out = []
+    if not ch.spawns:
+        return out
+    run_c = runnable[ch.local_start:ch.local_stop]
+    rank = torch.cumsum(run_c.to(torch.int32), 0) - 1
+    sd = ch.spawn_dispatches
+    dev = runnable.device
+    for tname, sites in spawn_sites_of(ch):
+        per = sd * sites
+        widx = torch.where(run_c, rank * per, 0)
+        idx = (ch.spawn_offsets[tname] + widx[None, None, :]
+               + (torch.arange(sd, dtype=torch.int32, device=dev)
+                  * sites)[:, None, None]
+               + torch.arange(sites, dtype=torch.int32,
+                              device=dev)[None, :, None])
+        free = free_rows[tname]
+        n = free.shape[0]
+        pad = torch.cat([free, free.new_full((1,), -1)])
+        rows = pad[torch.where(idx < n, idx, n).long()]
+        refs = torch.where((rows >= 0) & run_c[None, None, :], base + rows,
+                           -1)
+        out.append(refs.reshape(per, -1))
+    return out
+
+
+def apply_claims(tc: Cohort, clist, alive, head, tail, ts, base: int,
+                 nl: int):
+    """Apply one target cohort's claims (`clist`: (refs, inits) of each
+    spawner cohort): the claimed rows become alive with head and tail 0,
+    and their fields take the null word or the sync constructor's value.
+    Returns (alive, head, tail, fields, claims applied)."""
+    refs = torch.cat([c for c, _ in clist])
+    valid = refs >= 0
+    rows = torch.where(valid, refs - base, nl).long()
+
+    def put(col, val, at, n):
+        pad = torch.cat([col, col.new_zeros((1,))])
+        pad[at] = val
+        return pad[:n]
+    alive = put(alive, True, rows, nl)
+    head = put(head, 0, rows, nl)
+    tail = put(tail, 0, rows, nl)
+    cols = torch.where(valid, rows - tc.local_start, tc.local_capacity)
+    any_sync = any(ini is not None for _, ini in clist)
+    if any_sync:
+        has = torch.cat([ini[0] if ini is not None else
+                         torch.zeros_like(c, dtype=torch.bool)
+                         for c, ini in clist])
+    ts = dict(ts)
+    for fname, col in ts.items():
+        null = pack.null_word(tc.atype.field_specs[fname])
+        if any_sync:
+            vals = torch.cat([ini[1][fname] if ini is not None else
+                              torch.zeros_like(c, dtype=col.dtype)
+                              for c, ini in clist])
+            val = torch.where(has, vals, null)
+        else:
+            val = torch.full_like(refs, null, dtype=col.dtype)
+        ts[fname] = put(col, val, cols, tc.local_capacity)
+    return alive, head, tail, ts, _isum(valid)
 
 
 def build_step(program: Program, opts: RuntimeOptions):
@@ -394,8 +663,6 @@ def build_step(program: Program, opts: RuntimeOptions):
         raise unported("mesh")
     if program.host_cohorts:
         raise unported("host")
-    if program.has_device_spawns:
-        raise unported("spawns")
     nl = program.n_local
     c = opts.mailbox_cap
     fh = program.first_host_row
@@ -403,7 +670,7 @@ def build_step(program: Program, opts: RuntimeOptions):
     dev_cohorts = program.device_cohorts
     dispatchers, fused = [], []
     for ch in dev_cohorts:
-        run_cohort, fd = _cohort_dispatch(ch, opts)
+        run_cohort, fd = _cohort_dispatch(ch, opts, program)
         dispatchers.append((run_cohort, ch))
         if fd is not None:
             fused.append(fd)
@@ -477,10 +744,23 @@ def build_step(program: Program, opts: RuntimeOptions):
         mute_refs = torch.where(release[None, :], -1, refs)
         mute_ovf = st.mute_ovf & ~release
 
-        # --- 2. drain + dispatch per cohort (≙ the actor run loop).
+        # --- 1b. spawn reservations (≙ pony_create's slot allocation,
+        # actor.c:688-734, done ahead of dispatch): per spawn target, this
+        # tick's free rows (dead, drained, no spilled message still
+        # addressed to them) compacted in row order; each runnable
+        # spawner gets its disjoint window of them (`spawn_reservations`).
         runnable = st.alive & ~muted
+        free_rows = {
+            t: free_row_list(program.by_type_name(t), st.alive, occ0,
+                             dspill_pending)
+            for t in program.spawn_target_names}
+
+        # --- 2. drain + dispatch per cohort (≙ the actor run loop).
         new_type_state: Dict[str, Dict[str, torch.Tensor]] = dict(
             st.type_state)
+        claim_lists: Dict[str, List[Any]] = {
+            t: [] for t in program.spawn_target_names}
+        spawn_fail = st.spawn_fail[0]
         head_segments: List[torch.Tensor] = []
         out_entries: List[Entries] = []
         destroy_rows: List[Tuple[int, Any]] = []
@@ -494,11 +774,16 @@ def build_step(program: Program, opts: RuntimeOptions):
             ids = base + s0 + torch.arange(ch.local_capacity, dtype=i32,
                                            device=dev)
             (stf, out, new_head_rows, ef, ec, nproc, nbad, dstr,
-             errs) = run_cohort(
+             errs, claims, inits, sfail) = run_cohort(
                 st.type_state[ch.atype.__name__],
                 st.buf[ch.atype.__name__], st.head[s0:s1], occ0[s0:s1],
-                runnable[s0:s1], ids)
+                runnable[s0:s1], ids,
+                spawn_reservations(ch, runnable, free_rows, base))
             new_type_state[ch.atype.__name__] = stf
+            for (t, _), cl, ini in zip(spawn_sites_of(ch), claims, inits):
+                claim_lists[t].append((cl, ini))
+            if sfail is not None:
+                spawn_fail = spawn_fail | sfail
             head_segments.append(new_head_rows)
             out_entries.append(out)
             destroy_rows.append((s0, dstr))
@@ -509,8 +794,22 @@ def build_step(program: Program, opts: RuntimeOptions):
             nbad_total = nbad_total + nbad
         new_head = (torch.cat(head_segments) if head_segments
                     else st.head)
-        alive = st.alive
-        tail0 = st.tail
+
+        # --- 2b. apply the claims, before delivery, so that constructor
+        # messages and same-tick sends to the newborn land: a claimed row
+        # becomes alive with an empty mailbox (head and tail 0) and its
+        # fields at their null words, or at the sync constructor's values
+        # (ctx.spawn_sync).
+        alive, tail0 = st.alive, st.tail
+        n_spawned = torch.zeros((), dtype=i32, device=dev)
+        for tname, clist in claim_lists.items():
+            if not clist:
+                continue
+            tc = program.by_type_name(tname)
+            (alive, new_head, tail0, new_type_state[tname],
+             n_t) = apply_claims(tc, clist, alive, new_head, tail0,
+                                 new_type_state[tname], base, nl)
+            n_spawned = n_spawned + n_t
 
         # --- 3. single device: produced messages pass straight through
         # (after the always-empty route spill, as in the reference's
@@ -642,6 +941,8 @@ def build_step(program: Program, opts: RuntimeOptions):
             n_rejected=vec(nrej_new), n_badmsg=vec(nbad_new),
             n_deadletter=vec(ndl_new), n_mutes=vec(nmut_new),
             n_destroyed=vec(st.n_destroyed[0] + n_destroyed),
+            n_spawned=vec(st.n_spawned[0] + n_spawned),
+            spawn_fail=vec(spawn_fail, b),
             last_error=last_error, last_error_loc=last_error_loc,
             n_errors=vec(st.n_errors[0] + n_errors),
             plan_key=res.plan_key, plan_perm=res.plan_perm,
@@ -652,7 +953,7 @@ def build_step(program: Program, opts: RuntimeOptions):
         aux = StepAux(
             device_pending=device_pending, host_pending=false,
             exit_flag=exit_f, exit_code=exit_c,
-            spill_overflow=overflow, spawn_fail=st.spawn_fail[0],
+            spill_overflow=overflow, spawn_fail=spawn_fail,
             blob_fail=false, blob_budget_fail=false,
             any_muted=any_muted,
             n_processed=nproc_cum, n_delivered=ndel_cum,

@@ -122,6 +122,7 @@ class Runtime:
         self.state: Optional[RtState] = None
         self._inject_q: collections.deque = collections.deque()
         self._free: Dict[str, List[int]] = {}
+        self._freelist_key = None     # None: stale; "synced": valid
         self._exit_code = 0
         self._device_dirty = True     # force the first window of a run
         self.steps_run = 0
@@ -140,8 +141,11 @@ class Runtime:
         # Any state write may have created device work the last window's
         # aux cannot know about: the quiescence skip must not trust it,
         # and a window in flight when the write landed is not
-        # authoritative (its epoch no longer matches).
+        # authoritative (its epoch no longer matches). It may also have
+        # claimed or freed slots (device spawns and destroys): the host
+        # freelists are stale until `_rebuild_freelists`.
         self._state = v
+        self._freelist_key = None
         self._device_dirty = True
         self._state_epoch = getattr(self, "_state_epoch", 0) + 1
 
@@ -226,11 +230,18 @@ class Runtime:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     # ---- spawning (≙ pony_create, actor.c:688-734) ----
+    def spawn(self, atype: ActorTypeMeta, **fields) -> int:
+        """Allocate one actor (see `spawn_many`); returns its id."""
+        return int(self.spawn_many(atype, 1, **{
+            k: np.asarray([v]) for k, v in fields.items()})[0])
+
     def spawn_many(self, atype: ActorTypeMeta, count: int,
                    **fields) -> np.ndarray:
         """Allocate `count` slots of a cohort and set initial state
         columns (scalars broadcast, or [count] arrays). Returns the global
-        actor ids."""
+        actor ids. Once the device may have claimed or freed slots
+        (device spawns, destroys), the freelists are first rebuilt from
+        the device state, at most once per state write."""
         if self.state is None:
             raise RuntimeError("call start() before spawn()")
         cohort = self.program.by_type[atype]
@@ -238,6 +249,10 @@ class Runtime:
         if unknown:
             raise TypeError(f"{atype.__name__} has no fields {unknown}")
         self._check_ref_fields(atype, fields)
+        if (self.program.has_device_spawns or self.steps_run) \
+                and self._freelist_key is None:
+            self._rebuild_freelists()
+        fkey = self._freelist_key
         free = self._free[atype.__name__]
         if len(free) < count:
             raise RuntimeError(
@@ -264,7 +279,34 @@ class Runtime:
         self.state = self._replace(
             type_state={**self.state.type_state, atype.__name__: ts},
             alive=alive, pinned=pinned)
+        # Our own pops kept the freelists in step with the state.
+        self._freelist_key = fkey
         return ids
+
+    def _rebuild_freelists(self) -> None:
+        """Every cohort's freelist from the device state. A slot is free
+        only if it is dead, its mailbox is drained and no message
+        addressed to it waits in the spill: the condition the device's
+        own reservations use (engine.free_row_list), so a host spawn
+        never takes a row the device claimed, nor one that a previous
+        life's spilled message would reach."""
+        st = self.state
+        alive = st.alive.cpu().numpy()
+        occ = (st.tail - st.head).cpu().numpy()
+        dsp = st.dspill_tgt.cpu().numpy()
+        rsp = st.rspill_tgt.cpu().numpy()
+        n = self.program.total
+        spill_hit = np.zeros((n,), bool)
+        spill_hit[dsp[(dsp >= 0) & (dsp < n)]] = True
+        spill_hit[rsp[(rsp >= 0) & (rsp < n)]] = True
+        free_ok = ~alive & (occ == 0) & ~spill_hit
+        for cohort in self.program.cohorts:
+            # Highest slot first, as the initial freelist is ordered.
+            slots = np.arange(cohort.capacity - 1, -1, -1)
+            gids = np.asarray(cohort.slot_to_gid(slots))
+            self._free[cohort.atype.__name__] = [
+                int(x) for x in slots[free_ok[gids]]]
+        self._freelist_key = "synced"
 
     def set_fields(self, atype: ActorTypeMeta, ids, **fields):
         """Overwrite state columns for existing actors (host-side poke,

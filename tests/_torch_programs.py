@@ -242,11 +242,164 @@ def define(pkg):
                           + f ** 2 + f ** 3),
                     "g": st["g"] * 0.5 - h / (f * f + 0.25) + (h > f) * 1.0}
 
+    # Device spawns: the spawn tree of examples/spawn_tree.py (its
+    # `jnp.where(done, 0, acc)` spelt `acc * ~done`, which both packages
+    # run), the lifecycle programs of tests/test_lifecycle.py and the
+    # spawner of tests/test_fused_dispatch.py.
+    @pkg.actor
+    class Node:
+        parent: Ref
+        acc: I32
+        pending: I32
+
+        SPAWNS = {"Node": 2}
+        SPAWN_DISPATCHES = 1
+        MAX_SENDS = 3
+
+        @pkg.behaviour
+        def grow(self, st, depth: I32, parent: Ref):
+            leaf = depth <= 0
+            self.spawn(Node.grow, depth - 1, self.actor_id, when=~leaf)
+            self.spawn(Node.grow, depth - 1, self.actor_id, when=~leaf)
+            self.send(parent, Node.leaf_up, 1, when=leaf)
+            return {**st, "parent": parent, "pending": 2}
+
+        @pkg.behaviour
+        def leaf_up(self, st, n: I32):
+            acc = st["acc"] + n
+            pending = st["pending"] - 1
+            done = pending == 0
+            root = st["parent"] < 0
+            self.send(st["parent"], Node.leaf_up, acc, when=done & ~root)
+            self.exit(acc, when=done & root)
+            return {**st, "acc": acc * ~done, "pending": pending}
+
+    @pkg.actor
+    class Worker:
+        boss: Ref
+        value: I32
+
+        @pkg.behaviour
+        def init(self, st, boss: Ref, value: I32):
+            self.send(boss, Boss.started, self.actor_id)
+            return {**st, "boss": boss, "value": value}
+
+        @pkg.behaviour
+        def stop(self, st):
+            self.destroy()
+            return st
+
+    @pkg.actor
+    class Boss:
+        n_started: I32
+        last_child: Ref
+
+        SPAWNS = {"Worker": 2}
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def go(self, st, count: I32):
+            a = self.spawn(Worker.init, self.actor_id, 11, when=count >= 1)
+            self.spawn(Worker.init, self.actor_id, 22, when=count >= 2)
+            return {**st, "last_child": a}
+
+        @pkg.behaviour
+        def started(self, st, child: Ref):
+            return {**st, "n_started": st["n_started"] + 1}
+
+    @pkg.actor
+    class Kid:
+        tag: I32
+        frac: pkg.F32
+        boss: Ref
+
+        @pkg.behaviour
+        def init(self, st, tag: I32, frac: pkg.F32):
+            return {**st, "tag": tag, "frac": frac,
+                    "boss": self.actor_id * 0 - 1}
+
+        @pkg.behaviour
+        def probe(self, st, bump: I32):
+            return {**st, "tag": st["tag"] + bump}
+
+    @pkg.actor
+    class Maker:
+        made: Ref
+
+        MAX_SENDS = 1
+        SPAWNS = {"Kid": 1}
+
+        @pkg.behaviour
+        def make(self, st, v: I32):
+            ref = self.spawn_sync(Kid.init, v, 0.5)
+            self.send(ref, Kid.probe, 100, when=ref >= 0)
+            return {**st, "made": ref}
+
+    @pkg.actor
+    class Relay:
+        nxt: Ref["Relay"]
+        sink: Ref["Collector"]
+        forwarded: I32
+
+        MAX_SENDS = 2
+        SPAWNS = {"Temp": 1}
+
+        @pkg.behaviour
+        def chain(self, st, v: I32):
+            w = self.spawn(Temp.init, v, st["sink"], when=v > 0)
+            self.send(st["nxt"], Relay.chain, v - 1, when=v > 0)
+            return {**st, "forwarded": st["forwarded"] + (w >= 0)}
+
+    @pkg.actor
+    class Temp:
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def init(self, st, v: I32, sink: I32):
+            self.send(sink, Collector.log, v)
+            self.destroy()
+            return st
+
+    @pkg.actor
+    class Collector:
+        total: I32
+        hits: I32
+
+        BATCH = 8
+
+        @pkg.behaviour
+        def log(self, st, v: I32):
+            return {**st, "total": st["total"] + v,
+                    "hits": st["hits"] + 1}
+
+    @pkg.actor
+    class SpawnChild:
+        boss: Ref
+        val: I32
+
+        @pkg.behaviour
+        def init(self, st, boss: Ref, v: I32):
+            return {**st, "boss": boss, "val": v}
+
+    @pkg.actor
+    class Spawner:
+        made: I32
+
+        SPAWNS = {"SpawnChild": 1}
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def make(self, st, v: I32):
+            self.spawn(SpawnChild.init, self.actor_id, v)
+            return {**st, "made": st["made"] + 1}
+
     return types.SimpleNamespace(
         Pinger=Pinger, RingNode=RingNode, Walker=Walker,
         Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer,
         Yielder=Yielder, Exiter=Exiter, Ephemeral=Ephemeral, Errs=Errs,
-        TriF=TriF, Arith=Arith)
+        TriF=TriF, Arith=Arith, Node=Node, Worker=Worker, Boss=Boss,
+        Kid=Kid, Maker=Maker, Relay=Relay, Temp=Temp,
+        Collector=Collector, SpawnChild=SpawnChild, Spawner=Spawner)
 
 
 def new_runtime(pkg, opts_kw, device="cpu"):
@@ -287,6 +440,32 @@ def build_walkers(pkg, T, seed, n_w=24, n_s=8, n_seeds=10, vmax=14,
         else:
             rt.send(int(sids[i]), T.Splitter.burst, v)
     return rt
+
+
+def churn(pkg, T, seed, device="cpu", **kw):
+    """Chain relays spawn Temps that log to a collector and destroy
+    themselves (tests/test_lifecycle.py's churn). Returns (runtime,
+    sink id, oracle total, oracle hits)."""
+    rng = np.random.default_rng(seed)
+    n_r = int(rng.integers(6, 16))
+    starts = [(int(rng.integers(0, n_r)), int(rng.integers(1, 10)))
+              for _ in range(5)]
+    nxt = rng.integers(0, n_r, n_r)
+    total = sum(v - k for _, v in starts for k in range(v))
+    hits = sum(v for _, v in starts)
+    rt = new_runtime(pkg, dict(mailbox_cap=8, batch=2, msg_words=2,
+                               max_sends=2, spill_cap=2048, inject_slots=32,
+                               **kw), device)
+    rt.declare(T.Relay, n_r).declare(T.Temp, 4 * (hits + 8)).declare(
+        T.Collector, 1)
+    rt.start()
+    sink = rt.spawn(T.Collector)
+    rids = rt.spawn_many(T.Relay, n_r)
+    rt.set_fields(T.Relay, rids, nxt=rids[np.asarray(nxt)],
+                  sink=np.full(n_r, sink))
+    for i, v in starts:
+        rt.send(int(rids[i]), T.Relay.chain, v)
+    return rt, sink, total, hits
 
 
 def build_fifo(pkg, T, seed, n_cons=6, items=40, device="cpu", **okw):

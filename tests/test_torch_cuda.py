@@ -120,6 +120,11 @@ FUSED = [  # (actor types, options, lanes): the main shapes, then edges
      257),
     ((TT.Mixer, TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2,
                                 msg_words=2), 1),
+    # Spawning cohorts: reservation planes in, claim planes out.
+    ((TT.Node,), dict(mailbox_cap=8, batch=4, max_sends=3, msg_words=2),
+     1 << 16),
+    ((TT.Boss, TT.Worker), dict(mailbox_cap=8, batch=2, max_sends=2,
+                                msg_words=2), 257),
 ]
 
 
@@ -140,16 +145,19 @@ def _flat(x):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("types,okw,lanes", FUSED,
-                         ids=["ubench", "mixed", "nbody", "corpus", "one"])
+                         ids=["ubench", "mixed", "nbody", "corpus", "one",
+                              "spawn_tree", "boss"])
 def test_fused_kernel_matches_plain(types, okw, lanes):
     _need_cuda()
+    from ponyc_tpu_torch.runtime.engine import spawn_meta_of
     opts = RuntimeOptions(tuning_cache="off", pallas_fused=True, **okw)
     prog = Program(opts)
     for t in types:
         prog.declare(t, lanes)
     prog.finalize()
     for t in types:
-        fd = fdm.build_fused_dispatch(prog.by_type[t], opts)
+        ch = prog.by_type[t]
+        fd = fdm.build_fused_dispatch(ch, opts, spawn_meta_of(prog, ch))
         inputs = fd.sample_inputs(seed=lanes % 97, device="cuda")
         before = fdm.FusedDispatch.launches
         got = fd(*inputs)
@@ -234,3 +242,88 @@ def test_mega_sort_branches_card_matches_cpu(sort):
                     {k: v.tolist() for k, v in
                      rt.cohort_state(TT.Walker).items()}))
     assert out[0] == out[1] and out[0][0]["n_rejected"] > 0
+
+
+PATHS = {"plain": dict(pallas_fused=False),
+         "fused": dict(pallas_fused=True),
+         "mega": dict(delivery="pallas_mega")}
+
+
+def _launched():
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    return (mk.drain_msgs.launches, fdm.FusedDispatch.launches,
+            MegaWindow.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_spawn_tree_card_matches_cpu(path):
+    """The spawn tree at depth 8 on the card and on the CPU, on each
+    path: exit code 256, 510 device spawns, equal columns and liveness;
+    the path's kernel launched."""
+    _need_cuda()
+    from ponyc_tpu_torch.models import spawn_tree
+    out = []
+    for device in ("cuda", "cpu"):
+        before = _launched()
+        rt = spawn_tree.run(8, spawn_tree.options(tuning_cache="off",
+                                                  **PATHS[path]),
+                            device=device)
+        moved = [b - a for a, b in zip(before, _launched())]
+        out.append((rt.exit_code, rt.counter("n_spawned"), rt.steps_run,
+                    {k: v.tolist() for k, v in
+                     rt.cohort_state(spawn_tree.Node).items()},
+                    rt.state.alive.cpu().tolist()))
+        if device == "cuda":
+            assert moved[list(PATHS).index(path)] > 0, moved
+    assert out[0] == out[1]
+    assert out[0][:2] == (256, 510)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "mega"])
+@pytest.mark.parametrize("world", ["churn", "sync"])
+def test_spawn_worlds_card_match_cpu(world, path):
+    """The spawn/destroy churn and the spawn_sync world on the card
+    against the CPU, under the fused and the window kernel."""
+    _need_cuda()
+    from _torch_programs import new_runtime
+    from _torch_programs import churn
+    out = []
+    for device in ("cuda", "cpu"):
+        if world == "churn":
+            rt = churn(ponyc_tpu_torch, TT, 301, device=device,
+                       **PATHS[path])[0]
+            types = (TT.Relay, TT.Temp, TT.Collector)
+        else:
+            rt = new_runtime(ponyc_tpu_torch, dict(
+                mailbox_cap=8, batch=2, max_sends=1, msg_words=3,
+                inject_slots=8, **PATHS[path]), device)
+            rt.declare(TT.Maker, 3).declare(TT.Kid, 6).start()
+            for m in rt.spawn_many(TT.Maker, 3):
+                rt.send(int(m), TT.Maker.make, int(m) + 5)
+            types = (TT.Maker, TT.Kid)
+        code = rt.run(max_steps=100_000)
+        out.append((code, counters(rt), rt.counter("n_spawned"),
+                    rt.steps_run, {t.__name__: {
+                        k: _bits(torch.from_numpy(np.ascontiguousarray(v)))
+                        .tolist() for k, v in rt.cohort_state(t).items()}
+                        for t in types}))
+    assert out[0] == out[1] and out[0][2] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_spawn_exhaustion_raises_on_card(path):
+    """Past the free rows the sticky spawn fail raises
+    SpawnCapacityError on the card, on every path."""
+    _need_cuda()
+    from _torch_programs import new_runtime
+    rt = new_runtime(ponyc_tpu_torch, dict(
+        mailbox_cap=8, batch=2, max_sends=1, msg_words=2, spill_cap=256,
+        inject_slots=8, **PATHS[path]), "cuda")
+    rt.declare(TT.Spawner, 4).declare(TT.SpawnChild, 2).start()
+    for s in rt.spawn_many(TT.Spawner, 4):
+        rt.send(int(s), TT.Spawner.make, 1)
+    with pytest.raises(ponyc_tpu_torch.SpawnCapacityError):
+        rt.run(max_steps=16)

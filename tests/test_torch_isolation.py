@@ -57,10 +57,10 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(pallas_fused="auto"), 5),
-    (dict(checkpoint_every_s=1.0), 8), (dict(delivery="cosort"), 5),
-    (dict(delivery="auto"), 5), (dict(mesh_shards=2), 9),
-    (dict(analysis=1), 7), (dict(blob_slots=4, blob_words=2), 6),
+    (dict(pallas_fused="auto"), 6),
+    (dict(checkpoint_every_s=1.0), 9), (dict(delivery="cosort"), 6),
+    (dict(delivery="auto"), 6), (dict(mesh_shards=2), 10),
+    (dict(analysis=1), 8), (dict(blob_slots=4, blob_words=2), 7),
 ])
 def test_unported_options_raise(kw, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
@@ -79,7 +79,7 @@ def test_unported_program_features_raise():
 
     rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
     rt.declare(HostSide, 2)
-    with pytest.raises(NotImplementedError, match="host cohorts"):
+    with pytest.raises(NotImplementedError, match="host cohorts.*slice 5"):
         rt.start()
 
     @ponyc_tpu_torch.actor
@@ -91,10 +91,10 @@ def test_unported_program_features_raise():
         def go(self, st):
             return st
 
+    # Device spawns are served since slice 4: such a program starts.
     rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
     rt.declare(Spawner, 2)
-    with pytest.raises(NotImplementedError, match="device spawns"):
-        rt.start()
+    rt.start()
 
 
 def test_pallas_option_is_accepted():
@@ -131,7 +131,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     from pathlib import Path
     root = Path(REPO)
     files = sorted((root / "ponyc_tpu_torch").rglob("*.py")) + [
-        root / "chip_smoke.py", root / "profiling" / "torch_tick.py"]
+        root / "chip_smoke.py", root / "profiling" / "torch_tick.py",
+        root / "profiling" / "torch_mega_phases.py"]
     assert len(files) > 10
     bad = []
     for f in files:

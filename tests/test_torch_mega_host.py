@@ -341,3 +341,87 @@ def test_small_world_grid_below_residency(host_checked):
     assert grid_blocks(H100_RESIDENT, w["NL"], w["E"]) < H100_RESIDENT
     _ran(host_checked)
     assert int(rt.cohort_state(ring.RingNode)["passes"].sum()) == 60
+
+
+# ---- device spawns: the window kernel's census and reserve phases, the
+# claims in keys, deliver and commit ----------------------------------------
+
+def test_spawn_world_has_the_spawn_phases_others_do_not():
+    """SPAWN is a constant of the generated world: only a program with
+    device spawns gets the census and reserve phases."""
+    from ponyc_tpu_torch.models import spawn_tree
+    rt = spawn_tree.build(3, spawn_tree.options(**OPTS), device="cpu")[0]
+    assert rt._multi_g.world["SPAWN"] == 1
+    rt2, _ = ubench.build(16, RuntimeOptions(mailbox_cap=4, batch=2,
+                                             max_sends=1, msg_words=1,
+                                             **OPTS), device="cpu")
+    assert rt2._multi_g.world["SPAWN"] == 0
+    assert {"census", "reserve"} <= set(
+        __import__("ponyc_tpu_torch.ops.megakernel", fromlist=["x"])
+        .clock_phases().values())
+
+
+@pytest.mark.parametrize("sort", ["segment", "radix"])
+def test_spawn_tree(host_checked, sort):
+    """The spawn tree at depth 6: 126 device spawns over 14 ticks, every
+    window equal to the plain window."""
+    from ponyc_tpu_torch.models import spawn_tree
+    rt, _root = spawn_tree.build(6, spawn_tree.options(
+        quiesce_interval=4, **OPTS), device="cpu")
+    rt._multi_g.world.update(SORTS[sort])
+    rt.run(max_steps=1000)
+    assert _ran(host_checked) == rt.steps_run
+    assert rt.exit_code == 64 and rt.counter("n_spawned") == 126
+
+
+@pytest.mark.parametrize("seed", [301, 307])
+def test_spawn_destroy_churn(host_checked, seed):
+    """tests/test_lifecycle.py's churn: spawns, destroys and reuse of the
+    freed rows, against its closed-form oracle."""
+    from _torch_programs import churn
+    rt, sink, total, hits = churn(ponyc_tpu_torch, TT, seed,
+                                  quiesce_interval=8, **MEGA)
+    rt.run(max_steps=100_000)
+    _ran(host_checked)
+    st = rt.state_of(sink)
+    assert (st["total"], st["hits"]) == (total, hits)
+    assert rt.counter("n_destroyed") == hits
+
+
+def test_spawn_sync_world(host_checked):
+    """spawn_sync: the constructor's field values (a float among them)
+    land with the claim, before the same tick's probe."""
+    from _torch_programs import new_runtime
+    rt = new_runtime(ponyc_tpu_torch, dict(mailbox_cap=8, batch=2,
+                                           max_sends=1, msg_words=3,
+                                           inject_slots=8,
+                                           quiesce_interval=2, **MEGA))
+    # Each runnable Maker reserves batch (2) Kid rows a tick.
+    rt.declare(TT.Maker, 3).declare(TT.Kid, 6).start()
+    assert rt._multi_g.world["NI"] == 3
+    ms = rt.spawn_many(TT.Maker, 3)
+    for m in ms:
+        rt.send(int(m), TT.Maker.make, int(m) + 5)
+    rt.run(max_steps=20)
+    _ran(host_checked)
+    kids = rt.cohort_state(TT.Kid)
+    assert sorted(kids["tag"].tolist()) == [0, 0, 0, 105, 106, 107]
+    assert sorted(kids["frac"].tolist()) == [0.0] * 3 + [0.5] * 3
+    assert rt.counter("n_spawned") == 3
+
+
+def test_spawn_exhaustion_stops_the_window(host_checked):
+    """A wanted spawn past the free rows: the sticky spawn fail ends the
+    window on the device, and the host raises."""
+    from _torch_programs import new_runtime
+    rt = new_runtime(ponyc_tpu_torch, dict(mailbox_cap=8, batch=2,
+                                           max_sends=1, msg_words=2,
+                                           spill_cap=256, inject_slots=8,
+                                           quiesce_interval=8, **MEGA))
+    rt.declare(TT.Spawner, 4).declare(TT.SpawnChild, 2).start()
+    for s in rt.spawn_many(TT.Spawner, 4):
+        rt.send(int(s), TT.Spawner.make, 1)
+    with pytest.raises(ponyc_tpu_torch.SpawnCapacityError):
+        rt.run(max_steps=16)
+    assert bool(rt.state.spawn_fail[0])
+    _ran(host_checked)

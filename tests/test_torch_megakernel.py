@@ -196,7 +196,7 @@ def test_nested_kernel_options_take_the_plain_window(kw):
 
 @pytest.mark.parametrize("delivery", ["auto", "cosort"])
 def test_tuner_deliveries_still_raise(delivery):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         Runtime(RuntimeOptions(delivery=delivery), device="cpu")
 
 
