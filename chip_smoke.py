@@ -51,7 +51,8 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 pinger processes `pings` messages a tick and the path's
                 kernel launches once a tick (once a window for the
                 window kernel);
-  5. ring     — the token ring, 1024 nodes, 4096 hops, through
+  5. ring     — the token ring, 1024 nodes, 4096 hops (2048 on the
+                plain and fused paths, whose hops take milliseconds), through
                 Runtime.run(), on each path: the pass count, the exit
                 code, and one launch of the path's kernel per enqueued
                 tick (ticks run plus the ticks enqueued but predicated
@@ -70,7 +71,27 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 acc and pending columns and the alive mask equal across
                 the paths, one launch of the path's kernel per tick
                 enqueued (a window kernel per window), ms a tick;
-  9. profile  — kernels launched a tick and the device's busy share
+  9. host     — host cohorts (HOST = True actors): the `hostlog` world,
+                2**20 walkers (`nxt` a random permutation from the seed)
+                reporting 2**12 chains (lengths uniform in 1..256) into
+                one host actor (tests/_torch_programs.py's WalkerH and
+                HostLog, the reference's program; cap 4, batch 1, 2
+                words, 2 sends, spill 8192, inject 16), through
+                Runtime.run() on each path: every walker's acc equal to
+                a NumPy oracle of the chains (exact int64 sums),
+                HostLog.ends = 2**12, exit code 0; fields, counters,
+                host_processed, ticks run and windows equal across the
+                paths; one launch of the path's kernel per tick enqueued
+                (a window kernel per window), the windows the device
+                ended for the host (host_pending), wall a run; under
+                pallas_mega a second run whose first windows and every
+                128th run the host C++ build of the window kernel on the
+                same input too, bit-equal to the card, and the kernel's
+                per-phase clock on this world (a forced window). Then
+                examples/spreader.py's program at depth 12 (device
+                spawns and a host collector, no promise) on each path:
+                got = 2**12;
+ 10. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -83,6 +104,12 @@ shows the census and reserve phases; the other worlds have none), and
 the card and the CPU. Each run prints, per cohort, whether the fused
 kernel or the plain dispatch ran it (a cohort that sync-constructs takes
 the plain dispatch, as in the JAX package).
+
+Host cohorts take delivery on every path; the window kernel's host rows
+are checked in `kernels-mega` on the hostlog world at full width (the
+gated windows, which stop for the host, and a forced window, timed), and
+`agree` runs a small host reporting world on the card and the CPU.
+`--only host` runs the build and the host phase.
 
 Output: the card's name and power limit (nvidia-smi) first, one line per
 phase, one JSON line listing every kernel, and as the last line
@@ -277,6 +304,73 @@ def corpus_opts():
                           tuning_cache="off", pallas_fused=True)
 
 
+HOST_WALKERS = 1 << 20    # the hostlog world on the card
+HOST_CHAINS = 1 << 12
+HOST_SEED = 2026
+SPREAD_DEPTH = 12         # examples/spreader.py's program on the card
+
+
+def hostlog_kw(mode):
+    # tests/test_differential.py's host reporting options, the spill
+    # raised for 2^12 chains
+    return dict(mailbox_cap=4, batch=1, msg_words=2, max_sends=2,
+                spill_cap=8192, inject_slots=16, **_mode_kw(mode))
+
+
+def hostlog_plan(n=HOST_WALKERS, chains=HOST_CHAINS, seed=HOST_SEED,
+                 max_len=256):
+    """The hostlog world's wiring and traffic from the seed: (nxt, a
+    permutation of the walkers; the chains' start walkers, distinct; their
+    lengths, uniform in 1..max_len), and the NumPy oracle of every walker's acc
+    (exact int64 sums: a chain of length L visits its start with L, the
+    next walker with L - 1, ..., and the last with 0, which reports)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nxt = rng.permutation(n)
+    starts = rng.choice(n, chains, replace=False)
+    lens = rng.integers(1, max_len + 1, chains)
+    acc = np.zeros(n, np.int64)
+    pos, v = starts.copy(), lens.copy()
+    while (v >= 0).any():
+        live = v >= 0
+        np.add.at(acc, pos[live], v[live])
+        pos, v = nxt[pos], v - 1
+    return nxt, starts, lens, acc
+
+
+def hostlog_build(mode, plan, device="cuda"):
+    """The hostlog world, started and seeded (the chains' first messages
+    straight into their start walkers' mailboxes): (runtime, the host
+    actor's id)."""
+    import numpy as np
+    import ponyc_tpu_torch
+    tp, T = programs()
+    nxt, starts, lens, _acc = plan
+    n = len(nxt)
+    rt = tp.new_runtime(ponyc_tpu_torch, hostlog_kw(mode), device)
+    rt.declare(T.WalkerH, n).declare(T.HostLog, 1).start()
+    ids = rt.spawn_many(T.WalkerH, n)
+    log = rt.spawn(T.HostLog)
+    rt.set_fields(T.WalkerH, ids, nxt=ids[nxt], log=np.full(n, log))
+    rt.bulk_send(ids[starts], T.WalkerH.step, lens.astype(np.int32))
+    return rt, log
+
+
+def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
+    """examples/spreader.py's world (its options; Spread declared at 4 x
+    2^depth rows) without the promise: (runtime, the collector's id)."""
+    import ponyc_tpu_torch
+    tp, T = programs()
+    rt = tp.new_runtime(ponyc_tpu_torch, dict(
+        mailbox_cap=8, batch=2, max_sends=5, msg_words=2, spill_cap=4096,
+        inject_slots=8, **_mode_kw(mode)), device)
+    rt.declare(T.Spread, 4 << depth).declare(T.Collect, 1).start()
+    col = rt.spawn(T.Collect, got=0)
+    root = rt.spawn(T.Spread, col=int(col))
+    rt.send(root, T.Spread.go, depth)
+    return rt, col
+
+
 def mixed_type():
     if "mixed" not in _CACHE:
         from ponyc_tpu_torch.models import mixed
@@ -313,6 +407,16 @@ def fused_cases():
                                          T.Exiter, T.Ephemeral, T.Errs,
                                          T.Arith], corpus_opts(), n))
     T = tp.define(ponyc_tpu_torch)
+    cases.append(("hostlog", [T.WalkerH, T.HostLog],
+                  RuntimeOptions(tuning_cache="off", **hostlog_kw(True)),
+                  HOST_WALKERS))
+    T = tp.define(ponyc_tpu_torch)
+    cases.append((f"spreader depth {SPREAD_DEPTH}", [T.Spread, T.Collect],
+                  RuntimeOptions(
+                      mailbox_cap=8, batch=2, max_sends=5, msg_words=2,
+                      spill_cap=4096, inject_slots=8, tuning_cache="off",
+                      pallas_fused=True), 4 << SPREAD_DEPTH))
+    T = tp.define(ponyc_tpu_torch)
     cases.append(("spawn corpus N=257", [T.Boss, T.Worker, T.Spawner,
                                          T.SpawnChild, T.Relay, T.Temp,
                                          T.Collector], corpus_opts(), 257))
@@ -328,9 +432,9 @@ def fused_cases():
 
 
 def fused_dispatches(types, opts, lanes):
-    """The fused dispatch of every eligible cohort of a program declaring
-    `types` at `lanes` rows each (a cohort that sync-constructs has none:
-    it takes the plain dispatch)."""
+    """The fused dispatch of every eligible device cohort of a program
+    declaring `types` at `lanes` rows each (a cohort that sync-constructs
+    has none: it takes the plain dispatch)."""
     from ponyc_tpu_torch.ops import fused_dispatch as fdm
     from ponyc_tpu_torch.program import Program
     from ponyc_tpu_torch.runtime.engine import spawn_meta_of
@@ -341,6 +445,8 @@ def fused_dispatches(types, opts, lanes):
     out = []
     for t in types:
         ch = prog.by_type[t]
+        if ch.host:            # host cohorts run on the host
+            continue
         meta = spawn_meta_of(prog, ch)
         progs = fdm.trace_cohort(ch, opts, meta)
         if fdm.eligible(ch, progs):
@@ -411,18 +517,26 @@ def force_radix(mw):
 
 def mega_windows():
     """The window kernel of every program the run drives with
-    delivery="pallas_mega": the four main paths at full width (from their
-    Programs) and the agree phase's small worlds (started on the CPU,
-    which traces and emits without building)."""
+    delivery="pallas_mega": the main paths, the hostlog world and the
+    spreader at full width (from their Programs) and the agree phase's
+    small worlds (started on the CPU, which traces and emits without
+    building)."""
+    import ponyc_tpu_torch
+    from ponyc_tpu_torch import RuntimeOptions
     from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
     from ponyc_tpu_torch.program import Program
     from ponyc_tpu_torch.runtime import engine
+    tp, _T = programs()
 
-    def window(atype, n, opts):
+    def window(atype, n, opts, more=()):
         prog = Program(opts)
         prog.declare(atype, n)
+        for t, m in more:
+            prog.declare(t, m)
         prog.finalize()
         return engine.build_multi_step_gated(prog, opts)
+
+    host_t, spread_t = tp.define(ponyc_tpu_torch), tp.define(ponyc_tpu_torch)
 
     out = {"ubench": window(ubench.Pinger, 1 << 20, ubench_opts("mega")),
            "ubench, radix sort": force_radix(window(
@@ -431,7 +545,17 @@ def mega_windows():
            "ring": window(ring.RingNode, 1024, ring_opts("mega")),
            "nbody": window(nbody.Body, 1024, nbody_opts("mega")),
            "spawn tree": window(spawn_tree.Node, 4 << SPAWN_DEPTH,
-                                spawn_opts("mega"))}
+                                spawn_opts("mega")),
+           "hostlog": window(host_t.WalkerH, HOST_WALKERS, RuntimeOptions(
+               tuning_cache="off", **hostlog_kw("mega")),
+               [(host_t.HostLog, 1)]),
+           "spreader": window(spread_t.Spread, 4 << SPREAD_DEPTH,
+                              RuntimeOptions(
+                                  mailbox_cap=8, batch=2, max_sends=5,
+                                  msg_words=2, spill_cap=4096,
+                                  inject_slots=8, tuning_cache="off",
+                                  **_mode_kw("mega")),
+                              [(spread_t.Collect, 1)])}
     for name, build, _finish in agree_worlds():
         out[f"agree {name}"] = build("cpu", "mega")._multi_g
     return out
@@ -551,6 +675,7 @@ def check_kernels(rec, frec):
     from ponyc_tpu_torch.ops import mailbox_kernel as mk
     shapes = [  # (cap, w1, N, batch, wrapped heads)
         (4, 2, 1 << 20, 4, False),       # ubench's shape
+        (4, 2, 1 << 20, 1, False),       # the hostlog world's walkers
         (8, 2, 1024, 1, False),          # the ring's shape
         (8, 2, 1024, 1, True),           # ... with wrapped heads
         (64, 2, 1000, 8, True),          # edge: ragged N, big cap
@@ -710,6 +835,9 @@ def mega_bound(mw, ticks, processed, live, branch):
         if sp["progs"]:
             ops_per_msg = max(ops_per_msg, sum(
                 lanecode.op_count(p) for p in sp["progs"]) / len(sp["progs"]))
+    for sp in mw.host_specs:       # host cohorts' rings (their state is
+        ch = sp["cohort"]          # on the host)
+        ring_words += w["CAP"] * (1 + ch.msg_words) * ch.local_capacity
     plan = 2 * e * 4 + (nl + 1) * 4
     nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan
     if branch == "segment":
@@ -802,6 +930,9 @@ def full_worlds():
         from ponyc_tpu_torch.models import spawn_tree
         return spawn_tree.build(SPAWN_DEPTH, spawn_opts("mega"))[0]
 
+    def hostlog():
+        return hostlog_build("mega", hostlog_plan())[0]
+
     return [("ubench 2^20 hops=2^30 (every payload escaped)",
              pingers(1 << 30)),
             ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
@@ -812,7 +943,9 @@ def full_worlds():
              pingers(1 << 30, radix=True)),
             ("mixed 2^20", workers), ("ring 1024", nodes),
             ("nbody 1024", bodies),
-            (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree)]
+            (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree),
+            ("hostlog 2^20 walkers, 2^12 chains into a host actor",
+             hostlog)]
 
 
 def graph_yardstick(mw, st, it, iw, ticks):
@@ -876,6 +1009,39 @@ def check_mega(mrec):
               flush=True)
         rec = dict(escape_rate=esc, ticks=ticks, processed=processed,
                    live=live, branch=branch, info=mw.info)
+        forced_world = label.startswith("hostlog")
+        if forced_world:
+            # The gated windows stop at the tick after which the host row
+            # is occupied (host_pending): the first after its first
+            # reports, the second at once. The forced spelling runs on,
+            # the host row full and spilling: that is the window timed.
+            pending = bool(want[1].host_pending)
+            if not (pending and ticks == 0
+                    and 0 < int(st1.step_no[0]) < T):
+                raise AssertionError(f"{label}: the gated windows did not "
+                                     f"stop for the host ({ticks} ticks, "
+                                     f"host_pending {pending})")
+            got = mw.forced(st1, e_it, e_iw, T)
+            want = mw.plain_forced(st1, e_it, e_iw, T)
+            torch.cuda.synchronize()
+            err3, _, _ = compare_window(got, want, f"{label} forced")
+            worst = max(worst, err3)
+            ticks = T
+            processed = (int(want[0].n_processed[0])
+                         - int(st1.n_processed[0]))
+            live = int(want[0].plan_bounds[-1])
+            branch = megakernel.tick_sort(mw.world, want[0].plan_key)
+            rec.update(ticks=ticks, processed=processed, live=live,
+                       branch=branch, gated_ticks=int(st1.step_no[0]),
+                       spill=int(want[0].dspill_count[0]),
+                       muted=int(want[0].muted.sum()))
+            print(f"window kernel {label}: the first gated window stopped "
+                  f"for the host after {int(st1.step_no[0])} ticks, the "
+                  f"second ran 0; a forced window of {T} ticks bit-equal "
+                  f"({processed} processed, host ring full, spill "
+                  f"{rec['spill']}, {rec['muted']} walkers muted; {live} "
+                  f"live entries in the last tick, {branch} sort)",
+                  flush=True)
         if label.startswith("ubench") and "no payload" in label:
             # The gated-out window and the forced spelling.
             quiet = engine.aux_to_device(engine.aux_from_vector(
@@ -896,9 +1062,13 @@ def check_mega(mrec):
                   "injections every tick) bit-equal", flush=True)
         if ticks == T:       # times from the steady state after window 1
             def kern():
+                if forced_world:
+                    return mw.forced(st1, e_it, e_iw, T)
                 return mw(st1, e_it, e_iw, T, True, zero)
 
             def plain():
+                if forced_world:
+                    return mw.plain_forced(st1, e_it, e_iw, T)
                 return mw.plain(st1, e_it, e_iw, T, True, zero, None)
             # The plain window launches thousands of kernels a call (tens
             # of thousands for mixed): one profiled call after one warm-up
@@ -1105,12 +1275,29 @@ def agree_worlds():
                 np.asarray(kid["frac"]).view(np.int32).tolist(),
                 kid["boss"].tolist(), rt.counter("n_spawned"))
 
+    def hostrep(device, mode):
+        # A small hostlog: 64 walkers, 24 chains of 1..40 hops.
+        return hostlog_build(mode, hostlog_plan(64, 24, 31, 40), device)[0]
+
+    def hostrep_done(rt):
+        rt.run(max_steps=100_000)
+        log = rt.program.first_host_row
+        acc = hostlog_plan(64, 24, 31, 40)[3]
+        if rt.state_of(log)["ends"] != 24 or not (
+                rt.cohort_state(T.WalkerH)["acc"] == acc).all():
+            raise AssertionError(f"host reporting: {rt.state_of(log)} "
+                                 "(want 24 ends), or acc differs from the "
+                                 "oracle")
+        return (_world_numbers(rt, T.WalkerH)
+                + (rt.state_of(log), rt.totals["host_processed"]))
+
     worlds = [("walkers (spill/mute)", walkers, walkers_done),
               ("ring", rings, rings_done), ("ubench", pingers, pingers_done),
               ("mixers (every effect)", mixers, mixers_done),
               ("spawn tree depth 8", tree, tree_done),
               ("spawn/destroy churn", churn, churn_done),
-              ("spawn_sync", sync, sync_done)]
+              ("spawn_sync", sync, sync_done),
+              ("host reporting", hostrep, hostrep_done)]
     worlds += [(f"corpus {n}", *corpus(n)) for n in tp.CORPUS]
     return worlds
 
@@ -1243,9 +1430,13 @@ def run_ring(rec, frec, mrec, hops=4096):
         opts = ring_opts(mode)
         ring.run(nodes, 64, opts=opts)                    # warm-up
         per_hop = []
+        # The plain and fused ticks take about 8 ms a hop: they run half
+        # the hops, which keeps the whole script near half its time limit
+        # (the time a hop is what this phase reports).
+        n_hops = hops if mode == "mega" else hops // 2
         for _ in range(3):
             rt, ids = ring.build(nodes, opts)
-            rt.send(int(ids[0]), ring.RingNode.token, hops)
+            rt.send(int(ids[0]), ring.RingNode.token, n_hops)
             windows = count_windows(rt)
             torch.cuda.synchronize()
             q0 = rt.ticks_enqueued
@@ -1256,9 +1447,9 @@ def run_ring(rec, frec, mrec, hops=4096):
             got = launches()            # ... and ends here
             enqueued = rt.ticks_enqueued - q0
             passes = int(rt.cohort_state(ring.RingNode)["passes"].sum())
-            if passes != hops or code != 0:
-                raise AssertionError(f"ring: passes {passes} (want {hops}),"
-                                     f" exit code {code}")
+            if passes != n_hops or code != 0:
+                raise AssertionError(f"ring: passes {passes} (want "
+                                     f"{n_hops}), exit code {code}")
             # One cohort: one launch of the path's kernel per enqueued
             # tick, run or not (a tick predicated off on the device still
             # launches its kernels; the host enqueues such ticks until its
@@ -1271,9 +1462,9 @@ def run_ring(rec, frec, mrec, hops=4096):
                                      f"{enqueued} ticks enqueued, "
                                      f"{windows[0]} windows, {rt.steps_run} "
                                      f"run (expected {want})")
-            per_hop.append(elapsed / hops)
-            print(f"ring {nodes} nodes {hops} hops {_mode_name(mode)}: "
-                  f"{elapsed:.3f} s, {1e6 * elapsed / hops:.1f} us/hop, "
+            per_hop.append(elapsed / n_hops)
+            print(f"ring {nodes} nodes {n_hops} hops {_mode_name(mode)}: "
+                  f"{elapsed:.3f} s, {1e6 * elapsed / n_hops:.1f} us/hop, "
                   f"{rt.steps_run} ticks run, {enqueued} enqueued, "
                   f"{windows[0]} windows; launches (drain, fused, window) "
                   f"{got}", flush=True)
@@ -1449,6 +1640,243 @@ def run_spawn(rec, frec, mrec, depth=SPAWN_DEPTH):
     print(f"spawn tree: parent, acc, pending and alive bit-equal across the "
           f"plain tick, the fused kernel and the window kernel "
           f"({int(cols[False]['alive'].sum())} actors alive)", flush=True)
+    return out
+
+
+def host_stops(rt):
+    """Record every window the run loop retires as (ticks run, its
+    budget, host_pending at its end) in the list returned."""
+    out = []
+    orig = rt._retire_window
+
+    def retire(win):
+        k, a = orig(win)
+        out.append((k, win["budget"], bool(a.host_pending)))
+        return k, a
+    rt._retire_window = retire
+    return out
+
+
+def state_to(x, dev):
+    """A state, aux or window output (nests of tensors) on device `dev`."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: state_to(v, dev) for k, v in x.items()}
+    if hasattr(x, "_fields"):                        # StepAux
+        return type(x)(*(state_to(v, dev) for v in x))
+    if isinstance(x, tuple):
+        return tuple(state_to(v, dev) for v in x)
+    return dataclasses.replace(x, **{
+        f.name: state_to(getattr(x, f.name), dev)
+        for f in dataclasses.fields(x)})
+
+
+def host_numbers(rt, log):
+    """The numbers the paths must agree on after a host world's run."""
+    return {"counters": {c: rt.counter(c) for c in (
+                "n_processed", "n_delivered", "n_rejected", "n_mutes",
+                "n_deadletter", "n_spawned")},
+            "host": rt.state_of(log),
+            "host_processed": rt.totals["host_processed"],
+            "code": rt.exit_code, "steps": rt.steps_run}
+
+
+def card_vs_host_build(plan, every=128):
+    """A second pallas_mega run of the hostlog world whose first three
+    windows and every `every`-th also run as the host C++ build of the
+    window kernel on a CPU copy of the same input, each bit-equal to the
+    card. Returns (windows checked, ticks in them, the run's numbers)."""
+    import torch
+    from ponyc_tpu_torch.ops.megakernel import MegaWindow
+    rt, log = hostlog_build("mega", plan)
+    checked, n = [], [0]
+    orig = MegaWindow._dispatch
+
+    def both(self, st, it, iw, limit, force, prev_aux, probe, forced):
+        k = n[0]
+        n[0] += 1
+        if k >= 3 and k % every:
+            return orig(self, st, it, iw, limit, force, prev_aux, probe,
+                        forced)
+        cst, cit, ciw, caux = state_to((st, it, iw, prev_aux), "cpu")
+        got = orig(self, st, it, iw, limit, force, prev_aux, probe, forced)
+        torch.cuda.synchronize()
+        want = self.run_host(cst, cit, ciw, limit, force, caux,
+                             forced=forced)
+        compare_window(state_to(got, "cpu"), want, f"hostlog window {k}, "
+                       "card against the host build")
+        checked.append(int(want[2]))
+        return got
+
+    MegaWindow._dispatch = both
+    try:
+        rt.run()
+    finally:
+        MegaWindow._dispatch = orig
+    return len(checked), sum(checked), host_numbers(rt, log), rt
+
+
+@phase("host")
+def run_host(rec, frec, mrec):
+    """Host cohorts on each path (see the module docstring): the hostlog
+    world at 2^20 walkers, then the spreader at depth 12."""
+    import numpy as np
+    import torch
+    tp, T = programs()
+    plan = hostlog_plan()
+    acc = plan[3]
+    card = _CACHE["card"]
+    res, out = {}, {}
+    for mode in (False, True, "mega"):
+        t0 = time.perf_counter()
+        rt, log = hostlog_build(mode, plan)
+        windows = count_windows(rt)
+        stops = host_stops(rt)
+        # The window kernel's device time over the run (CUDA events
+        # around each launch), for the device's busy share.
+        timed = None
+        if mode == "mega":
+            timed = rt._multi_g._fn = EventTimed(rt._multi_g._fn)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        q0 = rt.ticks_enqueued
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        code = rt.run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        enqueued = rt.ticks_enqueued - q0
+        nums = host_numbers(rt, log)
+        walk = rt.cohort_state(T.WalkerH)["acc"]
+        if code != 0 or nums["host"]["ends"] != HOST_CHAINS \
+                or not np.array_equal(walk.astype(np.int64), acc):
+            raise AssertionError(
+                f"hostlog {_mode_name(mode)}: exit code {code}, host "
+                f"{nums['host']} (want {HOST_CHAINS} ends), acc equal to "
+                f"the oracle: {np.array_equal(walk.astype(np.int64), acc)}")
+        want = expected_launches(mode, enqueued, windows[0])
+        if got != want or rt.steps_run > enqueued:
+            raise AssertionError(f"hostlog {_mode_name(mode)}: launches "
+                                 f"(drain, fused, window) {got} for "
+                                 f"{enqueued} ticks enqueued, {windows[0]} "
+                                 f"windows (expected {want})")
+        # Windows that ran and ended with a host row occupied; under the
+        # window kernel, those that stopped before their budget did so on
+        # the device (the gate's host_pending).
+        for_host = sum(1 for k, _b, h in stops if k and h)
+        early = sum(1 for k, b, h in stops if h and 0 < k < b)
+        busy = ""
+        if timed is not None:
+            dev_us = timed.take_us()
+            busy = (f"; window kernel device time {dev_us / 1e3:.3f} ms "
+                    f"a run (CUDA events) = {dev_us / rt.steps_run:.2f} us "
+                    f"a tick, device busy {100 * dev_us / 1e6 / elapsed:.1f}"
+                    f"% of the wall")
+        if mode == "mega" and not early:
+            raise AssertionError("hostlog pallas_mega: no window ended "
+                                 "early for the host")
+        res[mode] = dict(nums, acc=walk, windows=windows[0])
+        out[_mode_name(mode)] = dict(
+            seconds=elapsed, setup_s=setup, ticks=rt.steps_run,
+            enqueued=enqueued, windows=windows[0], host_windows=for_host,
+            early_host_windows=early, ms_per_tick=1e3 * elapsed
+            / max(1, rt.steps_run), launches=got,
+            host_processed=nums["host_processed"], **nums["counters"])
+        if timed is not None:
+            out[_mode_name(mode)].update(device_ms=dev_us / 1e3,
+                                         busy_share=dev_us / 1e6 / elapsed)
+        {False: rec, True: frec, "mega": mrec}[mode]["launches_host"] = \
+            max(got)
+        print(f"hostlog {HOST_WALKERS} walkers {HOST_CHAINS} chains "
+              f"{_mode_name(mode)} [{card}]: exit code {code}, ends "
+              f"{nums['host']['ends']}, acc equal to the oracle; wall "
+              f"{elapsed:.3f} s a run (setup {setup:.1f} s), "
+              f"{rt.steps_run} ticks run = {1e3 * elapsed / rt.steps_run:.3f}"
+              f" ms/tick, {enqueued} enqueued, {windows[0]} windows "
+              f"({for_host} ended with the host ring occupied, {early} "
+              f"before their budget); host_processed "
+              f"{nums['host_processed']}, counters {nums['counters']}; "
+              f"launches (drain, fused, window) {got}{busy}; dispatch "
+              f"{dispatch_paths(rt)}", flush=True)
+        del rt
+        torch.cuda.empty_cache()
+    for mode in (True, "mega"):
+        a, b = res[mode], res[False]
+        na = {k: v for k, v in a.items() if k != "acc"}
+        nb = {k: v for k, v in b.items() if k != "acc"}
+        if not np.array_equal(a["acc"], b["acc"]) or na != nb:
+            raise AssertionError(f"hostlog: {_mode_name(mode)} differs from "
+                                 f"the plain tick: {na} vs {nb}")
+    print("hostlog: acc, the host actor's state, counters, host_processed, "
+          "ticks run and windows equal across the plain tick, the fused "
+          "kernel and the window kernel", flush=True)
+    # The window kernel's per-phase clock on this world: a forced window
+    # from the seeded start (the host ring fills and spills).
+    rt, _log = hostlog_build("mega", plan)
+    mw, st0 = rt._multi_g, rt.state
+    e_it, e_iw = rt._empty_inject
+    out["phases"] = mega_phases(
+        mw, lambda: mw.forced(st0, e_it, e_iw, MEGA_TICKS),
+        f"hostlog 2^20 walkers, forced window of {MEGA_TICKS} ticks "
+        f"[{card}]")
+    del rt, st0
+    t0 = time.perf_counter()
+    n_chk, t_chk, nums, rt = card_vs_host_build(plan)
+    ref = {k: v for k, v in res["mega"].items()
+           if k not in ("acc", "windows")}
+    if nums != ref or not np.array_equal(
+            rt.cohort_state(T.WalkerH)["acc"], res["mega"]["acc"]):
+        raise AssertionError(f"hostlog: the checked run differs: {nums} vs "
+                             f"{ref}")
+    print(f"hostlog pallas_mega: {n_chk} windows ({t_chk} ticks) of a "
+          f"second run bit-equal to the host C++ build of the window "
+          f"kernel on the same input, and that run equal to the first "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    out["host_build_windows"] = n_chk
+    del rt
+    torch.cuda.empty_cache()
+    # examples/spreader.py's program: device spawns and a host collector.
+    leaves, sp = 1 << SPREAD_DEPTH, {}
+    for mode in (False, True, "mega"):
+        rt, col = spread_build(mode)
+        windows = count_windows(rt)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        code = rt.run(max_steps=100_000)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()
+        nums = host_numbers(rt, col)
+        if code != 0 or nums["host"]["got"] != leaves or \
+                nums["counters"]["n_spawned"] != 2 * leaves - 2:
+            raise AssertionError(f"spreader {_mode_name(mode)}: exit code "
+                                 f"{code}, {nums}")
+        sp[mode] = dict(nums, windows=windows[0],
+                        alive=rt.state.alive.cpu().numpy())
+        out[f"spreader {_mode_name(mode)}"] = dict(
+            seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
+            launches=got)
+        print(f"spreader depth {SPREAD_DEPTH} {_mode_name(mode)} [{card}]: "
+              f"got {nums['host']['got']}, n_spawned "
+              f"{nums['counters']['n_spawned']}, {rt.steps_run} ticks in "
+              f"{elapsed:.3f} s, {windows[0]} windows, host_processed "
+              f"{nums['host_processed']}; launches (drain, fused, window) "
+              f"{got}; dispatch {dispatch_paths(rt)}", flush=True)
+        del rt
+    for mode in (True, "mega"):
+        a, b = sp[mode], sp[False]
+        if not np.array_equal(a["alive"], b["alive"]) or \
+                {k: v for k, v in a.items() if k != "alive"} != \
+                {k: v for k, v in b.items() if k != "alive"}:
+            raise AssertionError(f"spreader: {_mode_name(mode)} differs "
+                                 "from the plain tick")
+    print("spreader: got, counters, host state, ticks, windows and the "
+          "alive mask equal across the three paths", flush=True)
     return out
 
 
@@ -1636,6 +2064,7 @@ def main():
               file=sys.stderr)
         return 1
     card = smi.stdout.strip().splitlines()[0]
+    _CACHE["card"] = card
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -1663,6 +2092,8 @@ def main():
             summary["nbody"] = run_nbody(frec, mrec)
         if want("spawn"):
             summary["spawn"] = run_spawn(rec, frec, mrec)
+        if want("host"):
+            summary["host"] = run_host(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -1676,7 +2107,7 @@ def main():
         return 0
     extra = ("call_ms", "plain_call_ms", "library_call_ms",
              "launches_ring", "launches_mixed", "launches_nbody",
-             "launches_spawn", "spawn_tree",
+             "launches_spawn", "launches_host", "spawn_tree",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
              "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",
              "design_ms", "info")

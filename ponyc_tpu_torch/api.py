@@ -26,6 +26,11 @@ masks, exactly as in the JAX package. Bodies must not update tensors in
 place (``st["x"] += 1``): tensors are shared across lanes, so the engine
 raises when a body does.
 
+An actor type with ``HOST = True`` lives on the host (≙ Pony's
+main-thread actors and ``env.out``): its behaviours run in Python on
+plain values between windows, with a runtime.HostContext as ``self``
+(send, exit, yield_), and its state is a dict the Runtime keeps.
+
 Not served yet by the port (each raises NotImplementedError naming the
 slice that brings it, see ROADMAP.md): the blob-pool operations.
 """

@@ -495,7 +495,6 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "host": ("host cohorts (HOST = True actor types)", 5),
     "cosort": ("cosort delivery (delivery='cosort')", 6),
     "tuner": ("the formulation tuner (delivery='auto', "
               "pallas_fused='auto')", 6),

@@ -31,7 +31,9 @@
 //   1. lanes: per lane, unmute (unless the census did), then the drain
 //      and dispatch of its cohort through `pony_lane` (csrc/lane.cuh, the
 //      per-lane code of the fused kernel) into the outbox of the entry
-//      list; a spawner reads its reservations from the free list at its
+//      list (a host cohort's row, from W::FH on, is not dispatched: its
+//      head passes through, and the host drains it between windows); a
+//      spawner reads its reservations from the free list at its
 //      window (offset + rank * SD * sites) and marks each row it claims
 //      (BORN, and its sync constructor's values); the claims apply where
 //      engine.py's step 2b would have them: a claimed row counts as alive
@@ -74,7 +76,13 @@
 // Then every block computes the gate from the tick's accumulators (two
 // sets, by tick parity, so a block that reads one set never races the
 // reset of the other); block 0 writes the counters and the aux. No sync
-// follows the gate.
+// follows the gate. Host rows (W::HOST, a constant of pony_world.h, so
+// a program without host cohorts has none of this code) take delivery
+// like any other row: they are targets in keys, the sort and deliver
+// (their rings are the host cohorts' tables, PONY_HOSTS), they reject
+// into the spill and mute their senders; the commit counts an occupied
+// one apart from the device rows, and the gate writes it as
+// host_pending (OB_HOST), which ends the window for the host's drain.
 //
 // State the kernel updates lies in the caller's tensors (copies of the
 // input state). Word tables (mailbox rings, spill words) are int32, read
@@ -138,7 +146,11 @@ enum PonyPtr {
 // device; NI, the words a sync construction writes; NCOH, the cohorts) and
 // one struct per cohort (lanecode.py emit_cohort, with S0, ROWS, OUT_OFF,
 // LEVEL, PBUF, PFIELD, CIDX and TARGET, and its spawn sites), and
-// PONY_COHORTS(X), which applies X to every cohort in row order.
+// PONY_COHORTS(X), which applies X to every device cohort in row order;
+// HOST, whether the program has host cohorts, FH, their first row, one
+// struct per host cohort (S0, ROWS, CAP, W1_IN and PBUF: its ring) and
+// PONY_HOSTS(X), which applies X to each of them in row order (nothing
+// without host cohorts).
 #include "pony_world.h"
 
 typedef PonyWorld W;
@@ -227,7 +239,7 @@ enum PonyAcc {
   A_EXITKEY = 0,   // 64-bit: (0xffffffff - row) << 32 | code, max wins
   A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_SEGMAX,
   A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NSPAWN,
-  A_SFAIL, A_NACC
+  A_SFAIL, A_HOSTOCC, A_NACC
 };
 
 struct PonyMegaArgs {
@@ -652,7 +664,12 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     const bool runnable = um.alive[r] && !wm;
 #define PONY_LANE(C) \
     if (r < C::S0 + C::ROWS) lane_dispatch<C>(a, ws, cur, r, runnable, h, occ0, sums); else
-    PONY_COHORTS(PONY_LANE) {}
+    PONY_COHORTS(PONY_LANE) {
+      if constexpr (W::HOST) {     // a host row: no dispatch, head kept
+        ws[pws::NEWHEAD + r] = (int32_t)h;
+        ws[pws::DSTR + r] = 0;
+      }
+    }
 #undef PONY_LANE
   }
   const int32_t np = block_sum(sums.nproc), nb = block_sum(sums.nbad);
@@ -791,8 +808,9 @@ PONY_FN int32_t digit(int32_t key, int pass) {
 }
 
 PONY_FN void acc_reset(int32_t* acc) {
-  // The spawn accumulators only where the program spawns.
-  for (int k = 0; k < (W::SPAWN ? (int)A_NACC : (int)A_NSPAWN); ++k)
+  // The spawn and host accumulators only where the program has them.
+  for (int k = 0; k < (W::SPAWN || W::HOST ? (int)A_NACC : (int)A_NSPAWN);
+       ++k)
     acc[k] = 0;
   acc[A_OCC_MAX] = INT_MIN;
 }
@@ -1303,7 +1321,7 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
           W::SPAWN && ws[pws::BORN + t] ? 0u : (uint32_t)tail[t];
 #define PONY_FILL(C) \
       if (t < C::S0 + C::ROWS) ring_fill<C>(a, ws, t, tl, acc, b, inject); else
-      PONY_COHORTS(PONY_FILL) {}
+      PONY_COHORTS(PONY_FILL) PONY_HOSTS(PONY_FILL) {}
 #undef PONY_FILL
     }
     // The rejected entries, in sorted order, after those of lower targets;
@@ -1359,6 +1377,7 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   uint8_t* pinned = PU8(P_PINNED);
   uint8_t* pr = PU8(P_PRESSURED);
   int32_t any_occ = 0, any_m = 0, any_p = 0, became_n = 0, occ_max = INT_MIN;
+  int32_t any_host = 0;    // an occupied host row (W::HOST only)
   PONY_FOR(r, W::NL) {
     // A claimed row (≙ engine.py's apply_claims) becomes alive with head
     // and tail 0 and its fields at their null words or its sync
@@ -1409,7 +1428,12 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     muted[r] = m2;
     ovf[r] = o;
     const int32_t occ = (int32_t)(nt - nh);
-    any_occ |= occ > 0;
+    if constexpr (W::HOST) {
+      if (r < W::FH) any_occ |= occ > 0;
+      else any_host |= occ > 0;
+    } else {
+      any_occ |= occ > 0;
+    }
     occ_max = occ > occ_max ? occ : occ_max;
     any_m |= m2;
     any_p |= pr[r];
@@ -1447,6 +1471,10 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     if (any_p) g_add(cur + A_ANY_PR_END, 1);
     if (became_n) g_add(cur + A_BECAME, became_n);
     g_max(cur + A_OCC_MAX, occ_max);
+  }
+  if constexpr (W::HOST) {
+    any_host = block_sum(any_host);
+    if (g.tid == 0 && any_host) g_add(cur + A_HOSTOCC, 1);
   }
 }
 
@@ -1502,6 +1530,8 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
   ob[OB_OVERFLOW] = s.so;
   ob[OB_SPAWN] = s.spawn;
   ob[OB_MUTED] = any_m;
+  // host_pending: a host row is occupied after this tick's delivery.
+  if constexpr (W::HOST) ob[OB_HOST] = cur[A_HOSTOCC] > 0;
   if (g.block == 0) {
     // One counter a thread of block 0, so their round trips overlap.
     const int ptr[] = {P_N_REJECTED, P_N_BADMSG, P_N_DEADLETTER, P_N_MUTES,

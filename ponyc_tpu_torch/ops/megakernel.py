@@ -45,8 +45,12 @@ Two things, as in the JAX package:
    slice 8. `modelled_bytes_per_msg` gives the bytes a ring record costs
    packed and unpacked at a measured escape rate.
 
-Single shard only (`eligible`); an ineligible program runs the plain
-window, as the JAX package's does.
+Host cohorts (HOST = True) are served as the plain step serves them:
+their rows take delivery into their rings, which the kernel updates in
+place with the device cohorts', and the window ends on the device at the
+tick after which one of them is occupied (host_pending), for the host's
+drain. Single shard only (`eligible`); an ineligible program runs the
+plain window, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -345,6 +349,15 @@ class MegaWindow:
                            TARGET=int(ch.atype.__name__ in targets))))
             off += ch.local_capacity * ch.batch * ch.max_sends
             ptr += 1 + len(names)
+        # Host cohorts: their rings only (the host holds their state).
+        self.host_specs = []
+        for ch in program.host_cohorts:
+            self.host_specs.append(dict(
+                cohort=ch, name=ch.atype.__name__,
+                extra=dict(S0=ch.local_start, ROWS=ch.local_capacity,
+                           CAP=opts.mailbox_cap, W1_IN=1 + ch.msg_words,
+                           PBUF=ptr)))
+            ptr += 1
         self.n_ptr = ptr
         self.site_targets = {sp["name"]: [index[t] for t, _ in sp["sites"]]
                              for sp in self.specs}
@@ -363,7 +376,8 @@ class MegaWindow:
             OVERLOAD=opts.overload_occ, AGE=opts.mute_age_limit,
             NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX,
             SPAWN=int(program.has_device_spawns), NI=n_init,
-            NCOH=len(self.cohorts))
+            NCOH=len(self.cohorts), HOST=int(bool(self.host_specs)),
+            FH=program.first_host_row)
         self.header = self.source("cuda")      # refusals surface here
         self.tag = "pony_mega_" + re.sub(
             r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
@@ -411,6 +425,13 @@ class MegaWindow:
                 field_nulls=sp["nulls"]))
         out.append("#define PONY_COHORTS(X) " + " ".join(
             f"X(PonyC{k})" for k in range(len(self.specs))))
+        for k, sp in enumerate(self.host_specs):
+            out.append(f"struct PonyH{k} {{")
+            out += [f"  static constexpr int {n} = {v};"
+                    for n, v in sp["extra"].items()]
+            out.append("};")
+        out.append("#define PONY_HOSTS(X) " + " ".join(
+            f"X(PonyH{k})" for k in range(len(self.host_specs))))
         return "\n".join(out) + "\n"
 
     def job(self, host: bool = False) -> _build.Job:
@@ -542,7 +563,8 @@ class MegaWindow:
             if not t.is_contiguous() or t.device != dev:
                 raise ValueError(f"window kernel: state leaf {f} must be "
                                  f"contiguous on {dev}")
-        bufs = {sp["name"]: st.buf[sp["name"]].clone() for sp in self.specs}
+        bufs = {sp["name"]: st.buf[sp["name"]].clone()
+                for sp in self.specs + self.host_specs}
         fields = {sp["name"]: {f: st.type_state[sp["name"]][f].clone()
                                for f in sp["fields"]} for sp in self.specs}
         ws = self.workspace(dev, fn.ws_words)
@@ -567,6 +589,7 @@ class MegaWindow:
         for sp in self.specs:
             tensors.append(bufs[sp["name"]])
             tensors += [fields[sp["name"]][f] for f in sp["fields"]]
+        tensors += [bufs[sp["name"]] for sp in self.host_specs]
         ptrs = _build.pointers(tensors)
         if host:
             err = fn(ptrs, int(limit), int(bool(force)), int(forced), 1,

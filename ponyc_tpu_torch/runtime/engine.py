@@ -17,6 +17,10 @@ actor. The whole world advances in lockstep:
      message id (what a vmapped switch executes); under `pallas_fused`
      one kernel a cohort does the drain, the dispatch and the outbox
      (ops/fused_dispatch.py);
+     Host-cohort rows (HOST = True, the rows from
+     program.first_host_row on) take delivery but no dispatch here:
+     their heads pass through, and the host drains them between windows
+     (runtime.py), ending a window when one is occupied (host_pending);
   2b. apply the spawn claims: claimed rows become alive with an empty
      mailbox and their fields set (null words, or ctx.spawn_sync's
      values), before delivery;
@@ -661,8 +665,6 @@ def build_step(program: Program, opts: RuntimeOptions):
     check_supported(opts)
     if program.shards > 1:
         raise unported("mesh")
-    if program.host_cohorts:
-        raise unported("host")
     nl = program.n_local
     c = opts.mailbox_cap
     fh = program.first_host_row
@@ -792,6 +794,8 @@ def build_step(program: Program, opts: RuntimeOptions):
             exit_f = exit_f | ef
             nproc_total = nproc_total + nproc
             nbad_total = nbad_total + nbad
+        if fh < nl:   # host-cohort heads: the host drains those rows
+            head_segments.append(st.head[fh:nl])
         new_head = (torch.cat(head_segments) if head_segments
                     else st.head)
 
@@ -911,6 +915,10 @@ def build_step(program: Program, opts: RuntimeOptions):
         device_pending = ((occ_after[:fh] > 0).any()
                           | (res.spill_count > 0)
                           | (st.rspill_count[0] > 0))
+        false = torch.zeros((), dtype=b, device=dev)
+        # Host-cohort mailboxes occupied: the window ends for the host's
+        # drain (aux_go).
+        host_pending = (occ_after[fh:] > 0).any() if fh < nl else false
         any_muted = muted2.any()
         overflow = st.spill_overflow[0] | res.spill_overflow
         any_pressured = pressured.any()
@@ -919,7 +927,6 @@ def build_step(program: Program, opts: RuntimeOptions):
                   | (any_rspill.to(i32) << 2))
         nproc_cum = st.n_processed[0] + nproc_total
         ndel_cum = st.n_delivered[0] + res.n_delivered
-        false = torch.zeros((), dtype=b, device=dev)
         zero = torch.zeros((), dtype=i32, device=dev)
 
         def vec(x, dtype=i32):      # per-shard "scalar" → [1]
@@ -951,7 +958,7 @@ def build_step(program: Program, opts: RuntimeOptions):
             type_state=new_type_state,
         )
         aux = StepAux(
-            device_pending=device_pending, host_pending=false,
+            device_pending=device_pending, host_pending=host_pending,
             exit_flag=exit_f, exit_code=exit_c,
             spill_overflow=overflow, spawn_fail=spawn_fail,
             blob_fail=false, blob_budget_fail=false,

@@ -7,6 +7,14 @@ start.c: pony_init sizes the world, pony_start runs until quiescence,
 pony_get_exitcode returns the program's code) plus host-side actor
 creation (pony_create, actor/actor.c:688-734) and external sends.
 
+Host cohorts (actor types with HOST = True, ≙ actors on the main-thread
+scheduler and `env.out`) keep their state in Python dicts and run their
+behaviours here, between windows: the device delivers into their
+mailbox rows like any other, a window ends when one of those rows is
+occupied (`host_pending`), and the run loop drains them (`_drain_host`).
+Messages from a host sender to a host target skip the device and queue
+on the host fast lane (`opts.host_fastpath`).
+
 The loop dispatches one window of up to `quiesce_interval` ticks per
 iteration (engine.build_multi_step_gated) and reads back one small
 vector of control scalars to decide termination — the analog of the
@@ -24,6 +32,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import sys
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -31,7 +40,7 @@ import torch
 
 from ..api import ActorTypeMeta, BehaviourDef
 from ..config import RuntimeOptions, check_supported, unported
-from ..errors import ERROR_CODES
+from ..errors import ERROR_CODES, PonyError
 from ..ops import fused_dispatch, megakernel, pack
 from ..program import Program
 from . import engine
@@ -63,6 +72,32 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+class HostContext:
+    """Effect collector of a host-resident behaviour (≙ running an actor
+    on the main-thread scheduler, scheduler.c:1030-1035): `self` inside
+    the body of a HOST = True actor type."""
+
+    def __init__(self, rt: "Runtime", actor_id: int):
+        self.rt = rt
+        self.actor_id = actor_id
+        self.exit_flag = False
+        self.exit_code = 0
+        self.yield_flag = False
+
+    def send(self, target, behaviour_def, *args, when=True):
+        if when:
+            self.rt.send(int(target), behaviour_def, *args)
+
+    def exit(self, code=0, when=True):
+        if when:
+            self.exit_flag = True
+            self.exit_code = int(code)
+
+    def yield_(self, when=True):
+        if when:
+            self.yield_flag = True
 
 
 def _host_pack_args(specs, args, msg_words):
@@ -99,6 +134,33 @@ def _host_pack_args(specs, args, msg_words):
     return words
 
 
+def _host_unpack_args(specs, words):
+    """A message's payload words as the behaviour's Python arguments (the
+    inverse of `_host_pack_args`)."""
+    out = []
+    off = 0
+    for spec in specs:
+        if isinstance(spec, pack._VecSpec):
+            blk = np.asarray(words[off:off + spec.n], np.int32)
+            out.append(blk.view(np.float32) if spec.base is pack.F32
+                       else blk)
+            off += spec.n
+            continue
+        w = np.int32(words[off])
+        off += 1
+        if spec is pack.F32:
+            out.append(float(w.view(np.float32)))
+        elif spec is pack.Bool:
+            out.append(bool(w))
+        elif spec is pack.U32:
+            out.append(int(w.view(np.uint32)))
+        elif spec in pack._NARROW:
+            out.append(int(w.astype(pack.narrow_np_map()[spec])))
+        else:
+            out.append(int(w))
+    return tuple(out)
+
+
 class Runtime:
     """A live actor world bound to one program layout.
 
@@ -121,6 +183,15 @@ class Runtime:
         self.program = Program(self.opts)
         self.state: Optional[RtState] = None
         self._inject_q: collections.deque = collections.deque()
+        # Host fast lane (opts.host_fastpath): host-sender → host-target
+        # messages, dispatched at host boundaries without touching the
+        # device mailbox table (≙ inject_main, scheduler.c:179-190).
+        self._host_fast_q: collections.deque = collections.deque()
+        self._host_state: Dict[int, Dict[str, Any]] = {}
+        self._host_errors: Dict[int, int] = {}
+        self._host_error_locs: Dict[int, str] = {}
+        self._exit_requested = False
+        self.totals = collections.Counter()   # host-side counters
         self._free: Dict[str, List[int]] = {}
         self._freelist_key = None     # None: stale; "synced": valid
         self._exit_code = 0
@@ -166,8 +237,8 @@ class Runtime:
         if self.opts.pin >= 0:
             raise unported("observability")
         self.program.finalize()
-        # Building the window validates the program first (host cohorts,
-        # device spawns and meshes raise before anything is allocated;
+        # Building the window validates the program first (meshes raise
+        # before anything is allocated;
         # under pallas_fused or delivery="pallas_mega" every body is
         # traced for the kernel, and one the kernel cannot run raises
         # here).
@@ -249,7 +320,8 @@ class Runtime:
         if unknown:
             raise TypeError(f"{atype.__name__} has no fields {unknown}")
         self._check_ref_fields(atype, fields)
-        if (self.program.has_device_spawns or self.steps_run) \
+        if not cohort.host and (self.program.has_device_spawns
+                                or self.steps_run) \
                 and self._freelist_key is None:
             self._rebuild_freelists()
         fkey = self._freelist_key
@@ -260,25 +332,37 @@ class Runtime:
                 f"({cohort.capacity} declared)")
         slots = np.array([free.pop() for _ in range(count)], np.int64)
         ids = np.asarray(cohort.slot_to_gid(slots), np.int32)
-        cols = self._tensor(cohort.slot_to_col(slots), torch.int64)
-        ts = dict(self.state.type_state[atype.__name__])
-        for fname, spec in atype.field_specs.items():
-            col = ts[fname].clone()
-            if fname in fields:
-                val = self._tensor(fields[fname], col.dtype)
-                col[cols] = val.expand(count) if val.ndim == 0 else val
-            else:
-                # Reused slots must not leak a previous life's state.
-                col[cols] = pack.null_word(spec)
-            ts[fname] = col
+        if cohort.host:
+            # A host actor's state lives here, not in device columns.
+            for i, gid in enumerate(ids):
+                st = {}
+                for fname, spec in atype.field_specs.items():
+                    v = np.asarray(fields.get(
+                        fname, -1 if pack.is_ref(spec) else 0))
+                    st[fname] = v.reshape(-1)[i % max(v.size, 1)].item() \
+                        if v.ndim else v.item()
+                self._host_state[int(gid)] = st
+            type_state = self.state.type_state
+        else:
+            cols = self._tensor(cohort.slot_to_col(slots), torch.int64)
+            ts = dict(self.state.type_state[atype.__name__])
+            for fname, spec in atype.field_specs.items():
+                col = ts[fname].clone()
+                if fname in fields:
+                    val = self._tensor(fields[fname], col.dtype)
+                    col[cols] = val.expand(count) if val.ndim == 0 else val
+                else:
+                    # Reused slots must not leak a previous life's state.
+                    col[cols] = pack.null_word(spec)
+                ts[fname] = col
+            type_state = {**self.state.type_state, atype.__name__: ts}
         gids = self._tensor(ids, torch.int64)
         alive = self.state.alive.clone()
         alive[gids] = True
         pinned = self.state.pinned.clone()
         pinned[gids] = True
-        self.state = self._replace(
-            type_state={**self.state.type_state, atype.__name__: ts},
-            alive=alive, pinned=pinned)
+        self.state = self._replace(type_state=type_state, alive=alive,
+                                   pinned=pinned)
         # Our own pops kept the freelists in step with the state.
         self._freelist_key = fkey
         return ids
@@ -300,7 +384,7 @@ class Runtime:
         spill_hit[dsp[(dsp >= 0) & (dsp < n)]] = True
         spill_hit[rsp[(rsp >= 0) & (rsp < n)]] = True
         free_ok = ~alive & (occ == 0) & ~spill_hit
-        for cohort in self.program.cohorts:
+        for cohort in self.program.device_cohorts:
             # Highest slot first, as the initial freelist is ordered.
             slots = np.arange(cohort.capacity - 1, -1, -1)
             gids = np.asarray(cohort.slot_to_gid(slots))
@@ -313,6 +397,13 @@ class Runtime:
         e.g. wiring refs once ids are known). ids are global actor ids."""
         cohort = self.program.by_type[atype]
         self._check_ref_fields(atype, fields)
+        if cohort.host:
+            for i, aid in enumerate(np.asarray(ids).reshape(-1)):
+                st = self._host_state.setdefault(int(aid), {})
+                for fname, v in fields.items():
+                    v = np.asarray(v).reshape(-1)
+                    st[fname] = v[i % v.size].item()
+            return
         cols = self._tensor(cohort.gid_to_col(np.asarray(ids)), torch.int64)
         ts = dict(self.state.type_state[atype.__name__])
         for fname, v in fields.items():
@@ -372,7 +463,16 @@ class Runtime:
         words[0] = behaviour_def.global_id
         words[1:] = _host_pack_args(behaviour_def.arg_specs, args,
                                     self.opts.msg_words)
-        self._inject_q.append((int(target), words))
+        # Host senders (the API and host behaviours both run here) to
+        # host targets take the fast lane; everything else rides the
+        # device inject path. A sender's messages to one receiver always
+        # take one lane, so per-sender-pair FIFO holds.
+        if (self.opts.host_fastpath
+                and 0 <= int(target) < self.program.total
+                and self.program.cohort_of(int(target)).host):
+            self._host_fast_q.append((int(target), words))
+        else:
+            self._inject_q.append((int(target), words))
 
     def bulk_send(self, targets, behaviour_def: BehaviourDef, *arg_cols):
         """Mass-enqueue one message per (distinct) target directly into
@@ -470,6 +570,104 @@ class Runtime:
             i += 1
         self._inject_q.extendleft(reversed(held))
         return self._upload(tgt), self._upload(words), consumed
+
+    # ---- host-cohort dispatch (≙ the main-thread scheduler's path) ----
+    def _drain_host(self) -> bool:
+        """Run the host behaviours of every message waiting in a host
+        cohort's mailbox rows, each actor's in FIFO order up to a yield,
+        and write the rows' heads back. Returns whether any ran."""
+        fh, nl = self.program.first_host_row, self.program.n_local
+        if fh >= nl:
+            return False
+        st = self.state
+        ht = torch.stack([st.head[fh:nl], st.tail[fh:nl]]).cpu().numpy()
+        head, pending = ht[0], ht[1] - ht[0]
+        if not pending.any():
+            return False
+        c = self.opts.mailbox_cap
+        bufs: Dict[str, np.ndarray] = {}
+        new_head = head.astype(np.int64)
+        for i in np.nonzero(pending)[0]:
+            aid = fh + int(i)
+            cohort = self.program.cohort_of(aid)
+            cname = cohort.atype.__name__
+            cbuf = bufs.get(cname)
+            if cbuf is None:       # [cap, 1 + W_c, capacity], the ring
+                cbuf = bufs[cname] = st.buf[cname].cpu().numpy()
+            col = int(cohort.gid_to_col(aid))
+            consumed = 0
+            for k in range(int(pending[i])):
+                msg = cbuf[(int(head[i]) + k) % c, :, col]
+                consumed += 1
+                ctx = self._dispatch_host_msg(aid, cohort, int(msg[0]),
+                                              msg[1:])
+                if ctx is not None and ctx.yield_flag:
+                    break
+            new_head[i] = head[i] + consumed
+        head_all = st.head.clone()
+        head_all[fh:nl] = self._upload(         # heads wrap as int32
+            (new_head & 0xffffffff).astype(np.uint32).view(np.int32))
+        self.state = self._replace(head=head_all)
+        return True
+
+    def _dispatch_host_msg(self, aid: int, cohort, gid: int, payload):
+        """Dispatch one message to a host-resident actor (shared by the
+        mailbox drain and the fast lane). Returns the HostContext, or
+        None for a message its type has no behaviour for."""
+        table = self.program.behaviour_table
+        bdef = table[gid] if 0 <= gid < len(table) else None
+        if bdef is None or bdef.actor_type is not cohort.atype:
+            self.totals["badmsg"] += 1
+            return None
+        ctx = HostContext(self, aid)
+        st = self._host_state.get(aid, {})
+        args = _host_unpack_args(bdef.arg_specs, payload)
+        try:
+            st2 = bdef.fn(ctx, st, *args)
+        except PonyError as e:
+            # ≙ a behaviour-local try ... else (int-coded errors): the
+            # code is recorded and the actor goes on.
+            self._host_errors[aid] = e.code
+            self._host_error_locs[aid] = e.loc
+            self.totals["host_errors"] += 1
+            st2 = st
+        self._host_state[aid] = st2 if st2 is not None else st
+        self.totals["host_processed"] += 1
+        if ctx.exit_flag:
+            self._exit_code = ctx.exit_code
+            self._exit_requested = True
+        return ctx
+
+    def _drain_host_fast(self, budget: int) -> bool:
+        """Dispatch queued fast-lane messages (host → host sends) up to
+        `budget`; leftovers keep the run loop busy. A target with no host
+        state was never spawned: the message dead-letters, as a send to a
+        dead device actor does."""
+        q = self._host_fast_q
+        if not q:
+            return False
+        n = 0
+        yielded = set()      # actors that yielded: their batch stops
+        held = []            # their remaining messages, in order
+        while q and n < budget:
+            aid, w = q.popleft()
+            if aid in yielded:
+                held.append((aid, w))
+                continue
+            n += 1
+            if aid not in self._host_state:
+                self.totals["deadletter_host"] += 1
+                continue
+            ctx = self._dispatch_host_msg(aid, self.program.cohort_of(aid),
+                                          int(w[0]), w[1:])
+            if ctx is not None and ctx.yield_flag:
+                # ≙ the device drain honouring yield mid-batch
+                # (actor.c:675-679); the actor's queue keeps its order.
+                yielded.add(aid)
+            if self._exit_requested:
+                break
+        q.extendleft(reversed(held))
+        return True
 
     # ---- the run loop ----
     def _dispatch_window(self, budget: int, force: bool,
@@ -587,8 +785,18 @@ class Runtime:
                 if a.exit_flag:
                     self._exit_code = int(a.exit_code)
                     break
+                if a.host_pending:
+                    self._drain_host()
+                # Fast lane: host → host messages, including those the
+                # drain just produced, dispatch now, without a device
+                # window a hop.
+                self._drain_host_fast(self.opts.host_fastpath_budget)
+                if self._exit_requested:
+                    self._exit_requested = False    # consume the request
+                    break
                 busy = (a.device_pending or a.host_pending
-                        or bool(self._inject_q) or self._device_dirty)
+                        or bool(self._inject_q) or bool(self._host_fast_q)
+                        or self._device_dirty)
                 if not busy:
                     if win is not None:
                         k2, a2 = self._retire_window(win)
@@ -619,9 +827,17 @@ class Runtime:
                     break
         finally:
             # An in-flight window's output IS self.state: fold its
-            # scalars in so the runtime stays consistent for a restart.
+            # scalars in, and drain the host mail it surfaced, so the
+            # runtime stays consistent for a restart.
             if win is not None:
-                self._retire_window(win)
+                _k, a2 = self._retire_window(win)
+                if a2.host_pending:
+                    self._drain_host()
+            if sys.exc_info()[0] is not None:
+                # Interrupted between boundaries: deliver the host → host
+                # messages already queued, which would otherwise wait for
+                # the next run().
+                self._drain_host_fast(self.opts.host_fastpath_budget)
         if (self._qi_auto and ctrl.state == "steady"
                 and self._rl_windows >= 8
                 and ctrl.window != self._qi_loaded):
@@ -658,9 +874,25 @@ class Runtime:
 
     def state_of(self, actor_id: int) -> Dict[str, Any]:
         cohort = self.program.cohort_of(actor_id)
+        if cohort.host:
+            return dict(self._host_state.get(actor_id, {}))
         col = int(cohort.gid_to_col(actor_id))
         ts = self.state.type_state[cohort.atype.__name__]
         return {k: v[col].item() for k, v in ts.items()}
+
+    def last_error(self, actor_id: int) -> int:
+        """The latest int-coded error of an actor, 0 for none (device
+        actors through ctx.error_int, host actors through PonyError)."""
+        if self.program.cohort_of(actor_id).host:
+            return self._host_errors.get(int(actor_id), 0)
+        return int(self.state.last_error[actor_id])
+
+    def last_error_loc(self, actor_id: int) -> str:
+        """The source location of that error ("?" for none)."""
+        from ..errors import error_site
+        if self.program.cohort_of(actor_id).host:
+            return self._host_error_locs.get(int(actor_id), "?")
+        return error_site(int(self.state.last_error_loc[actor_id]))
 
     def cohort_state(self, atype: ActorTypeMeta) -> Dict[str, np.ndarray]:
         """State columns in slot (spawn) order."""

@@ -7,6 +7,7 @@ annotations``: the field and argument annotations must be the packages'
 marker objects, evaluated when the classes are built.
 """
 
+import importlib
 import types
 
 import numpy as np
@@ -393,7 +394,253 @@ def define(pkg):
             self.spawn(SpawnChild.init, self.actor_id, v)
             return {**st, "made": st["made"] + 1}
 
+    # Host cohorts (HOST = True): the reporting walk of
+    # tests/test_differential.py and tests/test_run_loop.py, the host
+    # FIFO consumer of tests/test_fifo.py (its arrival log in
+    # `host_logs`), the fast-lane programs of tests/test_host_fastpath.py,
+    # the examples' helloworld, counter and spreader (without the
+    # promise), and the priority senders of tests/test_priority.py (Rx's
+    # `jnp.where(first, v, 0)` spelt `v * first`, which both packages
+    # run).
+    host_logs = {}
+
+    @pkg.actor
+    class HostLog:
+        HOST = True
+        ends: I32
+        total: I32
+
+        @pkg.behaviour
+        def done(self, st, tail: I32):
+            return {**st, "ends": st["ends"] + 1,
+                    "total": st["total"] + tail}
+
+    @pkg.actor
+    class WalkerH:
+        acc: I32
+        nxt: Ref["WalkerH"]
+        log: Ref["HostLog"]
+
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def step(self, st, v: I32):
+            self.send(st["nxt"], WalkerH.step, v - 1, when=v > 0)
+            self.send(st["log"], HostLog.done, st["acc"] + v, when=v == 0)
+            return {**st, "acc": st["acc"] + v}
+
+    @pkg.actor
+    class HCons:
+        HOST = True
+        got: I32
+
+        @pkg.behaviour
+        def consume(self, st, edge: I32, seq: I32):
+            host_logs.setdefault(int(edge), []).append(int(seq))
+            return {**st, "got": st["got"] + 1}
+
+    @pkg.actor
+    class HProd:
+        sink: Ref["HCons"]
+        edge: I32
+        seq: I32
+
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def produce(self, st, n: I32):
+            self.send(st["sink"], HCons.consume, st["edge"], st["seq"],
+                      when=n > 0)
+            self.send(self.actor_id, HProd.produce, n - 1, when=n > 0)
+            return {**st, "seq": st["seq"] + (n > 0) * np.int32(1)}
+
+    @pkg.actor
+    class HostCounter:
+        HOST = True
+        n: I32
+        last: I32
+
+        @pkg.behaviour
+        def hit(self, st, v: I32):
+            return {"n": st["n"] + 1, "last": v}
+
+    @pkg.actor
+    class HostChain:
+        HOST = True
+        nxt: Ref
+        hops: I32
+
+        @pkg.behaviour
+        def pass_(self, st, k: I32):
+            if k > 0:
+                self.send(st["nxt"], HostChain.pass_, k - 1)
+            return {**st, "hops": st["hops"] + 1}
+
+    @pkg.actor
+    class DevPing:
+        out: Ref
+        fired: I32
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], HostCounter.hit, v)
+            return {**st, "fired": st["fired"] + 1}
+
+    @pkg.actor
+    class Yielding:
+        HOST = True
+        n: I32
+
+        @pkg.behaviour
+        def hit(self, st, v: I32):
+            self.yield_()                 # one message a boundary
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class DevCounter:
+        n: I32
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def bump(self, st, v: I32):
+            return {**st, "n": st["n"] + v}
+
+    @pkg.actor
+    class HostKick:
+        HOST = True
+        done: I32
+
+        @pkg.behaviour
+        def kick(self, st, tgt: I32):
+            self.rt.bulk_send(np.asarray([tgt]), DevCounter.bump,
+                              np.asarray([5]))
+            return {**st, "done": 1}
+
+    PonyError = importlib.import_module(pkg.__name__ + ".errors").PonyError
+
+    @pkg.actor
+    class HostErr:
+        """A host actor whose odd arguments raise an int-coded error (the
+        actor records it and goes on)."""
+        HOST = True
+        n: I32
+
+        @pkg.behaviour
+        def hit(self, st, v: I32):
+            if v % 2:
+                raise PonyError(100 + v)
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class Hello:
+        HOST = True
+        said: I32
+
+        @pkg.behaviour
+        def create(self, st, _: I32):
+            self.exit(0)
+            return {**st, "said": st["said"] + 1}
+
+    @pkg.actor
+    class Counter:
+        count: I32
+
+        @pkg.behaviour
+        def increment(self, st, by: I32):
+            return {**st, "count": st["count"] + by}
+
+        @pkg.behaviour
+        def report(self, st, to: Ref):
+            self.send(to, Reporter.result, st["count"])
+            return st
+
+    @pkg.actor
+    class Reporter:
+        HOST = True
+        seen: I32
+        expected: I32
+
+        @pkg.behaviour
+        def result(self, st, count: I32):
+            total = st["seen"] + count
+            self.exit(0, when=total >= st["expected"])
+            return {**st, "seen": total}
+
+    @pkg.actor
+    class Collect:
+        HOST = True
+        got: I32
+
+        @pkg.behaviour
+        def leaf(self, st, n: I32):
+            return {**st, "got": st["got"] + n}
+
+    @pkg.actor
+    class Spread:
+        col: Ref["Collect"]
+
+        SPAWNS = {"Spread": 2}
+        SPAWN_DISPATCHES = 1
+        MAX_SENDS = 5
+
+        @pkg.behaviour
+        def go(self, st, level: I32):
+            leaf = level <= 0
+            a = self.spawn(Spread.init, st["col"], when=~leaf)
+            b = self.spawn(Spread.init, st["col"], when=~leaf)
+            self.send(a, Spread.go, level - 1, when=~leaf)
+            self.send(b, Spread.go, level - 1, when=~leaf)
+            self.send(st["col"], Collect.leaf, 1, when=leaf)
+            return st
+
+        @pkg.behaviour
+        def init(self, st, c: Ref["Collect"]):
+            return {**st, "col": c}
+
+    @pkg.actor
+    class HiSender:
+        PRIORITY = 1
+        MAX_SENDS = 4
+        sink: Ref
+
+        @pkg.behaviour
+        def burst(self, st, v: I32):
+            for _ in range(4):
+                self.send(st["sink"], Rx.item, v)
+            return st
+
+    @pkg.actor
+    class LoSender:
+        PRIORITY = 0
+        MAX_SENDS = 4
+        sink: Ref
+
+        @pkg.behaviour
+        def burst(self, st, v: I32):
+            for _ in range(4):
+                self.send(st["sink"], Rx.item, v)
+            return st
+
+    @pkg.actor
+    class Rx:
+        BATCH = 4
+        seen: I32
+        first4: I32
+
+        @pkg.behaviour
+        def item(self, st, v: I32):
+            first = st["seen"] < 4
+            return {**st, "seen": st["seen"] + 1,
+                    "first4": st["first4"] + v * first}
+
     return types.SimpleNamespace(
+        HostLog=HostLog, WalkerH=WalkerH, HCons=HCons, HProd=HProd,
+        host_logs=host_logs, HostCounter=HostCounter, HostChain=HostChain,
+        DevPing=DevPing, Yielding=Yielding, DevCounter=DevCounter,
+        HostKick=HostKick, HostErr=HostErr, Hello=Hello, Counter=Counter,
+        Reporter=Reporter, Collect=Collect, Spread=Spread,
+        HiSender=HiSender, LoSender=LoSender, Rx=Rx,
         Pinger=Pinger, RingNode=RingNode, Walker=Walker,
         Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer,
         Yielder=Yielder, Exiter=Exiter, Ephemeral=Ephemeral, Errs=Errs,

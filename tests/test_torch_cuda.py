@@ -327,3 +327,63 @@ def test_spawn_exhaustion_raises_on_card(path):
         rt.send(int(s), TT.Spawner.make, 1)
     with pytest.raises(ponyc_tpu_torch.SpawnCapacityError):
         rt.run(max_steps=16)
+
+
+def _host_world(world, path, device):
+    """A host world of tests/test_torch_host.py on `device`: the reporting
+    walk (a host ring of 2, spill and mutes), the FIFO into a host
+    consumer, and helloworld (host actors only)."""
+    from _torch_programs import new_runtime
+    if world == "hello":
+        rt = new_runtime(ponyc_tpu_torch, dict(msg_words=1, **PATHS[path]),
+                         device)
+        rt.declare(TT.Hello, 1).start()
+        h = rt.spawn(TT.Hello)
+        rt.send(h, TT.Hello.create, 0)
+        return rt.run(), (), [h], rt
+    if world == "fifo":
+        TT.host_logs.clear()
+        rt = new_runtime(ponyc_tpu_torch, dict(
+            mailbox_cap=2, batch=1, msg_words=2, max_sends=2,
+            spill_cap=2048, inject_slots=16, **PATHS[path]), device)
+        rt.declare(TT.HProd, 6).declare(TT.HCons, 1).start()
+        sink = rt.spawn(TT.HCons)
+        pids = rt.spawn_many(TT.HProd, 6, sink=np.full(6, sink),
+                             edge=np.arange(6, dtype=np.int32))
+        rt.bulk_send(pids, TT.HProd.produce, np.full(6, 40, np.int32))
+        code = rt.run(max_steps=200_000)
+        return code, (TT.HProd,), [sink], rt
+    rng = np.random.default_rng(31)
+    w_nxt = rng.integers(0, 20, 20)
+    rt = new_runtime(ponyc_tpu_torch, dict(
+        mailbox_cap=2, batch=1, msg_words=2, max_sends=2, spill_cap=512,
+        inject_slots=16, **PATHS[path]), device)
+    rt.declare(TT.WalkerH, 20).declare(TT.HostLog, 1).start()
+    wids = rt.spawn_many(TT.WalkerH, 20)
+    log = rt.spawn(TT.HostLog)
+    rt.set_fields(TT.WalkerH, wids, nxt=wids[w_nxt], log=np.full(20, log))
+    for _ in range(8):
+        rt.send(int(wids[rng.integers(0, 20)]), TT.WalkerH.step,
+                int(rng.integers(1, 12)))
+    return rt.run(max_steps=100_000), (TT.WalkerH,), [log], rt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("world", ["reporting", "fifo", "hello"])
+def test_host_worlds_card_match_cpu(world, path):
+    """Host cohorts on the card against the CPU, on each path: exit code,
+    counters, ticks, device fields, host state, host counters and (the
+    FIFO world) the host's arrival order."""
+    _need_cuda()
+    out = []
+    for device in ("cuda", "cpu"):
+        code, types, hosts, rt = _host_world(world, path, device)
+        out.append((code, counters(rt), rt.steps_run, dict(rt.totals),
+                    [rt.state_of(int(h)) for h in hosts],
+                    {t.__name__: {k: v.tolist() for k, v in
+                                  rt.cohort_state(t).items()}
+                     for t in types},
+                    {e: list(v) for e, v in TT.host_logs.items()}))
+    assert out[0] == out[1]
+    assert out[0][3]["host_processed"] > 0

@@ -75,12 +75,33 @@ def test_unported_program_features_raise():
 
         @ponyc_tpu_torch.behaviour
         def go(self, st):
-            return st
+            return {**st, "x": st["x"] + 1}
 
+    # Host cohorts are served since slice 5: such a program starts and
+    # its host behaviour runs.
     rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
     rt.declare(HostSide, 2)
-    with pytest.raises(NotImplementedError, match="host cohorts.*slice 5"):
-        rt.start()
+    rt.start()
+    h = rt.spawn(HostSide)
+    rt.send(h, HostSide.go)
+    assert rt.run() == 0 and rt.state_of(h) == {"x": 1}
+
+    @ponyc_tpu_torch.actor
+    class Pooled:
+        x: ponyc_tpu_torch.I32
+
+        @ponyc_tpu_torch.behaviour
+        def go(self, st):
+            self.blob_alloc(4)
+            return st
+
+    # The blob pool is not: a body that uses it raises at its first tick.
+    rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
+    rt.declare(Pooled, 2)
+    rt.start()
+    rt.send(rt.spawn(Pooled), Pooled.go)
+    with pytest.raises(NotImplementedError, match="blob pool.*slice 7"):
+        rt.run()
 
     @ponyc_tpu_torch.actor
     class Spawner:

@@ -425,3 +425,75 @@ def test_spawn_exhaustion_stops_the_window(host_checked):
         rt.run(max_steps=16)
     assert bool(rt.state.spawn_fail[0])
     _ran(host_checked)
+
+
+# ---- host cohorts: host rows take delivery, and an occupied one ends the
+# window on the device (host_pending) ------------------------------------
+
+def _host_world(cap=2, n_w=16, spill=256):
+    from _torch_programs import new_runtime
+    rt = new_runtime(ponyc_tpu_torch, dict(
+        mailbox_cap=cap, batch=1, msg_words=2, max_sends=2,
+        spill_cap=spill, inject_slots=16, quiesce_interval=16, **MEGA))
+    rt.declare(TT.WalkerH, n_w).declare(TT.HostLog, 1).start()
+    ids = rt.spawn_many(TT.WalkerH, n_w)
+    log = rt.spawn(TT.HostLog)
+    rt.set_fields(TT.WalkerH, ids, nxt=np.roll(ids, -1),
+                  log=np.full(n_w, log))
+    return rt, ids, log
+
+
+def test_host_world_has_host_rows_others_do_not():
+    """HOST is a constant of the generated world: only a program with host
+    cohorts gets their rings (PONY_HOSTS) and the host-row code."""
+    rt, _ids, _log = _host_world()
+    mw = rt._multi_g
+    assert mw.world["HOST"] == 1
+    assert mw.world["FH"] == rt.program.first_host_row == 16
+    assert "struct PonyH0" in mw.header
+    rt2, _ = ubench.build(16, RuntimeOptions(mailbox_cap=4, batch=2,
+                                             max_sends=1, msg_words=1,
+                                             **OPTS), device="cpu")
+    mw2 = rt2._multi_g
+    assert mw2.world["HOST"] == 0 and "struct PonyH" not in mw2.header
+    assert "#define PONY_HOSTS(X) \n" in mw2.header
+
+
+def test_host_pending_stops_the_window(host_checked):
+    """An injection lands in tick 0 and a chain of 5 hops more reaches the
+    host actor in tick 6: the window (force, limit 16) stops after 7
+    ticks with host_pending, the host row holding the report, which the
+    host's drain then runs."""
+    rt, ids, log = _host_world()
+    rt.send(int(ids[3]), TT.WalkerH.step, 5)
+    it, iw, _ = rt._drain_inject_tracked()
+    st, aux, ticks = rt._multi_g(rt.state, it, iw, 16, True,
+                                 engine.zero_aux("cpu"))
+    assert host_checked == [(7, False)]
+    assert int(ticks) == 7 and bool(aux.host_pending)
+    assert not bool(aux.device_pending)
+    assert int(st.tail[log] - st.head[log]) == 1
+    rt.state = st
+    assert rt._drain_host() and rt.state_of(log)["ends"] == 1
+
+
+def test_host_ring_fills_and_mutes_its_senders(host_checked):
+    """16 walkers report to the host in one tick (tick 1, after their
+    injections landed in tick 0): its ring of 2 takes two, the other 14
+    spill, and the overloaded host row mutes its senders; every window of
+    the run equals the plain window, and every report arrives."""
+    rt, ids, log = _host_world()
+    for i in ids:
+        rt.send(int(i), TT.WalkerH.step, 0)
+    it, iw, _ = rt._drain_inject_tracked()
+    st, aux, ticks = rt._multi_g(rt.state, it, iw, 16, True,
+                                 engine.zero_aux("cpu"))
+    assert int(ticks) == 2 and bool(aux.host_pending)
+    assert int(st.dspill_count[0]) == 14
+    assert (st.dspill_tgt[:14] == log).all()
+    assert int(st.muted.sum()) == int(st.n_mutes[0]) >= 14
+    rt.state = st
+    assert rt.run(max_steps=1000) == 0
+    assert rt.state_of(log)["ends"] == 16
+    assert rt.counter("n_rejected") >= 14
+    assert len(host_checked) > 2
