@@ -51,7 +51,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 pinger processes `pings` messages a tick and the path's
                 kernel launches once a tick (once a window for the
                 window kernel);
-  5. ring     — the token ring, 1024 nodes, 4096 hops (2048 on the
+  5. ring     — the token ring, 1024 nodes, 4096 hops (512 on the
                 plain and fused paths, whose hops take milliseconds), through
                 Runtime.run(), on each path: the pass count, the exit
                 code, and one launch of the path's kernel per enqueued
@@ -91,7 +91,30 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 examples/spreader.py's program at depth 12 (device
                 spawns and a host collector, no promise) on each path:
                 got = 2**12;
- 10. profile  — kernels launched a tick and the device's busy share
+ 10. blobs    — the device blob pool and the collector: the blob chain
+                of tests/test_differential.py (the reference's
+                BlobWalker, tests/_torch_programs.py's define_blobs) at
+                2**19 walkers (`nxt` a random functional graph from the
+                seed), 2**14 chains (lengths uniform in 1..256) seeded by
+                Runtime.blob_store into a pool of 2**20 - 1 slots of 2
+                words (cap 2, batch 1, 3 words, 1 send, inject 16; the
+                spill raised to 2**14, one a chain),
+                through Runtime.run() on each path: every walker's acc
+                equal to a NumPy oracle, blobs_in_use 0, n_blob_remote 0;
+                fields, the pool's arrays (handles' generations
+                included), counters, ticks and windows equal across the
+                paths; one launch of the path's kernel per tick enqueued
+                (the blob cohort takes the plain dispatch, so the drain,
+                under pallas_fused too) or a window kernel per window;
+                wall a run, ms a tick and the window kernel's device time
+                a tick (CUDA events). Then Runtime.gc() on the finished
+                world with every walker but 1,024 released: the collected
+                count, the alive mask, `iters` and `converged` against a
+                NumPy reachability oracle over `nxt`, and the GC's wall.
+                Then the `records` model at 256 sources x 8 records and
+                examples/blob_pipeline.py's program on each path, each
+                against its oracle with blobs_in_use 0;
+ 11. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -104,6 +127,12 @@ shows the census and reserve phases; the other worlds have none), and
 the card and the CPU. Each run prints, per cohort, whether the fused
 kernel or the plain dispatch ran it (a cohort that sync-constructs takes
 the plain dispatch, as in the JAX package).
+
+The blob pool runs on every path; the window kernel's blob phases
+(`census` counts, `bfree` ranks and compacts) are checked in
+`kernels-mega` on the blob chain at full width (a `phases` line with
+`census` and `bfree`), and `agree` runs a small blob chain on the card
+and the CPU. `--only blobs` runs the build and the blobs phase.
 
 Host cohorts take delivery on every path; the window kernel's host rows
 are checked in `kernels-mega` on the hostlog world at full width (the
@@ -244,6 +273,16 @@ def programs():
     return _CACHE["tp"]
 
 
+def blob_programs():
+    """The blob pool's and collector's programs of
+    tests/_torch_programs.py (define_blobs)."""
+    if "tb" not in _CACHE:
+        import ponyc_tpu_torch
+        tp, _T = programs()
+        _CACHE["tb"] = tp.define_blobs(ponyc_tpu_torch)
+    return programs()[0], _CACHE["tb"]
+
+
 def _mode_kw(mode):
     """Options of a path: False = the plain tick (drain kernel), True =
     the fused dispatch kernel (pallas_fused), "mega" = the window kernel
@@ -369,6 +408,88 @@ def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
     root = rt.spawn(T.Spread, col=int(col))
     rt.send(root, T.Spread.go, depth)
     return rt, col
+
+
+BLOB_WALKERS = 1 << 19    # the blob chain on the card
+BLOB_CHAINS = 1 << 14
+BLOB_SEED = 2026
+BLOB_SLOTS = (1 << 20) - 1    # the most one shard addresses (ops/pack.py)
+BLOB_SPILL = 1 << 14          # one a chain: a chain has one token in
+#   flight, so the spill cannot overflow (1,024 overflowed at tick 309)
+BLOB_KEEP = 1024              # walkers the GC check keeps pinned
+RECORDS = (256, 8)            # the records model: sources x records
+
+
+def blob_kw(mode):
+    # tests/test_differential.py's blob-chain options, the pool at the
+    # largest one shard addresses and the spill raised to one a chain
+    return dict(mailbox_cap=2, batch=1, max_sends=1, msg_words=3,
+                spill_cap=BLOB_SPILL, inject_slots=16,
+                blob_slots=BLOB_SLOTS, blob_words=2, **_mode_kw(mode))
+
+
+def blob_plan(n=BLOB_WALKERS, chains=BLOB_CHAINS, seed=BLOB_SEED,
+              max_len=256):
+    """The blob chain's wiring and traffic from the seed: (nxt, a random
+    functional graph; the chains' start walkers, distinct; their lengths,
+    uniform in 1..max_len; their first words, uniform in 0..49), and the
+    NumPy oracle of every walker's acc (exact int64 sums: a chain of
+    length L and word w visits its start with w, the next walker with
+    w + 1, ..., L + 1 walkers in all)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nxt = rng.integers(0, n, n)
+    starts = rng.choice(n, chains, replace=False)
+    lens = rng.integers(1, max_len + 1, chains)
+    words = rng.integers(0, 50, chains)
+    acc = np.zeros(n, np.int64)
+    pos, v, w = starts.copy(), lens.copy(), words.astype(np.int64)
+    while (v >= 0).any():
+        live = v >= 0
+        np.add.at(acc, pos[live], w[live])
+        pos, v, w = nxt[pos], v - 1, w + 1
+    return nxt, starts, lens, words, acc
+
+
+def blob_build(mode, plan, device="cuda"):
+    """The blob chain world, started and seeded: each chain's token blob
+    stored by the host (Runtime.blob_store) and moved into its start
+    walker's mailbox (bulk_send)."""
+    import numpy as np
+    import ponyc_tpu_torch
+    tp, T = blob_programs()
+    nxt, starts, lens, words, _acc = plan
+    n = len(nxt)
+    rt = tp.new_runtime(ponyc_tpu_torch, blob_kw(mode), device)
+    rt.declare(T.BlobWalker, n).start()
+    ids = rt.spawn_many(T.BlobWalker, n, acc=0)
+    rt.set_fields(T.BlobWalker, ids, nxt=ids[nxt])
+    hs = np.array([rt.blob_store([int(w)]) for w in words], np.int32)
+    rt.bulk_send(ids[starts], T.BlobWalker.step, lens.astype(np.int32), hs)
+    return rt
+
+
+def records_opts(mode):
+    # the records model's own options at 256 sources
+    from ponyc_tpu_torch.models import records
+    return records.options(RECORDS[0], tuning_cache="off", **_mode_kw(mode))
+
+
+def reach_oracle(nxt, roots):
+    """The collector's trace in NumPy: the walkers reachable from `roots`
+    over `nxt`, and the hops the trace takes to its fixpoint (the hop that
+    finds nothing new included, as gc.py counts them)."""
+    import numpy as np
+    live = np.zeros(len(nxt), bool)
+    live[roots] = True
+    iters = 0
+    while True:
+        new = live.copy()
+        new[nxt[live]] = True
+        iters += 1
+        if (new == live).all():
+            return live, iters
+        live = new
 
 
 def mixed_type():
@@ -537,6 +658,8 @@ def mega_windows():
         return engine.build_multi_step_gated(prog, opts)
 
     host_t, spread_t = tp.define(ponyc_tpu_torch), tp.define(ponyc_tpu_torch)
+    _tb, blob_t = blob_programs()
+    from ponyc_tpu_torch.models import records
 
     out = {"ubench": window(ubench.Pinger, 1 << 20, ubench_opts("mega")),
            "ubench, radix sort": force_radix(window(
@@ -555,7 +678,18 @@ def mega_windows():
                                   msg_words=2, spill_cap=4096,
                                   inject_slots=8, tuning_cache="off",
                                   **_mode_kw("mega")),
-                              [(spread_t.Collect, 1)])}
+                              [(spread_t.Collect, 1)]),
+           "blob chain": window(blob_t.BlobWalker, BLOB_WALKERS,
+                                RuntimeOptions(tuning_cache="off",
+                                               **blob_kw("mega"))),
+           "records": window(records.RecSource, RECORDS[0],
+                             records_opts("mega"),
+                             [(records.RecWorker, RECORDS[0]),
+                              (records.RecSink, 1)]),
+           "blob pipeline": window(blob_t.Tokenizer, 4, RuntimeOptions(
+               blob_slots=32, blob_words=tp.PIPE_W, msg_words=2,
+               max_sends=2, tuning_cache="off", **_mode_kw("mega")),
+               [(blob_t.Reviewer, 4)])}
     for name, build, _finish in agree_worlds():
         out[f"agree {name}"] = build("cpu", "mega")._multi_g
     return out
@@ -799,7 +933,7 @@ def check_kernels(rec, frec):
 MEGA_TICKS = 16          # ticks a window in the window kernel's checks
 
 
-def mega_bound(mw, ticks, processed, live, branch):
+def mega_bound(mw, ticks, processed, live, branch, allocs=0, frees=0):
     """The least time (ms) the card could take for `ticks` ticks of this
     program's window, and which term bounds it, from the bytes the window
     has to move whatever the design: the per-lane state (head, tail,
@@ -807,13 +941,22 @@ def mega_bound(mw, ticks, processed, live, branch):
     bytes a word) read once and written once a tick, and the last tick's
     `plan_key`, `plan_perm` and `plan_bounds` written once; at 3.35 TB/s.
     Operations: the ATen ops of the bodies the `processed` messages ran,
-    at the float32 peak (67 TFLOP/s).
+    at the float32 peak (67 TFLOP/s). Where the program uses the blob
+    pool: its `used` array (1 byte a slot) once a tick, from which the
+    free list is built; for each of the `allocs` allocations and `frees`
+    frees, its slot's gen, used and len (9 bytes); the words an
+    allocation writes (blob_words of them); and the word each blob_get
+    reads (4 bytes; the gets are those the bodies of the `processed`
+    messages run). A get's own generation and `used` check is left out,
+    so the count stays at or below what the window must move.
 
     Also returns `design_bytes`, what this kernel's own design moves over
     the window, at `live` live entries a tick that take the sort `branch`
     (megakernel.tick_sort): the state and rings read and written, the
     entry list (target and words) written and read, the keys written and
-    read, the plan written, and the sort. A segment tick writes each live
+    read, the plan written, the sort, and in a blob world `used` read twice
+    a tick (census and bfree) and each free slot's index written to the
+    free list (at most 4 bytes a slot). A segment tick writes each live
     entry's slot in the keys phase and reads it to place the entry, writes
     the packed (level, entry) there and reads it in the deliver phase (16
     bytes a live entry), and reads the keys once more to place the dead
@@ -826,7 +969,7 @@ def mega_bound(mw, ticks, processed, live, branch):
     w = mw.world
     nl, e, w1 = w["NL"], w["E"], w["W1"]
     lane = nl * (4 + 4 + 1 + 1 + 4 + 1 + 1 + 1 + 4 + 4) + w["K"] * nl * 4
-    ring_words = ops_per_msg = 0
+    ring_words = ops_per_msg = gets_per_msg = 0
     for sp in mw.specs:
         ch = sp["cohort"]
         lane += ch.local_capacity * sum(
@@ -835,17 +978,26 @@ def mega_bound(mw, ticks, processed, live, branch):
         if sp["progs"]:
             ops_per_msg = max(ops_per_msg, sum(
                 lanecode.op_count(p) for p in sp["progs"]) / len(sp["progs"]))
+            gets_per_msg = max(gets_per_msg, sum(
+                sum(1 for n in p.nodes
+                    if n.kind == "blob" and n.key[0] == "get")
+                for p in sp["progs"]) / len(sp["progs"]))
     for sp in mw.host_specs:       # host cohorts' rings (their state is
         ch = sp["cohort"]          # on the host)
         ring_words += w["CAP"] * (1 + ch.msg_words) * ch.local_capacity
     plan = 2 * e * 4 + (nl + 1) * 4
-    nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan
+    touched = ((allocs + frees) * (1 + 4 + 4) + allocs * w["BW"] * 4
+               + processed * gets_per_msg * 4)
+    pool = ticks * w["BSL"] + touched if w["BLOB"] else 0
+    design_pool = (ticks * w["BSL"] * (1 + 1 + 4) + touched
+                   if w["BLOB"] else 0)
+    nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan + pool
     if branch == "segment":
         sort = 16 * live + 4 * e
     else:
         sort = w["NPASS"] * e * 16 + (w["NPASS"] - 1) * e * 4
     design = ticks * (2 * lane + 2 * ring_words * 4 + 2 * e * 4 * (1 + w1)
-                      + 2 * e * 4 + plan + sort)
+                      + 2 * e * 4 + plan + sort) + design_pool
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = processed * ops_per_msg / H100_F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -933,6 +1085,9 @@ def full_worlds():
     def hostlog():
         return hostlog_build("mega", hostlog_plan())[0]
 
+    def blobs():
+        return blob_build("mega", blob_plan())
+
     return [("ubench 2^20 hops=2^30 (every payload escaped)",
              pingers(1 << 30)),
             ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
@@ -945,7 +1100,8 @@ def full_worlds():
             ("nbody 1024", bodies),
             (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree),
             ("hostlog 2^20 walkers, 2^12 chains into a host actor",
-             hostlog)]
+             hostlog),
+            ("blob chain 2^19 walkers, 2^14 chains, pool 2^20 - 1", blobs)]
 
 
 def graph_yardstick(mw, st, it, iw, ticks):
@@ -1092,8 +1248,11 @@ def check_mega(mrec):
             except Exception as ex:                 # noqa: BLE001
                 t.update(library_ms=None, library_call_ms=None,
                          graph_error=f"{type(ex).__name__}: {ex}"[:300])
+            allocs, frees = (int(getattr(want[0], f)[0])
+                             - int(getattr(st1, f)[0])
+                             for f in ("n_blob_alloc", "n_blob_free"))
             b_ms, b_by, nbytes, t_b, t_o, design = mega_bound(
-                mw, T, processed, live, branch)
+                mw, T, processed, live, branch, allocs, frees)
             t.update(phases=mega_phases(mw, kern, label))
             t.update(seconds=time.perf_counter() - t0)
             t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
@@ -1291,13 +1450,30 @@ def agree_worlds():
         return (_world_numbers(rt, T.WalkerH)
                 + (rt.state_of(log), rt.totals["host_processed"]))
 
+    def blobchain(device, mode):
+        # A small blob chain: 256 walkers, 16 chains of 1..40 hops.
+        return blob_build(mode, blob_plan(256, 16, 31, 40), device)
+
+    def blobchain_done(rt):
+        _tb, TB = blob_programs()
+        rt.run(max_steps=100_000)
+        acc = blob_plan(256, 16, 31, 40)[4]
+        if rt.blobs_in_use or not (
+                rt.cohort_state(TB.BlobWalker)["acc"] == acc).all():
+            raise AssertionError("blob chain: acc differs from the oracle "
+                                 f"or {rt.blobs_in_use} blobs in use")
+        return (_world_numbers(rt, TB.BlobWalker)
+                + (rt.state.blob_gen.tolist(),
+                   rt.counter("n_blob_alloc"), rt.counter("n_blob_free")))
+
     worlds = [("walkers (spill/mute)", walkers, walkers_done),
               ("ring", rings, rings_done), ("ubench", pingers, pingers_done),
               ("mixers (every effect)", mixers, mixers_done),
               ("spawn tree depth 8", tree, tree_done),
               ("spawn/destroy churn", churn, churn_done),
               ("spawn_sync", sync, sync_done),
-              ("host reporting", hostrep, hostrep_done)]
+              ("host reporting", hostrep, hostrep_done),
+              ("blob chain", blobchain, blobchain_done)]
     worlds += [(f"corpus {n}", *corpus(n)) for n in tp.CORPUS]
     return worlds
 
@@ -1430,10 +1606,11 @@ def run_ring(rec, frec, mrec, hops=4096):
         opts = ring_opts(mode)
         ring.run(nodes, 64, opts=opts)                    # warm-up
         per_hop = []
-        # The plain and fused ticks take about 8 ms a hop: they run half
-        # the hops, which keeps the whole script near half its time limit
-        # (the time a hop is what this phase reports).
-        n_hops = hops if mode == "mega" else hops // 2
+        # The plain and fused ticks take about 7 ms a hop: they run an
+        # eighth of the hops (three runs of 512), which keeps the whole
+        # script, the blob chain's plain and fused runs included, near
+        # half its time limit (the time a hop is what this phase reports).
+        n_hops = hops if mode == "mega" else hops // 8
         for _ in range(3):
             rt, ids = ring.build(nodes, opts)
             rt.send(int(ids[0]), ring.RingNode.token, n_hops)
@@ -1880,6 +2057,218 @@ def run_host(rec, frec, mrec):
     return out
 
 
+def blob_numbers(rt, atype):
+    """The numbers the paths must agree on after a blob world's run: the
+    fields, the counters (the pool's included), ticks, exit code and the
+    pool's arrays."""
+    names = ("n_processed", "n_delivered", "n_rejected", "n_mutes",
+             "n_deadletter", "n_blob_alloc", "n_blob_free", "n_blob_remote")
+    st = rt.state
+    return {"fields": {k: v for k, v in rt.cohort_state(atype).items()},
+            "counters": {c: rt.counter(c) for c in names},
+            "steps": rt.steps_run, "code": rt.exit_code,
+            "pool": {f: getattr(st, f).cpu().numpy() for f in (
+                "blob_data", "blob_used", "blob_len", "blob_gen")}}
+
+
+def same_numbers(a, b):
+    """Equality of two blob_numbers (numpy arrays compared whole)."""
+    import numpy as np
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if isinstance(x, dict):
+            if not same_numbers(x, y):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+@phase("blobs")
+def run_blobs(rec, frec, mrec):
+    """The device blob pool and the collector on each path (see the
+    module docstring): the blob chain at 2^19 walkers, the GC at full
+    width, the records model and the blob pipeline."""
+    import numpy as np
+    import torch
+    import ponyc_tpu_torch
+    from ponyc_tpu_torch.models import records
+    tp, T = blob_programs()
+    plan = blob_plan()
+    nxt, acc = plan[0], plan[4]
+    card = _CACHE["card"]
+    res, out = {}, {}
+    rt = None
+    for mode in (False, True, "mega"):
+        del rt
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rt = blob_build(mode, plan)
+        windows = count_windows(rt)
+        peak = spill_peak(rt)
+        timed = None
+        if mode == "mega":
+            timed = rt._multi_g._fn = EventTimed(rt._multi_g._fn)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        q0 = rt.ticks_enqueued
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        code = rt.run(max_steps=1_000_000)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        enqueued = rt.ticks_enqueued - q0
+        nums = blob_numbers(rt, T.BlobWalker)
+        walk = nums["fields"]["acc"].astype(np.int64)
+        if code != 0 or not np.array_equal(walk, acc) \
+                or rt.blobs_in_use != 0 \
+                or nums["counters"]["n_blob_remote"] != 0:
+            raise AssertionError(
+                f"blob chain {_mode_name(mode)}: exit code {code}, acc "
+                f"equal to the oracle: {np.array_equal(walk, acc)}, "
+                f"blobs in use {rt.blobs_in_use}, counters "
+                f"{nums['counters']}")
+        # The blob cohort takes the plain dispatch under pallas_fused
+        # (as in the JAX package): a drain a tick there too.
+        want = ((0, 0, windows[0]) if mode == "mega"
+                else (enqueued, 0, 0))
+        if got != want or rt.steps_run > enqueued:
+            raise AssertionError(f"blob chain {_mode_name(mode)}: launches "
+                                 f"(drain, fused, window) {got} for "
+                                 f"{enqueued} ticks enqueued, {windows[0]} "
+                                 f"windows (expected {want})")
+        dev = ""
+        row = dict(seconds=elapsed, setup_s=setup, ticks=rt.steps_run,
+                   enqueued=enqueued, windows=windows[0],
+                   ms_per_tick=1e3 * elapsed / rt.steps_run, launches=got,
+                   spill_peak=peak[0], **nums["counters"])
+        if timed is not None:
+            dev_us = timed.take_us()
+            row.update(device_ms=dev_us / 1e3,
+                       device_us_tick=dev_us / rt.steps_run,
+                       busy_share=dev_us / 1e6 / elapsed)
+            dev = (f"; window kernel device time {dev_us / 1e3:.3f} ms a "
+                   f"run (CUDA events) = {dev_us / rt.steps_run:.2f} us a "
+                   f"tick, device busy {100 * dev_us / 1e6 / elapsed:.1f}% "
+                   "of the wall")
+            mrec["launches_blobs"] = got[2]
+        else:
+            rec.setdefault("launches_blobs", {})[_mode_name(mode)] = got[0]
+        out[_mode_name(mode)] = row
+        res[mode] = dict(nums, windows=windows[0])
+        print(f"blob chain {BLOB_WALKERS} walkers {BLOB_CHAINS} chains "
+              f"{_mode_name(mode)} [{card}]: exit code {code}, acc equal "
+              f"to the oracle, blobs in use 0; wall {elapsed:.3f} s a run "
+              f"(setup {setup:.1f} s), {rt.steps_run} ticks run = "
+              f"{row['ms_per_tick']:.3f} ms/tick, {enqueued} enqueued, "
+              f"{windows[0]} windows, spill peak {peak[0]} of {BLOB_SPILL}"
+              f"; counters {nums['counters']}; launches (drain, fused, "
+              f"window) {got}{dev}; dispatch {dispatch_paths(rt)}",
+              flush=True)
+    for mode in (True, "mega"):
+        if not same_numbers(res[mode], res[False]):
+            raise AssertionError(f"blob chain: {_mode_name(mode)} differs "
+                                 "from the plain tick")
+    print("blob chain: acc, the pool's arrays (data, used, len, gen: the "
+          "handles' slots and generations), counters, ticks and windows "
+          "equal across the plain tick, the fused path and the window "
+          "kernel", flush=True)
+    # The collector at full width, from the finished world (the window
+    # kernel's run): every walker but BLOB_KEEP released, then one gc().
+    n = len(nxt)
+    ids = np.arange(n)
+    rt.release(ids[BLOB_KEEP:])
+    torch.cuda.synchronize()
+    before = rt.counter("n_collected")
+    t0 = time.perf_counter()
+    collected = rt.gc()
+    torch.cuda.synchronize()
+    gc_s = time.perf_counter() - t0
+    live, iters = reach_oracle(nxt, ids[:BLOB_KEEP])
+    alive = rt.state.alive.cpu().numpy()
+    gc = dict(seconds=gc_s, collected=collected, iters=rt.totals["gc_iters"],
+              aborted=rt.totals["gc_aborted"], alive=int(alive.sum()),
+              oracle_alive=int(live.sum()), oracle_iters=iters)
+    if (collected != n - int(live.sum()) or not np.array_equal(alive, live)
+            or rt.totals["gc_iters"] != iters or rt.totals["gc_aborted"]
+            or rt.counter("n_collected") - before != collected):
+        raise AssertionError(f"gc at full width: {gc}")
+    print(f"gc at full width [{card}]: {BLOB_KEEP} walkers kept pinned of "
+          f"{n}; collected {collected}, {int(alive.sum())} alive = the "
+          f"NumPy reachability oracle over nxt; {iters} hops to the "
+          f"fixpoint (converged) as the oracle counts; wall {gc_s:.3f} s",
+          flush=True)
+    out["gc"] = gc
+    del rt
+    torch.cuda.empty_cache()
+    # The records model and the blob pipeline on each path.
+    rr, pp = {}, {}
+    for mode in (False, True, "mega"):
+        reset_launches()
+        t0 = time.perf_counter()
+        rt, st = records.run_records(*RECORDS, opts=records_opts(mode),
+                                     device="cuda")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()
+        rr[mode] = dict(sink=st, counters={c: rt.counter(c) for c in (
+            "n_processed", "n_blob_alloc", "n_blob_free", "n_mutes")},
+            steps=rt.steps_run, gen=rt.state.blob_gen.cpu().numpy())
+        out[f"records {_mode_name(mode)}"] = dict(
+            seconds=elapsed, ticks=rt.steps_run, launches=got)
+        print(f"records {RECORDS[0]} sources x {RECORDS[1]} records "
+              f"{_mode_name(mode)} [{card}]: the model's oracle holds "
+              f"({st['n']} records, checksum {st['total']}), blobs in use "
+              f"0; {rt.steps_run} ticks in {elapsed:.3f} s; launches "
+              f"(drain, fused, window) {got}; dispatch {dispatch_paths(rt)}",
+              flush=True)
+        del rt
+        rt, (r1, r2), before = tp.run_blob_pipeline(
+            ponyc_tpu_torch, T, device="cuda", **_mode_kw(mode))
+        s1, s2 = rt.state_of(r1), rt.state_of(r2)
+        if s1 != s2 or s1["n"] != len(tp.PIPE_LINES) \
+                or before != len(tp.PIPE_LINES) or rt.blobs_in_use:
+            raise AssertionError(f"blob pipeline {_mode_name(mode)}: {s1} "
+                                 f"{s2}, {before} summaries before the gc, "
+                                 f"{rt.blobs_in_use} after")
+        pp[mode] = (s1, rt.steps_run)
+        print(f"blob pipeline {_mode_name(mode)}: both reviewers {s1}, "
+              f"{before} frozen summaries swept by gc()", flush=True)
+        del rt
+    for mode in (True, "mega"):
+        a, b = rr[mode], rr[False]
+        if not np.array_equal(a["gen"], b["gen"]) or \
+                {k: v for k, v in a.items() if k != "gen"} != \
+                {k: v for k, v in b.items() if k != "gen"} \
+                or pp[mode] != pp[False]:
+            raise AssertionError(f"records or pipeline: {_mode_name(mode)} "
+                                 "differs from the plain tick")
+    print("records and the blob pipeline: results, counters, ticks and "
+          "the pool's generations equal across the three paths",
+          flush=True)
+    return out
+
+
+def spill_peak(rt):
+    """The largest receiver spill at the end of any window of the run (a
+    list holding one number)."""
+    out = [0]
+    orig = rt._retire_window
+
+    def retire(win):
+        k, a = orig(win)
+        out[0] = max(out[0], int(rt.state.dspill_count[0]))
+        return k, a
+    rt._retire_window = retire
+    return out
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         v = getattr(evt, name, None)
@@ -2094,6 +2483,8 @@ def main():
             summary["spawn"] = run_spawn(rec, frec, mrec)
         if want("host"):
             summary["host"] = run_host(rec, frec, mrec)
+        if want("blobs"):
+            summary["blobs"] = run_blobs(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -2107,7 +2498,8 @@ def main():
         return 0
     extra = ("call_ms", "plain_call_ms", "library_call_ms",
              "launches_ring", "launches_mixed", "launches_nbody",
-             "launches_spawn", "launches_host", "spawn_tree",
+             "launches_spawn", "launches_host", "launches_blobs",
+             "spawn_tree",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
              "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",
              "design_ms", "info")

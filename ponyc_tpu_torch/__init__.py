@@ -14,7 +14,8 @@ from .api import (Actor, Blob, BlobVal, Bool, Box, Context, F32, I8, I16,
                   Val, VecF32, VecI32, actor, be, behaviour)
 from .config import RuntimeOptions, options_from_env, strip_runtime_flags
 from .program import Program
-from .runtime.runtime import Runtime, SpawnCapacityError, SpillOverflowError
+from .runtime.runtime import (BlobCapacityError, Runtime,
+                              SpawnCapacityError, SpillOverflowError)
 
 __version__ = "0.1.0"
 
@@ -24,4 +25,5 @@ __all__ = [
     "U16", "U32", "Val", "VecF32", "VecI32", "actor", "be", "behaviour",
     "RuntimeOptions", "options_from_env", "strip_runtime_flags", "Program",
     "Runtime", "SpillOverflowError", "SpawnCapacityError",
+    "BlobCapacityError",
 ]

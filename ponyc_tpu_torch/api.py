@@ -31,8 +31,9 @@ main-thread actors and ``env.out``): its behaviours run in Python on
 plain values between windows, with a runtime.HostContext as ``self``
 (send, exit, yield_), and its state is a dict the Runtime keeps.
 
-Not served yet by the port (each raises NotImplementedError naming the
-slice that brings it, see ROADMAP.md): the blob-pool operations.
+Payloads wider than a message live in the device blob pool
+(``RuntimeOptions.blob_slots`` × ``blob_words``) and ride messages as
+handles: ``ctx.blob_alloc/set/get/length/freeze/free`` (BlobPoolView).
 """
 
 from __future__ import annotations
@@ -42,7 +43,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from .config import unported
 from .ops import pack
 from .ops.pack import (Blob, BlobVal, Bool, Box, F32, I8, I16, I32,  # noqa
                        Iso, Mut, Ref, Tag, Trn, TypeParam, U8, U16,
@@ -225,6 +225,129 @@ def actor(cls):
     return ActorTypeMeta(cls.__name__, (Actor,), ns)
 
 
+class BlobPoolView:
+    """The device blob pool as one behaviour evaluation sees it (≙ the
+    reference's actor heap and pony_alloc_msg payloads, pony.h:332-360).
+
+    The plain dispatch hands each behaviour the cohort's working copies
+    of the pool (`data` [W, B+1], `used`, `len_`, `gen` [B+1]: B slots
+    and one trailing slot that takes the writes of lanes that must not
+    write; constants are written with index_fill_, so that no write
+    copies a value from the host), `take` (the lanes whose batch slot
+    selected this behaviour)
+    and `resv` ([sites, lanes] reserved global slot ids, -1 none; None
+    for a receive-only cohort). Every op applies at once, masked by
+    `take` and `when`, to the working copies in place: one blob has one
+    owner and the take masks of a cohort's behaviours are disjoint, so
+    applying the behaviours one after another is exact, and reads see
+    the dispatch's own earlier writes. `budget_over` ([lanes] or None)
+    marks lanes whose reservation window was withheld for BUDGET (more
+    allocating dispatches than BLOB_DISPATCHES): an alloc that fails
+    there sets `budget_fail`, elsewhere `fail` (the pool is exhausted).
+    The lane tracer (ops/lanecode.py) has a view of the same methods
+    that records them as lane-program nodes."""
+
+    __slots__ = ("data", "used", "len_", "gen", "base", "nslots", "take",
+                 "resv", "nsites", "fail", "budget_fail", "n_alloc",
+                 "n_free", "n_remote", "alloced", "budget_over")
+
+    def __init__(self, data, used, len_, gen, base, take, resv,
+                 budget_over=None):
+        self.data, self.used, self.len_, self.gen = data, used, len_, gen
+        self.base = base                    # this pool's first slot id
+        self.nslots = used.shape[0] - 1     # the last slot drops writes
+        self.take = take
+        self.resv = resv
+        self.nsites = 0 if resv is None else resv.shape[0]
+        self.budget_over = budget_over
+        z = torch.zeros((), dtype=torch.int32, device=take.device)
+        self.fail = self.budget_fail = z.bool()
+        self.n_alloc = self.n_free = self.n_remote = z
+        self.alloced = torch.zeros_like(take)
+
+    def _i32(self, v):
+        return pack._tensor(v, torch.int32, self.take.device)
+
+    def _when(self, w):
+        return pack._tensor(w, torch.bool, self.take.device) & self.take
+
+    def local(self, h):
+        """(slot index clamped into the pool, validity): the handle must
+        address this pool and carry its slot's current generation (a
+        stale handle to a recycled slot is dead)."""
+        hl = pack.blob_slot(h) - self.base
+        ok = (h >= 0) & (hl >= 0) & (hl < self.nslots)
+        hc = torch.where(ok, hl, 0).long()
+        ok = ok & (self.gen[hc] == pack.blob_gen_of(h))
+        return hc, ok
+
+    def _drop(self, ok, hc):
+        """Write index: the slot where `ok`, else the dropping slot."""
+        return torch.where(ok, hc, self.nslots)
+
+    def alloc(self, site: int, length, when):
+        slot = self.resv[site]
+        w = self._when(when)
+        ok = w & (slot >= 0)
+        wanted = w & (slot < 0)
+        if self.budget_over is not None:
+            self.budget_fail = self.budget_fail | (
+                wanted & self.budget_over).any()
+            self.fail = self.fail | (wanted & ~self.budget_over).any()
+        else:
+            self.fail = self.fail | wanted.any()
+        idx = torch.where(ok, slot - self.base, self.nslots).long()
+        newgen = (self.gen[idx] + 1) & pack.BLOB_GEN_MASK
+        self.gen[idx] = newgen
+        self.used.index_fill_(0, idx, True)
+        words = self.data.shape[0]
+        if length is None:
+            self.len_.index_fill_(0, idx, words)
+        else:
+            self.len_[idx] = self._i32(length).clamp(0, words).expand(
+                idx.shape)
+        self.data.index_fill_(1, idx, 0)
+        self.n_alloc = self.n_alloc + ok.sum(dtype=torch.int32)
+        self.alloced = self.alloced | ok
+        return torch.where(ok, pack.blob_handle(slot, newgen), -1)
+
+    def get(self, h, i):
+        hc, ok = self.local(self._i32(h))
+        i = self._i32(i)
+        words = self.data.shape[0]
+        ok = ok & self.used[hc] & (i >= 0) & (i < words)
+        return torch.where(ok, self.data[i.clamp(0, words - 1).long(), hc],
+                           0)
+
+    def length(self, h):
+        hc, ok = self.local(self._i32(h))
+        return torch.where(ok, self.len_[hc], 0)
+
+    def set(self, h, i, v, when):
+        hc, okh = self.local(self._i32(h))
+        i = self._i32(i)
+        words = self.data.shape[0]
+        ok = (self._when(when) & okh & (i >= 0) & (i < words)
+              & self.used[hc])
+        row = torch.where(ok, i.clamp(0, words - 1), 0).long()
+        col = self._drop(ok, hc)
+        self.data[row.expand(col.shape), col] = self._i32(v).expand(
+            col.shape)
+
+    def free(self, h, when):
+        hc, okh = self.local(self._i32(h))
+        ok = self._when(when) & okh & self.used[hc]
+        idx = self._drop(ok, hc)
+        self.used.index_fill_(0, idx, False)
+        self.len_.index_fill_(0, idx, 0)
+        self.n_free = self.n_free + ok.sum(dtype=torch.int32)
+
+    def note_remote(self, remote):
+        """Count Blob arguments that arrived off this pool."""
+        self.n_remote = self.n_remote + (remote & self.take).sum(
+            dtype=torch.int32)
+
+
 class Context:
     """Per-dispatch effect collector, passed as ``self`` to behaviours
     (≙ pony_ctx_t + pony_sendv actor.c:773, pony_exitcode start.c:345).
@@ -237,10 +360,10 @@ class Context:
                  "error_called", "ref_types", "cap_moves", "cap_types",
                  "exit_called", "yield_called", "spawn_fail",
                  "_spawn_resv", "spawn_claims", "_spawn_meta",
-                 "sync_inits")
+                 "sync_inits", "_blob", "_blob_claims")
 
     def __init__(self, actor_id, msg_words: int, spawn_resv=None,
-                 spawn_meta=None):
+                 spawn_meta=None, blob=None):
         self.actor_id = actor_id          # [lanes] int32 global ids
         self.msg_words = msg_words
         self.device = actor_id.device
@@ -272,6 +395,10 @@ class Context:
         # {target type name: {site: (state dict, ok mask)}}.
         self._spawn_meta = spawn_meta or {}
         self.sync_inits: Dict[str, Dict[int, Any]] = {}
+        # The device blob pool (a BlobPoolView, or the lane tracer's);
+        # None where the pool is off or the cohort does not use it.
+        self._blob = blob
+        self._blob_claims = 0             # blob_alloc sites used so far
 
     def _mask(self, when):
         return pack._tensor(when, torch.bool, self.device)
@@ -513,8 +640,98 @@ class Context:
             w, torch.full((), site, dtype=torch.int32, device=dev),
             pack._tensor(self.error_loc, torch.int32, dev))
 
-    def _no_blobs(self, *_a, **_k):
-        raise unported("blobs")
+    # -- the device blob pool (≙ actor-heap message payloads; see
+    # BlobPoolView) --
+    def _require_blob(self, what: str):
+        if self._blob is None:
+            raise RuntimeError(
+                f"{what}: the device blob pool is disabled — set "
+                "RuntimeOptions.blob_slots and blob_words (> 0); host "
+                "behaviours have no device pool")
+        return self._blob
 
-    blob_alloc = blob_get = blob_length = blob_freeze = blob_set = \
-        blob_free = _no_blobs
+    def _blob_guard(self, h, what: str):
+        """The iso discipline shared by the blob ops: touching a handle
+        after it was moved (sent, or freed) is use-after-move."""
+        prev = self.cap_moves.was_moved(h)
+        if prev is not None:
+            raise TypeError(
+                f"capability: use-after-move — blob handle already moved "
+                f"by {prev} is passed to {what}")
+
+    def blob_alloc(self, length=None, when=True):
+        """Claim a fresh device blob; returns its handle (-1 where `when`
+        is false or the pool had no free slot — the sticky blob-fail flag
+        then raises BlobCapacityError on the host). The slot's words are
+        zeroed; `length` (default: the pool width) is the logical word
+        count blob_length() reads back. The class declares
+        ``MAX_BLOBS = n`` (allocs a dispatch). ≙ pony_alloc_msg on the
+        owning actor's heap."""
+        b = self._require_blob("blob_alloc")
+        if b.nsites == 0:
+            raise RuntimeError(
+                "blob_alloc: declare MAX_BLOBS = n on the allocating "
+                "actor class (the per-dispatch alloc budget)")
+        used = self._blob_claims
+        if used >= b.nsites:
+            raise RuntimeError(
+                f"more than MAX_BLOBS={b.nsites} blob_alloc calls in one "
+                "behaviour dispatch; raise the declared budget")
+        self._blob_claims = used + 1
+        h = b.alloc(used, length, when)
+        self.cap_types.tag(h, "iso")
+        return h
+
+    def blob_get(self, h, i):
+        """Word `i` of blob `h` (int32; 0 for null, stale, unallocated or
+        off-pool handles and out-of-range words). Floats:
+        ``ctx.blob_get(h, i).view(torch.float32)``."""
+        b = self._require_blob("blob_get")
+        self._blob_guard(h, "blob_get")
+        return b.get(h, i)
+
+    def blob_length(self, h):
+        """The logical word count recorded at blob_alloc (0 for null,
+        stale or off-pool handles)."""
+        b = self._require_blob("blob_length")
+        self._blob_guard(h, "blob_length")
+        return b.length(h)
+
+    def blob_freeze(self, h):
+        """Freeze an owned (iso) blob into shared-immutable VAL (≙ Pony's
+        ``recover val``): the handle may then go to many readers (declare
+        the parameter ``BlobVal``); writes and frees are rejected; the GC
+        reclaims the slot once nothing references it. A capability tag
+        only: no device work."""
+        self._require_blob("blob_freeze")
+        self._blob_guard(h, "blob_freeze")
+        if self.cap_types.lookup(h) != "val":
+            self.cap_types.tag(h, "val")
+        return h
+
+    def blob_set(self, h, i, v, when=True):
+        """Write word `i` of blob `h` (int32, masked by `when`); later
+        blob_get calls of this dispatch and the handle's next owner see
+        it. Floats: pass ``value.view(torch.int32)``."""
+        b = self._require_blob("blob_set")
+        self._blob_guard(h, "blob_set")
+        if self.cap_types.lookup(h) == "val":
+            raise TypeError(
+                "capability: blob_set on a frozen (val) blob — "
+                "shared-immutable payloads cannot be written "
+                "(≙ val's deny-write, type/cap.c)")
+        b.set(h, i, v, when)
+
+    def blob_free(self, h, when=True):
+        """Return blob `h` to the pool. Freeing is a move: later use of
+        the handle in this dispatch is rejected. Blobs whose owner died
+        are swept by the next Runtime.gc()."""
+        b = self._require_blob("blob_free")
+        self._blob_guard(h, "blob_free")
+        if self.cap_types.lookup(h) == "val":
+            raise TypeError(
+                "capability: blob_free on a frozen (val) blob — shared "
+                "payloads have no single owner to free them; the GC "
+                "mark pass reclaims unreferenced val blobs")
+        b.free(h, when)
+        self.cap_moves.move(h, "blob_free")

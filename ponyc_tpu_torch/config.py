@@ -498,7 +498,6 @@ PORT_SLICES = {
     "cosort": ("cosort delivery (delivery='cosort')", 6),
     "tuner": ("the formulation tuner (delivery='auto', "
               "pallas_fused='auto')", 6),
-    "blobs": ("the device blob pool and GC (blob_slots, ctx.blob_*)", 7),
     "analysis": ("analysis and causal tracing (analysis > 0)", 8),
     "observability": ("the flight recorder, watchdog, metrics and cost "
                       "capture", 8),
@@ -532,8 +531,6 @@ def check_supported(opts: RuntimeOptions) -> None:
         raise unported("mesh")
     if opts.analysis > 0 or opts.trace_sample > 0:
         raise unported("analysis")
-    if opts.blob_slots > 0:
-        raise unported("blobs")
     if (opts.watchdog_s is not None or opts.metrics_port is not None
             or opts.cost_capture):
         raise unported("observability")

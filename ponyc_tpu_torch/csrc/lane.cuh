@@ -137,6 +137,126 @@ struct PonyOutT : PonyOutBase<MS, W1> {
 template <int MS, int W1, int NI>
 struct PonyOutT<MS, W1, 0, NI> : PonyOutBase<MS, W1> {};
 
+// ---- the device blob pool (cohorts with BLOB = 1; the window kernel) ----
+//
+// The pool as a lane sees it (planar: word w of slot s at data[w * nslots
+// + s]; a handle is slot | generation << 20, ops/pack.py). One blob has
+// one owner (iso) and the free slots a tick hands out are fixed before
+// any lane runs, so no two lanes write one slot in a tick; a val blob is
+// only read.
+struct PonyBlobPool {
+  int32_t* data;
+  uint8_t* used;
+  int32_t* len;
+  int32_t* gen;
+  int64_t nslots;
+  int32_t words;
+};
+
+// A blob cohort's Out: the pool, this dispatch's reserved global slot at
+// each alloc site (rb, -1 none) and whether its BLOB_DISPATCHES budget is
+// spent (bover); back: a wanted alloc found no slot (bf: the pool is
+// exhausted; bbf: past the budget), whether it allocated (bal), and the
+// allocs, frees and Blob arguments that arrived off the pool.
+template <class Base, int NBS>
+struct PonyOutB : Base {
+  const PonyBlobPool* pool;
+  int32_t rb[NBS > 0 ? NBS : 1];
+  bool bover, bf, bbf, bal;
+  int32_t nal, nfr, nrm;
+};
+
+constexpr int32_t PONY_BLOB_GEN_SHIFT = 20;
+constexpr int32_t PONY_BLOB_GEN_MASK = 0x3FF;
+
+// Handle h's slot, where h addresses the pool with its slot's current
+// generation (a stale handle to a recycled slot is dead).
+template <class O>
+PONY_FN bool pony_blob_local(const O& o, int32_t h, int64_t* hl) {
+  const int64_t s = h & ((1 << PONY_BLOB_GEN_SHIFT) - 1);
+  if (h < 0 || s >= o.pool->nslots) return false;
+  *hl = s;
+  return o.pool->gen[s] ==
+         ((h >> PONY_BLOB_GEN_SHIFT) & PONY_BLOB_GEN_MASK);
+}
+
+// Word i of blob h; 0 for a dead handle, a free slot or a word past the
+// pool's width.
+template <class O>
+PONY_FN int32_t pony_blob_get(const O& o, int32_t h, int32_t i) {
+  int64_t s;
+  if (!pony_blob_local(o, h, &s) || !o.pool->used[s] || i < 0 ||
+      i >= o.pool->words)
+    return 0;
+  return o.pool->data[(int64_t)i * o.pool->nslots + s];
+}
+
+template <class O>
+PONY_FN int32_t pony_blob_len(const O& o, int32_t h) {
+  int64_t s;
+  return pony_blob_local(o, h, &s) ? o.pool->len[s] : 0;
+}
+
+template <class O>
+PONY_FN bool pony_blob_set(const O& o, int32_t h, int32_t i, int32_t v,
+                           bool when) {
+  int64_t s;
+  if (when && pony_blob_local(o, h, &s) && i >= 0 && i < o.pool->words &&
+      o.pool->used[s])
+    o.pool->data[(int64_t)i * o.pool->nslots + s] = v;
+  return true;
+}
+
+template <class O>
+PONY_FN bool pony_blob_free(O& o, int32_t h, bool when) {
+  int64_t s;
+  if (when && pony_blob_local(o, h, &s) && o.pool->used[s]) {
+    o.pool->used[s] = 0;
+    o.pool->len[s] = 0;
+    ++o.nfr;
+  }
+  return true;
+}
+
+// Alloc at this dispatch's reserved slot of site g: the generation bumps,
+// the slot is used with length ln (clamped to the width) and zeroed
+// words. Returns the handle, or -1 where `when` is false or no slot was
+// reserved (then the fail flag of the knob to raise).
+template <class O>
+PONY_FN int32_t pony_blob_alloc(O& o, int g, int32_t ln, bool when) {
+  if (!when) return -1;
+  const int32_t slot = o.rb[g];
+  if (slot < 0) {
+    if (o.bover) o.bbf = true;
+    else o.bf = true;
+    return -1;
+  }
+  const PonyBlobPool& p = *o.pool;
+  const int32_t ng = (p.gen[slot] + 1) & PONY_BLOB_GEN_MASK;
+  p.gen[slot] = ng;
+  p.used[slot] = 1;
+  p.len[slot] = ln < 0 ? 0 : (ln > p.words ? p.words : ln);
+  for (int w = 0; w < p.words; ++w) p.data[(int64_t)w * p.nslots + slot] = 0;
+  ++o.nal;
+  o.bal = true;
+  return (int32_t)(((uint32_t)ng << PONY_BLOB_GEN_SHIFT) | (uint32_t)slot);
+}
+
+template <class O>
+PONY_FN bool pony_blob_remote(O& o, bool remote) {
+  o.nrm += remote;
+  return true;
+}
+
+// What a lane's blob ops did over its whole drain.
+struct PonyBlobAcc {
+  int32_t nal, nfr, nrm;
+  bool bf, bbf;
+};
+
+// The blob hooks of a cohort without the pool.
+struct PonyNoBlob {};
+
 // A fixed list of pointers (state columns), passed to a kernel by value.
 template <int N>
 struct PonyPtrs {
@@ -179,13 +299,21 @@ struct PonyNoSpawn {
 // SD); it advances on a slot that claimed a slot or failed a wanted spawn
 // (a second spawn never reuses the first's reservation). Every slot k hands
 // its claims to `spawn.claim(k, o)`.
-template <class C, class Ring, class Send, class Spawn>
+//
+// The blob pool (C::BLOB): each dispatch gets the pool (`blob.pool`) and,
+// per alloc site g, `blob.resv(d, g)` of the d-th of its BD windows, d the
+// count of earlier dispatches that allocated (-1 past BD, where a wanted
+// alloc raises the budget flag); what the blob ops did adds into
+// `blob.acc`.
+template <class C, class Ring, class Send, class Spawn,
+          class Blob = PonyNoBlob>
 PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
                            int32_t id, const Ring& ring, const Send& send,
-                           const Spawn& spawn) {
+                           const Spawn& spawn, const Blob& blob = Blob()) {
   PonyLane r = {0, 0, 0, 0, 0, 0, 0u, false, false, false, false};
   bool stopped = false;
   int used = 0;
+  int bused = 0;
   for (int k = 0; k < C::BATCH; ++k) {
     typename C::Out o;
     for (int m = 0; m < (C::MS > 0 ? C::MS : 1); ++m) {
@@ -201,6 +329,11 @@ PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
         o.has[g] = false;
       }
     }
+    if constexpr (C::BLOB) {
+      o.pool = &blob.pool;
+      o.bover = o.bf = o.bbf = o.bal = false;
+      o.nal = o.nfr = o.nrm = 0;
+    }
     if (nr > k && !stopped) {
       const uint32_t slot = (h + (uint32_t)k) & (uint32_t)(C::CAP - 1);
       int32_t w[C::W1_IN];
@@ -208,6 +341,11 @@ PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
       const int32_t local = (int32_t)((uint32_t)w[0] - (uint32_t)C::BASE);
       if (local >= 0 && local < C::NB) {
         ++r.nproc;
+        if constexpr (C::BLOB) {
+          for (int g = 0; g < C::NBS; ++g)
+            o.rb[g] = bused < C::BD ? blob.resv(bused, g) : -1;
+          o.bover = bused >= C::BD;
+        }
         if constexpr (C::NS > 0) {
           int32_t rv[C::NS];
           for (int g = 0; g < C::NS; ++g)
@@ -222,6 +360,15 @@ PONY_FN PonyLane pony_lane(typename C::State& s, uint32_t h, int32_t nr,
       ++r.consumed;
     }
     for (int m = 0; m < C::MS; ++m) send(k, m, o.tgt[m], o.w[m]);
+    if constexpr (C::BLOB) {
+      bused += o.bal;
+      PonyBlobAcc& a = *blob.acc;
+      a.nal += o.nal;
+      a.nfr += o.nfr;
+      a.nrm += o.nrm;
+      a.bf = a.bf || o.bf;
+      a.bbf = a.bbf || o.bbf;
+    }
     if constexpr (C::NS > 0) {
       bool spawned = o.sf;
       for (int g = 0; g < C::NS; ++g) {

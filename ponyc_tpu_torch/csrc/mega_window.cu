@@ -73,6 +73,23 @@
 //      tail and the flags, and the next tick's largest occupancy and
 //      pressure; the new spill replaces the old.
 //
+// Where the program uses the device blob pool (W::BLOB, a constant of
+// pony_world.h, so the other programs' kernels have no blob code), the
+// census also counts each block's free pool slots and runnable rows of
+// allocating cohorts (and whether one of them has queued work), and one
+// more phase follows it:
+//
+//   0c. bfree: each runnable allocating row's rank, and, unless no
+//       allocating row has queued work, the free slots compacted in
+//       ascending order (≙ the JAX package's compact_mask(~blob_used));
+//       a lane's alloc sites read their window of it (offset + rank * BD
+//       * sites + d * sites + site, engine.py's blob_reservations), and
+//       its blob ops load and store the pool directly (csrc/lane.cuh:
+//       one owner a blob, and a tick's free list fixed before lanes, so
+//       no two lanes write one slot). The gate ORs the sticky fail flags
+//       into OB_BLOB and OB_BUDGET and adds the alloc, free and remote
+//       counts.
+//
 // Then every block computes the gate from the tick's accumulators (two
 // sets, by tick parity, so a block that reads one set never races the
 // reset of the other); block 0 writes the counters and the aux. No sync
@@ -150,7 +167,11 @@ enum PonyPtr {
 // HOST, whether the program has host cohorts, FH, their first row, one
 // struct per host cohort (S0, ROWS, CAP, W1_IN and PBUF: its ring) and
 // PONY_HOSTS(X), which applies X to each of them in row order (nothing
-// without host cohorts).
+// without host cohorts); BLOB, whether a cohort uses the blob pool, BSL
+// and BW, the pool's slots and words, and PBLOB, the first of the pool's
+// nine pointers (data, used, len, gen, blob_fail, blob_budget_fail,
+// n_blob_alloc, n_blob_free, n_blob_remote) after every ring (none
+// without the pool).
 #include "pony_world.h"
 
 typedef PonyWorld W;
@@ -230,7 +251,19 @@ constexpr int64_t FREE = UPRE + SPN * (W::NCOH + 1); // [NL]
 constexpr int64_t RANK = FREE + SPN * W::NL;         // [NL]
 constexpr int64_t BORN = RANK + SPN * W::NL;         // [NL]
 constexpr int64_t BINIT = BORN + SPN * W::NL;        // [NI, NL]
-constexpr int64_t END = BINIT + SPN * W::NI * W::NL;
+// The blob pool (empty unless W::BLOB): each block's free slots, runnable
+// allocating rows and whether one of them has queued work; every cohort's
+// runnable prefix at its first row; the free slots compacted (and their
+// count); each runnable allocating row's global prefix.
+constexpr int64_t BPN = W::BLOB ? 1 : 0;
+constexpr int64_t BFREEB = BINIT + SPN * W::NI * W::NL;  // [GMAX]
+constexpr int64_t BRUNB = BFREEB + BPN * GMAX;           // [GMAX]
+constexpr int64_t BBUSY = BRUNB + BPN * GMAX;            // [GMAX]
+constexpr int64_t UPREB = BBUSY + BPN * GMAX;            // [NCOH + 1]
+constexpr int64_t NFREEB = UPREB + BPN * (W::NCOH + 1);  // [1]
+constexpr int64_t FREEB = NFREEB + BPN;                  // [BSL]
+constexpr int64_t RANKB = FREEB + BPN * W::BSL;          // [NL]
+constexpr int64_t END = RANKB + BPN * W::NL;
 static_assert(ACC % 2 == 0, "the 64-bit exit key is aligned");
 }  // namespace pws
 
@@ -239,7 +272,8 @@ enum PonyAcc {
   A_EXITKEY = 0,   // 64-bit: (0xffffffff - row) << 32 | code, max wins
   A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_SEGMAX,
   A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NSPAWN,
-  A_SFAIL, A_HOSTOCC, A_NACC
+  A_SFAIL, A_HOSTOCC, A_BALLOC, A_BFREE, A_BREMOTE, A_BFAIL, A_BBUDGET,
+  A_NACC
 };
 
 struct PonyMegaArgs {
@@ -489,6 +523,17 @@ PONY_FN void ph_pending(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
 struct PonySums {
   int32_t nproc, nbad, ndes, nerr, nspawn, sf;
 };
+// A blob world's lane sums (the other worlds keep PonySums as it was).
+struct PonySumsB : PonySums {
+  PonyBlobAcc blob;
+};
+typedef std::conditional<W::BLOB != 0, PonySumsB, PonySums>::type Sums;
+// The blob members of the world's sums and sticky scalars, through
+// templates: code that reads them sits behind `if constexpr (W::BLOB)`,
+// and a template is not instantiated in a discarded branch, so the other
+// worlds' types need no such members.
+template <class S>
+PONY_FN PonyBlobAcc& sums_blob(S& s) { return s.blob; }
 
 template <class C>
 struct MegaRing {
@@ -551,10 +596,32 @@ struct MegaSpawn {
   }
 };
 
+// A blob cohort's pool and reservations: alloc site g of dispatch window d
+// of the runnable row of rank `rank` in its cohort reads the compacted
+// free list at BOFF + rank * BD * NBS + d * NBS + g (-1 past the free
+// slots).
+template <class C>
+struct MegaBlob {
+  PonyBlobPool pool;
+  const int32_t* ws;
+  int64_t rank;
+  PonyBlobAcc* acc;
+  PONY_FN int32_t resv(int d, int g) const {
+    const int64_t idx = (int64_t)C::BOFF + rank * (C::BD * C::NBS) +
+                        (int64_t)d * C::NBS + g;
+    return idx < (int64_t)ws[pws::NFREEB] ? ws[pws::FREEB + idx] : -1;
+  }
+};
+
+PONY_FN PonyBlobPool blob_pool(const PonyMegaArgs& a) {
+  return {PI32(W::PBLOB), PU8(W::PBLOB + 1), PI32(W::PBLOB + 2),
+          PI32(W::PBLOB + 3), (int64_t)W::BSL, (int32_t)W::BW};
+}
+
 template <class C>
 PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
                            int32_t* cur, int64_t r, bool runnable,
-                           uint32_t h, int32_t occ0, PonySums& sums) {
+                           uint32_t h, int32_t occ0, Sums& sums) {
   const int64_t i = r - C::S0;
   const int32_t nr = runnable ? (occ0 < C::BATCH ? occ0 : C::BATCH) : 0;
   typename C::State s;
@@ -562,16 +629,22 @@ PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
   C::load(s, f, i);
   const MegaRing<C> ring = {(const int32_t*)a.p[C::PBUF], i};
   const MegaSend<C> send = {ws + pws::OUT_TGT, ws + pws::OUT_W, i};
+  std::conditional_t<C::BLOB, MegaBlob<C>, PonyNoBlob> blob{};
+  if constexpr (C::BLOB) {
+    const int64_t rank = runnable && C::NBS > 0
+        ? (int64_t)(ws[pws::RANKB + r] - ws[pws::UPREB + C::CIDX]) : 0;
+    blob = {blob_pool(a), ws, rank, &sums_blob(sums)};
+  }
   PonyLane l;
   if constexpr (C::NS > 0) {
     const int64_t rank = runnable
         ? (int64_t)(ws[pws::RANK + r] - ws[pws::UPRE + C::CIDX]) : 0;
     const MegaSpawn<C> spawn = {ws, rank};
-    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, spawn);
+    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, spawn, blob);
     sums.nspawn += l.nclaim;
     sums.sf |= l.sf;
   } else {
-    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, PonyNoSpawn());
+    l = pony_lane<C>(s, h, nr, (int32_t)r, ring, send, PonyNoSpawn(), blob);
   }
   C::store(s, f, i);
   ws[pws::NEWHEAD + r] = (int32_t)(h + l.consumed);
@@ -656,9 +729,10 @@ struct Unmute {
 PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
                       int32_t* cur, const int32_t* prev, int32_t dsp) {
   const Unmute um(a, ws, prev, dsp);
-  PonySums sums = {0, 0, 0, 0, 0, 0};
+  Sums sums = {};
   PONY_FOR(r, W::NL) {
-    const bool wm = W::SPAWN ? ws[pws::WMUTED + r] != 0 : um.row(ws, r);
+    const bool wm = W::SPAWN || W::BLOB ? ws[pws::WMUTED + r] != 0
+                                        : um.row(ws, r);
     const uint32_t h = (uint32_t)um.head[r];
     const int32_t occ0 = (int32_t)((uint32_t)um.tail[r] - h);
     const bool runnable = um.alive[r] && !wm;
@@ -685,6 +759,19 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     if (g.tid == 0) {
       if (ns) g_add(cur + A_NSPAWN, ns);
       if (sf) g_add(cur + A_SFAIL, 1);
+    }
+  }
+  if constexpr (W::BLOB) {
+    const PonyBlobAcc& b = sums_blob(sums);
+    const int32_t nal = block_sum(b.nal), nfr = block_sum(b.nfr);
+    const int32_t nrm = block_sum(b.nrm), bf = block_sum(b.bf);
+    const int32_t bbf = block_sum(b.bbf);
+    if (g.tid == 0) {
+      if (nal) g_add(cur + A_BALLOC, nal);
+      if (nfr) g_add(cur + A_BFREE, nfr);
+      if (nrm) g_add(cur + A_BREMOTE, nrm);
+      if (bf) g_add(cur + A_BFAIL, 1);
+      if (bbf) g_add(cur + A_BBUDGET, 1);
     }
   }
 }
@@ -743,25 +830,71 @@ PONY_FN void block_rows(const Grid& g, int64_t* r0, int64_t* r1) {
   *r1 = W::NL * (g.block + 1) / g.nblocks;
 }
 
-// 0a, census: the unmute of every row, and each block's counts.
+// Row r of a cohort that allocates blobs (NBS > 0): runnable after the
+// unmute (WMUTED), and with queued work.
+PONY_FN void blob_flags(const PonyMegaArgs& a, const int32_t* ws, int64_t r,
+                        int32_t* u, int32_t* busy) {
+  bool alloc = false;
+#define PONY_ROW_ALLOC(C) \
+  if (r >= C::S0 && r < C::S0 + C::ROWS) alloc = C::NBS > 0; else
+  PONY_COHORTS(PONY_ROW_ALLOC) {}
+#undef PONY_ROW_ALLOC
+  *u = alloc && PU8(P_ALIVE)[r] && !ws[pws::WMUTED + r];
+  *busy = *u && PI32(P_TAIL)[r] != PI32(P_HEAD)[r];
+}
+
+PONY_FN void block_slots(const Grid& g, int64_t* s0, int64_t* s1) {
+  *s0 = W::BSL * g.block / g.nblocks;
+  *s1 = W::BSL * (g.block + 1) / g.nblocks;
+}
+
+// 0a, census: the unmute of every row, and each block's counts (spawn:
+// free target rows and runnable spawners; blobs: runnable allocating
+// rows, whether one has queued work, and the free pool slots of the
+// block's contiguous range of slots).
 PONY_FN void ph_census(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
                        const int32_t* prev, int32_t dsp) {
   const Unmute um(a, ws, prev, dsp);
   int64_t r0, r1;
   block_rows(g, &r0, &r1);
-  int32_t nf = 0, nu = 0;
+  int32_t nf = 0, nu = 0, bu = 0, bb = 0;
   for (int64_t r = r0 + g.tid; r < r1; r += g.nthreads) {
     um.row(ws, r);
-    int32_t f, u;
-    spawn_flags(a, ws, r, &f, &u);
-    nf += f;
-    nu += u;
+    if constexpr (W::SPAWN) {
+      int32_t f, u;
+      spawn_flags(a, ws, r, &f, &u);
+      nf += f;
+      nu += u;
+    }
+    if constexpr (W::BLOB) {
+      int32_t u, busy;
+      blob_flags(a, ws, r, &u, &busy);
+      bu += u;
+      bb |= busy;
+    }
   }
-  nf = block_sum(nf);
-  nu = block_sum(nu);
-  if (g.tid == 0) {
-    ws[pws::BFREE + g.block] = nf;
-    ws[pws::BRUN + g.block] = nu;
+  if constexpr (W::SPAWN) {
+    nf = block_sum(nf);
+    nu = block_sum(nu);
+    if (g.tid == 0) {
+      ws[pws::BFREE + g.block] = nf;
+      ws[pws::BRUN + g.block] = nu;
+    }
+  }
+  if constexpr (W::BLOB) {
+    int64_t s0, s1;
+    block_slots(g, &s0, &s1);
+    const uint8_t* used = PU8(W::PBLOB + 1);
+    int32_t nfree = 0;
+    for (int64_t q = s0 + g.tid; q < s1; q += g.nthreads) nfree += !used[q];
+    nfree = block_sum(nfree);
+    bu = block_sum(bu);
+    bb = block_sum(bb);
+    if (g.tid == 0) {
+      ws[pws::BFREEB + g.block] = nfree;
+      ws[pws::BRUNB + g.block] = bu;
+      ws[pws::BBUSY + g.block] = bb;
+    }
   }
 }
 
@@ -801,6 +934,52 @@ PONY_FN void ph_reserve(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
   }
 }
 
+// 0c, bfree (blob world): each runnable allocating row's global rank
+// (RANKB) and each cohort's prefix at its first row (UPREB); then, where
+// some allocating row has queued work, the free slots compacted in
+// ascending order (FREEB, NFREEB their count). Without queued work no lane
+// allocates this tick, so no window is read and the compaction is
+// skipped, as the JAX package skips it.
+PONY_FN void ph_bfree(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
+  int32_t pu = 0, pf = 0, busy = 0;
+  for (int64_t b = g.tid; b < g.nblocks; b += g.nthreads) {
+    if (b < g.block) {
+      pu += ws[pws::BRUNB + b];
+      pf += ws[pws::BFREEB + b];
+    }
+    busy |= ws[pws::BBUSY + b];
+  }
+  pu = block_sum(pu);
+  pf = block_sum(pf);
+  busy = block_sum(busy);
+  int64_t r0, r1;
+  block_rows(g, &r0, &r1);
+  for (int64_t base = r0; base < r1; base += g.nthreads) {
+    const int64_t r = base + g.tid;
+    int32_t u = 0, bz;
+    if (r < r1) blob_flags(a, ws, r, &u, &bz);
+    int32_t tu;
+    const int32_t xu = block_excl_scan(u, &tu);
+    if (u) ws[pws::RANKB + r] = pu + xu;
+    int k;
+    if (r < r1 && row_is_start(r, &k)) ws[pws::UPREB + k] = pu + xu;
+    pu += tu;
+  }
+  if (!busy) return;
+  int64_t s0, s1;
+  block_slots(g, &s0, &s1);
+  const uint8_t* used = PU8(W::PBLOB + 1);
+  for (int64_t base = s0; base < s1; base += g.nthreads) {
+    const int64_t q = base + g.tid;
+    const int32_t f = q < s1 && !used[q];
+    int32_t tf;
+    const int32_t xf = block_excl_scan(f, &tf);
+    if (f) ws[pws::FREEB + pf + xf] = (int32_t)q;
+    pf += tf;
+  }
+  if (g.block == g.nblocks - 1 && g.tid == 0) ws[pws::NFREEB] = pf;
+}
+
 // ---- phase 2: keys, dead letters, per-target counts, digit counts -------
 
 PONY_FN int32_t digit(int32_t key, int pass) {
@@ -808,8 +987,11 @@ PONY_FN int32_t digit(int32_t key, int pass) {
 }
 
 PONY_FN void acc_reset(int32_t* acc) {
-  // The spawn and host accumulators only where the program has them.
-  for (int k = 0; k < (W::SPAWN || W::HOST ? (int)A_NACC : (int)A_NSPAWN);
+  // The spawn, host and blob accumulators only where the program has
+  // them.
+  for (int k = 0; k < (W::BLOB ? (int)A_NACC
+                       : W::SPAWN || W::HOST ? (int)A_BALLOC
+                                             : (int)A_NSPAWN);
        ++k)
     acc[k] = 0;
   acc[A_OCC_MAX] = INT_MIN;
@@ -1506,13 +1688,22 @@ struct Sticky {
   bool ef, so, spawn;
   int32_t ec, dsp;
 };
+// A blob world's sticky scalars: the pool and budget fail flags too.
+struct StickyB : Sticky {
+  bool bf, bbf;
+};
+typedef std::conditional<W::BLOB != 0, StickyB, Sticky>::type StickyT;
+template <class S>
+PONY_FN bool& sticky_bf(S& s) { return s.bf; }
+template <class S>
+PONY_FN bool& sticky_bbf(S& s) { return s.bbf; }
 
 
 // After tick i's commit: every block reads the tick's accumulators `cur`
 // and the scans' totals, and returns whether tick i + 1 runs; block 0's
 // first thread writes the counters, the spill length and the aux.
 PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
-                  const int32_t* cur, int32_t i, Sticky& s) {
+                  const int32_t* cur, int32_t i, StickyT& s) {
   const unsigned long long key = *(const unsigned long long*)(cur + A_EXITKEY);
   if (key && !s.ef) s.ec = (int32_t)(uint32_t)(key & 0xffffffffull);
   s.ef = s.ef || key;
@@ -1532,6 +1723,13 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
   ob[OB_MUTED] = any_m;
   // host_pending: a host row is occupied after this tick's delivery.
   if constexpr (W::HOST) ob[OB_HOST] = cur[A_HOSTOCC] > 0;
+  if constexpr (W::BLOB) {
+    bool &bf = sticky_bf(s), &bbf = sticky_bbf(s);
+    bf = bf || cur[A_BFAIL] > 0;
+    bbf = bbf || cur[A_BBUDGET] > 0;
+    ob[OB_BLOB] = bf;
+    ob[OB_BUDGET] = bbf;
+  }
   if (g.block == 0) {
     // One counter a thread of block 0, so their round trips overlap.
     const int ptr[] = {P_N_REJECTED, P_N_BADMSG, P_N_DEADLETTER, P_N_MUTES,
@@ -1550,6 +1748,15 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
     if constexpr (W::SPAWN) {
       c = PI32(P_N_SPAWNED); c[0] = wadd(c[0], cur[A_NSPAWN]);
       PU8(P_SPAWN_FAIL)[0] = s.spawn;
+    }
+    if constexpr (W::BLOB) {
+      PU8(W::PBLOB + 4)[0] = sticky_bf(s);
+      PU8(W::PBLOB + 5)[0] = sticky_bbf(s);
+      const int acc[] = {A_BALLOC, A_BFREE, A_BREMOTE};
+      for (int k = 0; k < 3; ++k) {
+        c = PI32(W::PBLOB + 6 + k);
+        c[0] = wadd(c[0], cur[acc[k]]);
+      }
     }
     PU8(P_EXIT_FLAG)[0] = s.ef;
     PI32(P_EXIT_CODE)[0] = s.ec;
@@ -1578,7 +1785,8 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
 // names.
 enum PonyPhase {
   CK_START, CK_LANES, CK_KEYS, CK_SCAN, CK_PLACE, CK_COUNT, CK_RSCAN,
-  CK_SCATTER, CK_DELIVER, CK_COMMIT, CK_GATE, CK_CENSUS, CK_RESERVE
+  CK_SCATTER, CK_DELIVER, CK_COMMIT, CK_GATE, CK_CENSUS, CK_RESERVE,
+  CK_BFREE
 };
 constexpr int CLOCK_SLOTS = 32;
 
@@ -1624,9 +1832,16 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
       else oi[ni++] = *(const int32_t*)a.p[P_AUX_IN + k];
     }
   }
-  Sticky s = {PU8(P_EXIT_FLAG)[0] != 0, PU8(P_SPILL_OVERFLOW)[0] != 0,
-              PU8(P_SPAWN_FAIL)[0] != 0, PI32(P_EXIT_CODE)[0],
-              PI32(P_DSPILL_COUNT)[0]};
+  StickyT s = {};
+  s.ef = PU8(P_EXIT_FLAG)[0] != 0;
+  s.so = PU8(P_SPILL_OVERFLOW)[0] != 0;
+  s.spawn = PU8(P_SPAWN_FAIL)[0] != 0;
+  s.ec = PI32(P_EXIT_CODE)[0];
+  s.dsp = PI32(P_DSPILL_COUNT)[0];
+  if constexpr (W::BLOB) {
+    sticky_bf(s) = PU8(W::PBLOB + 4)[0] != 0;
+    sticky_bbf(s) = PU8(W::PBLOB + 5)[0] != 0;
+  }
   bool go = a.forced ? a.limit > 0 : (a.force || aux_go(ob));
   if (g.first()) {
     // A window that runs no tick returns the previous aux unchanged.
@@ -1659,11 +1874,17 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
     ck.tick = i;
     ck.slot = 0;
     ck.stamp(g, CK_START);
-    if constexpr (W::SPAWN) {
+    if constexpr (W::SPAWN || W::BLOB) {
       ph_census(a, g, ws, prev, s.dsp);
       PONY_GSYNC_AT(CK_CENSUS);
+    }
+    if constexpr (W::SPAWN) {
       ph_reserve(a, g, ws);
       PONY_GSYNC_AT(CK_RESERVE);
+    }
+    if constexpr (W::BLOB) {
+      ph_bfree(a, g, ws);
+      PONY_GSYNC_AT(CK_BFREE);
     }
     ph_lanes(a, g, ws, cur, prev, s.dsp);
     PONY_GSYNC_AT(CK_LANES);

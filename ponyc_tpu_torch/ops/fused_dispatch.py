@@ -25,10 +25,11 @@ the kernel (or raise), CPU tensors take the plain version.
 Device spawns ride through as planes, as in the JAX kernel: the
 reservation planes [SPAWN_DISPATCHES * sites, rows] of each target in,
 the claim planes [batch * sites, rows] and the sticky spawn fail out.
-Eligibility mirrors the JAX package's `eligible`
-(ponyc_tpu/ops/fused_dispatch.py:51): a cohort with at least one
-behaviour, none of which sync-constructs (ctx.spawn_sync); such a cohort
-takes the plain loop under `pallas_fused` too.
+Eligibility mirrors the JAX package's (ponyc_tpu/ops/fused_dispatch.py:51
+and the engine's `not use_blob`, ponyc_tpu/runtime/engine.py:684): a
+cohort with at least one behaviour, none of which sync-constructs
+(ctx.spawn_sync), that does not use the blob pool; any other cohort takes
+the plain loop under `pallas_fused` too.
 """
 
 from __future__ import annotations
@@ -57,8 +58,10 @@ def trace_cohort(cohort, opts, spawn_meta=None) -> List:
 
 def eligible(cohort, progs) -> bool:
     """The fused kernel serves a cohort with a behaviour, none of whose
-    behaviours (`progs`, from `trace_cohort`) sync-constructs."""
-    return len(cohort.behaviours) >= 1 and not any(p.sync for p in progs)
+    behaviours (`progs`, from `trace_cohort`) sync-constructs, that does
+    not use the blob pool."""
+    return (len(cohort.behaviours) >= 1 and not cohort.uses_blobs
+            and not any(p.sync for p in progs))
 
 
 def fused_dispatch_plain(cohort, opts, spawn_meta=None):
@@ -92,8 +95,9 @@ class FusedDispatch:
         self.progs = progs if progs is not None else trace_cohort(
             cohort, opts, spawn_meta)
         if not eligible(cohort, self.progs):
-            raise ValueError(f"cohort {self.name} sync-constructs: the "
-                             "fused kernel does not serve it")
+            raise ValueError(f"cohort {self.name} sync-constructs or uses "
+                             "the blob pool: the fused kernel does not "
+                             "serve it")
         self.sites = spawn_sites_of(cohort)
         self.ns = sum(n for _, n in self.sites)
         self.sd = cohort.spawn_dispatches

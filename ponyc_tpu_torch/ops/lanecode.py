@@ -23,6 +23,17 @@ F32 bit-casts of ``pack.pack_args``), exit, yield, destroy,
 ref, the spawn fail flag and, for ``spawn_sync``, the constructor's
 `has` mask and field values per site.
 
+The device blob pool (``ctx.blob_*``) is not lane-wise: a read is a
+gather over the pool, a write a scatter. A body of a cohort that uses the
+pool is traced with a view of the pool (`_BlobTrace`) whose methods record
+explicit "blob" nodes instead: the reads (``get``, ``len``, with the
+handle's generation and `used` checks) and the effects (``alloc`` at the
+lane's reserved slot of its site, ``set``, ``free``, the count of Blob
+arguments that arrived off the pool), kept in program order, so that a
+read sees the body's earlier writes. ``csrc/lane.cuh`` emits them as
+loads and stores into the pool (``pony_blob_*``), which also count allocs
+and frees and raise the fail and budget-fail flags.
+
 Two ways to run a lane program: `replay` evaluates it with the recorded
 ATen ops on CPU tensors (it equals eager evaluation bit for bit, which
 the tests hold), and `emit_cohort` writes one C++ struct per cohort:
@@ -52,7 +63,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                         _disable_current_modes)
 
 aten = torch.ops.aten
 
@@ -143,6 +155,7 @@ class LaneProgram:
     inits: List[Optional[Tuple[int, List[int]]]] = dataclasses.field(
         default_factory=list)
     spawn_fail: Optional[int] = None
+    blob_effects: List[int] = dataclasses.field(default_factory=list)
 
     @property
     def sync(self) -> bool:
@@ -336,6 +349,78 @@ class _Tracer(TorchDispatchMode):
         return int(c[0])
 
 
+def _untraced(fn):
+    """Run a _BlobTrace method with the tracer's mode off, so that its
+    bookkeeping records no ops of its own."""
+    def run(*args, **kwargs):
+        with _disable_current_modes():
+            return fn(*args, **kwargs)
+    return run
+
+
+class _BlobTrace:
+    """The device blob pool as the lane tracer sees it: the methods of
+    api.BlobPoolView, each recording a "blob" node (key: the op and, for
+    an alloc, its site; leaves: its operands as `_Ref`s) instead of
+    touching a pool. Results are int32 lane values bound to their node;
+    the effects' nodes are kept, in order, in `effects`."""
+
+    base = 0
+
+    def __init__(self, tr: "_Tracer", sites: int, slots: int, words: int):
+        self.tr = tr
+        self.nsites = sites
+        self.nslots = slots
+        self.words = words
+        self.effects: List[int] = []
+
+    def _node(self, v, dtype) -> int:
+        if isinstance(v, torch.Tensor):
+            return self.tr.one(v)
+        return self.tr.add(Node("const", dtype, key=v))
+
+    def _op(self, op: str, dtype, *operands, key=None) -> int:
+        i = self.tr.add(Node("blob", dtype, key=(op, key), leaves=tuple(
+            _Ref(self._node(v, t)) for v, t in operands)))
+        if dtype == torch.bool or op == "alloc":
+            self.effects.append(i)
+        return i
+
+    def _value(self, i: int) -> torch.Tensor:
+        t = torch.zeros((self.tr.P,), dtype=torch.int32)
+        self.tr.bind(t, torch.full((1,), i, dtype=torch.int64))
+        return t
+
+    @_untraced
+    def alloc(self, site: int, length, when):
+        ln = self.words if length is None else length
+        return self._value(self._op("alloc", torch.int32,
+                                    (ln, torch.int32), (when, torch.bool),
+                                    key=site))
+
+    @_untraced
+    def get(self, h, i):
+        return self._value(self._op("get", torch.int32, (h, torch.int32),
+                                    (i, torch.int32)))
+
+    @_untraced
+    def length(self, h):
+        return self._value(self._op("len", torch.int32, (h, torch.int32)))
+
+    @_untraced
+    def set(self, h, i, v, when):
+        self._op("set", torch.bool, (h, torch.int32), (i, torch.int32),
+                 (v, torch.int32), (when, torch.bool))
+
+    @_untraced
+    def free(self, h, when):
+        self._op("free", torch.bool, (h, torch.int32), (when, torch.bool))
+
+    @_untraced
+    def note_remote(self, remote):
+        self._op("remote", torch.bool, (remote, torch.bool))
+
+
 def probe_lanes(w1: int) -> int:
     """Lane count of the trace: larger than any word axis, so the lane
     axis is the only axis of that size."""
@@ -344,14 +429,15 @@ def probe_lanes(w1: int) -> int:
 
 def trace_behaviour(bdef, *, field_specs, msg_words: int,
                     msg_words_in: int, max_sends: int, spawn_sites=(),
-                    spawn_meta=None) -> LaneProgram:
+                    spawn_meta=None, blob=None) -> LaneProgram:
     """Record one behaviour's body as a lane program. `msg_words` is the
     outbox width (program-wide), `msg_words_in` the cohort's mailbox
     payload width; `spawn_sites` and `spawn_meta` are the cohort's spawn
     budget and its targets' field specs (engine.spawn_sites_of,
-    engine.spawn_meta_of). Raises NotImplementedError for a body the
-    fused kernel cannot run, and whatever eval_behaviour raises for a bad
-    body."""
+    engine.spawn_meta_of); `blob` ((alloc sites, pool slots, pool words),
+    for a cohort that uses the blob pool) traces its ops as blob nodes. Raises
+    NotImplementedError for a body the fused kernel cannot run, and
+    whatever eval_behaviour raises for a bad body."""
     from ..runtime.engine import _dtype_of, eval_behaviour, spawn_outputs
     owner = bdef.actor_type.__name__ if bdef.actor_type else "?"
     where = f"{owner}.{bdef.name}"
@@ -388,11 +474,13 @@ def trace_behaviour(bdef, *, field_specs, msg_words: int,
              for s in range(n)], dtype=torch.int64).reshape(n, 1))
         g += n
     meta = spawn_meta or {}
+    bview = None if blob is None else _BlobTrace(tr, *blob)
     with tr:
         ctx, st2, tgts, words = eval_behaviour(
             bdef, st, payload, ids, msg_words=msg_words,
             field_specs=field_specs, field_dtypes=field_dtypes, lanes=P,
-            max_sends=max_sends, spawn_resv=resv, spawn_meta=meta)
+            max_sends=max_sends, spawn_resv=resv, spawn_meta=meta,
+            blob=bview)
         claims, inits, sf = spawn_outputs(ctx, spawn_sites, meta, P,
                                           ids.device)
     fields = {f: tr.one(st2[f]) for f in field_specs}
@@ -420,7 +508,8 @@ def trace_behaviour(bdef, *, field_specs, msg_words: int,
     return LaneProgram(where, tr.nodes, fields, sends, effects,
                        ctx.destroy_called, ctx.error_called,
                        claims=site_claims, inits=site_inits,
-                       spawn_fail=None if sf is None else tr.one(sf))
+                       spawn_fail=None if sf is None else tr.one(sf),
+                       blob_effects=[] if bview is None else bview.effects)
 
 
 # --- CPU replay --------------------------------------------------------
@@ -443,6 +532,10 @@ def replay(prog: LaneProgram, fields: Dict[str, torch.Tensor],
         elif node.kind == "const":
             v = torch.full((1,) if node.dimmed else (), node.key,
                            dtype=node.dtype)
+        elif node.kind == "blob":
+            raise NotImplementedError(
+                f"{prog.name}: blob-pool ops replay through the window "
+                "kernel's host build (MegaWindow.run_host), not here")
         else:
             leaves = [vals[x.i] if isinstance(x, _Ref) else x
                       for x in node.leaves]
@@ -860,6 +953,20 @@ EMITTERS = {
 }
 
 
+def _em_blob(nodes, node) -> str:
+    """A blob-pool op of csrc/lane.cuh on the lane's Out `o` (the pool,
+    this dispatch's reservations and the blob counters ride there)."""
+    op, site = node.key
+    ops = [cast(f"v{x.i}", nodes[x.i].dtype,
+                torch.bool if k == len(node.leaves) - 1
+                and op in ("alloc", "set", "free", "remote")
+                else torch.int32)
+           for k, x in enumerate(node.leaves)]
+    if op == "alloc":
+        return f"pony_blob_alloc(o, {site}, {ops[0]}, {ops[1]})"
+    return f"pony_blob_{op}(o, {', '.join(ops)})"
+
+
 def _expr(nodes, i, target) -> str:
     node = nodes[i]
     if node.kind == "field":
@@ -872,6 +979,8 @@ def _expr(nodes, i, target) -> str:
         return "id"
     if node.kind == "const":
         return literal(node.key, node.dtype)
+    if node.kind == "blob":
+        return _em_blob(nodes, node)
     e = _Emit(nodes, node, target)
     if node.func == aten.view.dtype:
         return _em_view_dtype(e)
@@ -889,7 +998,7 @@ def _outputs(prog: LaneProgram) -> List[int]:
             outs += [ini[0]] + ini[1]
     if prog.spawn_fail is not None:
         outs.append(prog.spawn_fail)
-    return outs
+    return outs + list(prog.blob_effects)
 
 
 def _needed(prog: LaneProgram) -> List[int]:
@@ -979,7 +1088,7 @@ def emit_cohort(progs: List[LaneProgram], *, name: str,
                 target: str = "cuda", extra: Dict[str, int] = None,
                 spawn_sites=(), sd: int = 1, init_words: int = 0,
                 site_targets=None, site_offsets=None,
-                field_nulls: Dict[str, int] = None) -> str:
+                field_nulls: Dict[str, int] = None, blob=None) -> str:
     """One cohort as a C++ struct named `name` (csrc/lane.cuh says what
     the kernels take from it): its constants (and the `extra` ones, as
     further `static constexpr int`s), its state struct, load/store of the
@@ -997,21 +1106,30 @@ def emit_cohort(progs: List[LaneProgram], *, name: str,
     claim planes [BATCH * NS, rows]; `site_target(g)`
     (`site_targets[t]`, default t) and, for the window kernel,
     `site_off(g)` (`site_offsets[t]` + the site) and `site_per(g)` and
-    `site_n(g)` (the target's SD * sites and sites)."""
+    `site_n(g)` (the target's SD * sites and sites).
+
+    Blob pool: `blob` (alloc sites, BLOB_DISPATCHES, the cohort's offset
+    into the free-slot list) for a cohort that uses the pool, else None:
+    BLOB, NBS, BD and BOFF, and an Out that carries the pool
+    (PonyOutB)."""
     nf = len(field_names)
     ct = [CTYPE[field_dtypes[f]] for f in field_names]
     ns = sum(n for _, n in spawn_sites)
+    nbs, bd, boff = blob if blob is not None else (0, 0, 0)
     consts = dict(NF=nf, NB=len(progs), BATCH=batch, CAP=cap, MS=ms, W1=w1,
                   W1_IN=w1_in, BASE=base, NOYIELD=int(bool(noyield)),
                   DESTROY=int(bool(destroy)), ERROR=int(bool(error)),
-                  NS=ns, SD=sd, NI=init_words, **(extra or {}))
+                  NS=ns, SD=sd, NI=init_words, BLOB=int(blob is not None),
+                  NBS=nbs, BD=bd, BOFF=boff, **(extra or {}))
     for p in progs:
         if p.sync and not init_words:
             raise ValueError(f"{p.name} sync-constructs; emit_cohort "
                              "needs init_words")
     out = [f"struct {name} {{"]
     out += [f"  static constexpr int {k} = {v};" for k, v in consts.items()]
-    out.append("  typedef PonyOutT<MS, W1, NS, NI> Out;")
+    out.append("  typedef PonyOutB<PonyOutT<MS, W1, NS, NI>, NBS> Out;"
+               if blob is not None else
+               "  typedef PonyOutT<MS, W1, NS, NI> Out;")
     rr, cr, tg, off, per, nn = [], [], [], [], [], []
     t_off = 0
     for t, (_, n) in enumerate(spawn_sites):

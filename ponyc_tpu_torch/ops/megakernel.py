@@ -45,6 +45,14 @@ Two things, as in the JAX package:
    slice 8. `modelled_bytes_per_msg` gives the bytes a ring record costs
    packed and unpacked at a measured escape rate.
 
+The device blob pool is served where a cohort uses it (world["BLOB"]):
+the pool's leaves are cloned and updated in place like every other
+written leaf, the kernel's `census` also counts free slots and runnable
+allocating rows, and its `bfree` phase ranks those rows and compacts the
+free slots; the lanes' blob ops (ops/lanecode.py's blob nodes) load and
+store the pool directly, and the gate writes the sticky blob_fail and
+blob_budget_fail and the alloc, free and remote counts.
+
 Host cohorts (HOST = True) are served as the plain step serves them:
 their rows take delivery into their rings, which the kernel updates in
 place with the device cohorts', and the window ends on the device at the
@@ -196,6 +204,11 @@ _UPDATED = ("head", "tail", "alive", "muted", "mute_refs", "mute_age",
             "n_destroyed", "n_spawned", "spawn_fail", "last_error",
             "last_error_loc", "n_errors", "plan_key", "plan_perm",
             "plan_bounds", "world_bits")
+# The blob pool's leaves, in the order of the kernel's W::PBLOB pointers;
+# passed (cloned, updated in place) where a cohort uses the pool.
+BLOB_LEAVES = ("blob_data", "blob_used", "blob_len", "blob_gen",
+               "blob_fail", "blob_budget_fail", "n_blob_alloc",
+               "n_blob_free", "n_blob_remote")
 
 
 def aux_layout():
@@ -333,14 +346,19 @@ class MegaWindow:
             names = list(fspecs)
             dtypes = {f: _dtype_of(s) for f, s in fspecs.items()}
             sites = spawn_sites_of(ch)
+            blob = ((ch.blob_sites, opts.blob_slots, opts.blob_words)
+                    if ch.uses_blobs else None)
             progs = [lanecode.trace_behaviour(
                 b, field_specs=fspecs, msg_words=opts.msg_words,
                 msg_words_in=ch.msg_words, max_sends=ch.max_sends,
-                spawn_sites=sites, spawn_meta=spawn_meta_of(program, ch))
+                spawn_sites=sites, spawn_meta=spawn_meta_of(program, ch),
+                blob=blob)
                 for b in ch.behaviours]
             self.specs.append(dict(
                 cohort=ch, name=ch.atype.__name__, progs=progs,
                 fields=names, dtypes=dtypes, sites=sites,
+                blob=((ch.blob_sites, ch.blob_dispatches, ch.blob_offset)
+                      if ch.uses_blobs else None),
                 nulls={f: pack.null_word(sp) for f, sp in fspecs.items()},
                 base=ch.behaviours[0].global_id if ch.behaviours else 0,
                 extra=dict(S0=ch.local_start, ROWS=ch.local_capacity,
@@ -358,6 +376,12 @@ class MegaWindow:
                            CAP=opts.mailbox_cap, W1_IN=1 + ch.msg_words,
                            PBUF=ptr)))
             ptr += 1
+        # The blob pool's leaves, after every ring (csrc/mega_window.cu:
+        # W::PBLOB), where a cohort uses the pool.
+        self.blob = any(ch.uses_blobs for ch in self.cohorts)
+        self.p_blob = ptr
+        if self.blob:
+            ptr += len(BLOB_LEAVES)
         self.n_ptr = ptr
         self.site_targets = {sp["name"]: [index[t] for t, _ in sp["sites"]]
                              for sp in self.specs}
@@ -377,7 +401,10 @@ class MegaWindow:
             NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX,
             SPAWN=int(program.has_device_spawns), NI=n_init,
             NCOH=len(self.cohorts), HOST=int(bool(self.host_specs)),
-            FH=program.first_host_row)
+            FH=program.first_host_row, BLOB=int(self.blob),
+            BSL=opts.blob_slots if self.blob else 0,
+            BW=opts.blob_words if self.blob else 0,
+            PBLOB=self.p_blob if self.blob else 0)
         self.header = self.source("cuda")      # refusals surface here
         self.tag = "pony_mega_" + re.sub(
             r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
@@ -422,7 +449,7 @@ class MegaWindow:
                 sd=ch.spawn_dispatches, init_words=self.world["NI"],
                 site_targets=self.site_targets[sp["name"]],
                 site_offsets=[ch.spawn_offsets[t] for t, _ in sp["sites"]],
-                field_nulls=sp["nulls"]))
+                field_nulls=sp["nulls"], blob=sp["blob"]))
         out.append("#define PONY_COHORTS(X) " + " ".join(
             f"X(PonyC{k})" for k in range(len(self.specs))))
         for k, sp in enumerate(self.host_specs):
@@ -558,7 +585,8 @@ class MegaWindow:
                                  f"contiguous {dt} {shape} on {dev}")
         if forced:
             prev_aux = zero_aux(dev)
-        new = {f: getattr(st, f).clone() for f in _UPDATED}
+        new = {f: getattr(st, f).clone() for f in _UPDATED
+               + (BLOB_LEAVES if self.blob else ())}
         for f, t in list(new.items()) + [("rspill_words", st.rspill_words)]:
             if not t.is_contiguous() or t.device != dev:
                 raise ValueError(f"window kernel: state leaf {f} must be "
@@ -590,6 +618,8 @@ class MegaWindow:
             tensors.append(bufs[sp["name"]])
             tensors += [fields[sp["name"]][f] for f in sp["fields"]]
         tensors += [bufs[sp["name"]] for sp in self.host_specs]
+        if self.blob:
+            tensors += [new[f] for f in BLOB_LEAVES]
         ptrs = _build.pointers(tensors)
         if host:
             err = fn(ptrs, int(limit), int(bool(force)), int(forced), 1,

@@ -200,9 +200,9 @@ Tag = _CapSpec("tag")
 
 
 class _BlobSpec(_CapSpec):
-    """Device blob handle annotation (``Blob`` iso / ``BlobVal`` val).
-    The port does not serve the blob pool yet; the annotations exist so
-    programs declare the same way in both packages."""
+    """Device blob handle annotation (``Blob`` iso / ``BlobVal`` val):
+    a message argument or field holding a handle into the device blob
+    pool (api.BlobPoolView)."""
 
     @property
     def __name__(self) -> str:          # noqa: A003
@@ -221,6 +221,29 @@ def is_blob_val(ann) -> bool:
     return isinstance(ann, _BlobSpec) and ann.mode == "val"
 
 
+# Blob handle encoding: low bits = global pool slot, high bits = the
+# slot's generation at alloc time (state.blob_gen, bumped per alloc). A
+# handle whose generation mismatches its slot's current one is dead: a
+# stale or forged reference to a recycled slot reads null instead of the
+# new owner's words (wraps after 2^10 reuses of a slot). Works on ints,
+# numpy and torch integers; -1 decodes to an out-of-range slot, so null
+# handles stay invalid.
+BLOB_GEN_SHIFT = 20          # pool addressing: shards*blob_slots < 2^20
+BLOB_GEN_MASK = 0x3FF        # 10 generation bits
+
+
+def blob_slot(h):
+    return h & ((1 << BLOB_GEN_SHIFT) - 1)
+
+
+def blob_gen_of(h):
+    return (h >> BLOB_GEN_SHIFT) & BLOB_GEN_MASK
+
+
+def blob_handle(slot, gen):
+    return ((gen & BLOB_GEN_MASK) << BLOB_GEN_SHIFT) | slot
+
+
 def null_word(ann) -> int:
     """The "no value" word for a spec: -1 for actor refs and blob
     handles (0 is a real id for both), 0 otherwise."""
@@ -236,6 +259,37 @@ def cap_mode(ann):
 
 def cap_sendable(mode) -> bool:
     return mode is None or mode in SENDABLE_CAPS
+
+
+def cap_alias(mode):
+    """The capability of an alias of a value (≙ cap_aliasing with
+    TK_ALIASED, type/alias.c): iso aliases as tag, trn as box, everything
+    else as itself."""
+    return {"iso": "tag", "trn": "box"}.get(mode, mode)
+
+
+def viewpoint(origin, field):
+    """Viewpoint adaptation origin▷field (≙ cap_view_upper,
+    type/cap.c:581-711): the capability a reader holding `origin` sees
+    when reading a `field`-capped slot; None where the origin cannot read
+    at all (a tag)."""
+    if origin is None or field is None:
+        return field
+    if origin == "tag":
+        return None
+    if field == "tag":
+        return "tag"
+    if origin == "iso":
+        return {"iso": "iso", "val": "val"}.get(field, "tag")
+    if origin == "trn":
+        return {"iso": "iso", "trn": "trn", "val": "val"}.get(field, "box")
+    if origin == "ref":
+        return field
+    if origin == "val":
+        return "val"
+    if origin == "box":
+        return {"iso": "tag", "val": "val"}.get(field, "box")
+    raise ValueError(f"unknown capability mode {origin!r}")
 
 
 def concrete_null_handle(a) -> bool:

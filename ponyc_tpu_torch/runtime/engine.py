@@ -46,7 +46,7 @@ from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
 
-from ..api import Context
+from ..api import BlobPoolView, Context
 from ..config import RuntimeOptions, check_supported, unported
 from ..ops import fused_dispatch, megakernel, pack
 from ..ops.mailbox_kernel import drain_msgs
@@ -144,19 +144,35 @@ def _dtype_of(spec):
 
 def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
                    field_specs, field_dtypes, lanes: int, max_sends: int,
-                   spawn_resv=None, spawn_meta=None):
+                   spawn_resv=None, spawn_meta=None, blob=None):
     """Evaluate one behaviour on all lanes of a cohort: build the
     Context, tag typed refs and capabilities, run the body, validate and
     broadcast the state update, and collect the when-masked send planes
     padded to the send budget (an unused slot is None). `spawn_resv`
     ({target: [sites, lanes] reserved refs}) and `spawn_meta` ({target:
-    field specs}) serve ctx.spawn and ctx.spawn_sync. Returns (ctx, st2,
-    tgts, words)."""
+    field specs}) serve ctx.spawn and ctx.spawn_sync; `blob` (a pool
+    view, api.BlobPoolView or the lane tracer's) the ctx.blob_* ops.
+    Returns (ctx, st2, tgts, words)."""
     dev = ids_vec.device
     w1 = 1 + msg_words
     ctx = Context(ids_vec, msg_words, spawn_resv=spawn_resv,
-                  spawn_meta=spawn_meta)
+                  spawn_meta=spawn_meta, blob=blob)
     args = pack.unpack_args(bdef.arg_specs, payload)
+    if blob is not None:
+        # A Blob argument is readable only from its own pool; one that
+        # arrived from elsewhere (a forged or off-pool handle) reads as
+        # null and counts in n_blob_remote: loud, never a wrong read.
+        nulled = []
+        for spec, a in zip(bdef.arg_specs, args):
+            if pack.is_blob(spec):
+                a = pack._tensor(a, torch.int32, dev)
+                slot = pack.blob_slot(a)
+                local_ok = ((a >= 0) & (slot >= blob.base)
+                            & (slot < blob.base + blob.nslots))
+                blob.note_remote((a >= 0) & ~local_ok)
+                a = torch.where(local_ok, a, -1)
+            nulled.append(a)
+        args = nulled
     for k, v in st.items():
         ctx.ref_types.tag(v, pack.ref_target(field_specs[k]))
         ctx.cap_types.tag(v, pack.cap_mode(field_specs[k]))
@@ -302,6 +318,17 @@ def spawn_meta_of(program: Program, cohort: Cohort):
             for t, _ in spawn_sites_of(cohort)}
 
 
+def blob_slot_resv(resv, used, sites: int, bd: int, rows: int, dev):
+    """This batch slot's blob reservations from the cohort's [bd, sites,
+    rows] windows: the `used` counter (allocating dispatches so far)
+    walks the BLOB_DISPATCHES axis. Returns ([sites, rows] global slot
+    ids, -1 past the budget; the lanes past their budget)."""
+    sel = torch.full((sites, rows), -1, dtype=torch.int32, device=dev)
+    for d in range(bd):
+        sel = torch.where((used == d)[None, :], resv[d], sel)
+    return sel, used >= bd
+
+
 def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
     """Build the planar per-cohort drain loop (≙ ponyint_actor_run,
     actor.c:383-549): pop ≤batch messages per actor, dispatch each,
@@ -321,7 +348,16 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
     values}) in the same order where a behaviour sync-constructs, else
     None, and the spawn fail as one bool (None without spawn sites).
     ops/fused_dispatch.py computes the same in one kernel, and uses this
-    as its plain version."""
+    as its plain version.
+
+    The blob pool (a cohort that uses it): `blob` is a dict of the pool's
+    working copies (data, used, len, gen, each with the dropping slot
+    last; api.BlobPoolView), `base` and `resv` ([bd, sites, rows] global
+    slot ids, None without alloc sites). The behaviours update the
+    copies in place, batch slot by batch slot; a lane's used counter
+    hands each dispatch that allocates the next of its BLOB_DISPATCHES
+    windows. With `blob`, one more result: (fail, budget fail, allocs,
+    frees, remote args)."""
     msg_words = opts.msg_words          # outbox width (program-wide max)
     ms = cohort.max_sends
     batch = cohort.batch
@@ -337,11 +373,18 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
     sd = cohort.spawn_dispatches
     meta = spawn_meta or {}
 
-    def dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv=()):
+    bsites, bd = cohort.blob_sites, cohort.blob_dispatches
+
+    def dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv=(),
+                 blob=None):
         dev = ids.device
         i32, b = torch.int32, torch.bool
         e = rows * batch * ms
         msgs, valids = drain_msgs(buf_rows, head_rows, n_run, batch)
+        bacc = None
+        if blob is not None:
+            bused = torch.zeros((rows,), dtype=i32, device=dev)
+            bacc = []                      # every view of the drain
 
         def z(dtype):
             return torch.zeros((rows,), dtype=dtype, device=dev)
@@ -384,13 +427,27 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
             ini_n = [None for _ in sites]
             ef_n = ec_n = yf_n = ds_n = erf_n = erc_n = erl_n = None
             sf_n = None
+            if blob is not None:
+                rblob, rover = (blob_slot_resv(blob["resv"], bused, bsites,
+                                               bd, rows, dev)
+                                if bsites else (None, None))
+                alloced = torch.zeros((rows,), dtype=b, device=dev)
             for j, bdef in enumerate(behaviours):
                 take = do & in_range & (local == j)
+                bv = None
+                if blob is not None:
+                    bv = BlobPoolView(blob["data"], blob["used"],
+                                      blob["len"], blob["gen"],
+                                      blob["base"], take, rblob,
+                                      budget_over=rover)
+                    bacc.append(bv)
                 ctx, st2, btgt, bwrd = eval_behaviour(
                     bdef, st, msg[1:], ids, msg_words=msg_words,
                     field_specs=field_specs, field_dtypes=field_dtypes,
                     lanes=rows, max_sends=ms, spawn_resv=resv_k,
-                    spawn_meta=meta)
+                    spawn_meta=meta, blob=bv)
+                if bv is not None:
+                    alloced = alloced | bv.alloced
                 effects["destroy"] |= ctx.destroy_called
                 effects["error"] |= ctx.error_called
                 # Selects that cannot change anything are skipped: on
@@ -427,6 +484,8 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
                         effects["sync"] = True
                         ini_n[t] = _merge_inits(take, bini[t], ini_n[t],
                                                 meta[tname], n, rows, dev)
+            if blob is not None:         # dispatches that allocated
+                bused = bused + alloced.to(i32)
             if ef_n is not None:         # exit: the first code wins
                 if ef is None:
                     ef, ec = z(b), z(i32)
@@ -494,11 +553,21 @@ def _plain_dispatch(cohort: Cohort, opts: RuntimeOptions, spawn_meta=None):
         if sites:
             sfail = torch.zeros((), dtype=b, device=dev) if sfail is None \
                 else sfail.any()
-        return (st, out, head_rows + n_consumed, any_exit, code,
-                _isum(nproc), _isum(nbad),
-                dstr if effects["destroy"] else None,
-                (errf, errc, errl) if effects["error"] else None,
-                claims, inits, sfail)
+        res = (st, out, head_rows + n_consumed, any_exit, code,
+               _isum(nproc), _isum(nbad),
+               dstr if effects["destroy"] else None,
+               (errf, errc, errl) if effects["error"] else None,
+               claims, inits, sfail)
+        if blob is None:
+            return res
+        zb = torch.zeros((), dtype=b, device=dev)
+        zi = torch.zeros((), dtype=i32, device=dev)
+        bout = (zb, zb, zi, zi, zi)
+        for v in bacc:
+            bout = (bout[0] | v.fail, bout[1] | v.budget_fail,
+                    bout[2] + v.n_alloc, bout[3] + v.n_free,
+                    bout[4] + v.n_remote)
+        return res + (bout,)
 
     return dispatch
 
@@ -555,7 +624,9 @@ def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions,
     meta = spawn_meta_of(program, cohort)
     fused = None
     dispatch = None
-    if opts.pallas_fused and cohort.behaviours:
+    # A cohort that uses the blob pool takes the plain loop under
+    # pallas_fused, as in the JAX package (its fused kernel has no pool).
+    if opts.pallas_fused and cohort.behaviours and not cohort.uses_blobs:
         progs = fused_dispatch.trace_cohort(cohort, opts, meta)
         if fused_dispatch.eligible(cohort, progs):
             fused = dispatch = fused_dispatch.build_fused_dispatch(
@@ -564,9 +635,13 @@ def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions,
         dispatch = _plain_dispatch(cohort, opts, meta)
 
     def run_cohort(ts_rows, buf_rows, head_rows, occ_rows, runnable_rows,
-                   ids, resv=()):
+                   ids, resv=(), blob=None):
         n_run = torch.where(runnable_rows, occ_rows.clamp(max=batch), 0)
-        return dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv)
+        if blob is not None:
+            return dispatch(ts_rows, buf_rows, head_rows, n_run, ids, resv,
+                            blob)
+        return dispatch(ts_rows, buf_rows, head_rows, n_run, ids,
+                        resv) + (None,)
 
     return run_cohort, fused
 
@@ -618,6 +693,41 @@ def spawn_reservations(ch: Cohort, runnable, free_rows, base: int):
                            -1)
         out.append(refs.reshape(per, -1))
     return out
+
+
+def free_blob_list(used, base: int):
+    """The blob pool's free slots in ascending order as global slot ids
+    (≙ the JAX package's compact_mask(~blob_used)), then -1: [n + 1],
+    so that the last entry is the fill of an index past the pool."""
+    n = used.shape[0]
+    free = ~used
+    pos = torch.where(free, torch.cumsum(free.to(torch.int32), 0) - 1, n)
+    out = torch.full((n + 1,), -1, dtype=torch.int32, device=used.device)
+    out[pos.long()] = base + torch.arange(n, dtype=torch.int32,
+                                          device=used.device)
+    return out
+
+
+def blob_reservations(ch: Cohort, runnable, free_blob):
+    """Allocating cohort `ch`'s blob reservations, [bd, sites, rows]
+    global slot ids (≙ pony_alloc on the owning actor's heap, done ahead
+    of the dispatch): the runnable actors, ranked by a prefix sum over the
+    runnable mask, get disjoint windows of bd * sites free slots at the
+    cohort's static offset (Program._resolve_blobs); an index past the
+    free list, or an actor that cannot run, reserves -1."""
+    sites, bd = ch.blob_sites, ch.blob_dispatches
+    dev = runnable.device
+    n = free_blob.shape[0] - 1
+    run_c = runnable[ch.local_start:ch.local_stop]
+    rank = torch.cumsum(run_c.to(torch.int32), 0) - 1
+    widx = torch.where(run_c, rank * (bd * sites), 0)
+    idx = (ch.blob_offset + widx[None, None, :]
+           + (torch.arange(bd, dtype=torch.int32, device=dev)
+              * sites)[:, None, None]
+           + torch.arange(sites, dtype=torch.int32, device=dev)[None, :,
+                                                                 None])
+    got = free_blob[torch.where(idx < n, idx, n).long()]
+    return torch.where(run_c[None, None, :], got, -1)
 
 
 def apply_claims(tc: Cohort, clist, alive, head, tail, ts, base: int,
@@ -689,6 +799,9 @@ def build_step(program: Program, opts: RuntimeOptions):
         (ch.atype.__name__, ch.local_start, ch.local_stop,
          1 + ch.msg_words) for ch in program.cohorts)
     consts: Dict[Any, torch.Tensor] = {}   # device -> priority row table
+    bsl = opts.blob_slots
+    blob_users = any(ch.uses_blobs for ch in dev_cohorts)
+    blob_allocs = any(ch.blob_sites for ch in dev_cohorts)
 
     def step(st: RtState, inject_tgt, inject_words
              ) -> Tuple[RtState, StepAux]:
@@ -757,6 +870,28 @@ def build_step(program: Program, opts: RuntimeOptions):
                              dspill_pending)
             for t in program.spawn_target_names}
 
+        # --- 1c. the device blob pool (≙ the actor heap): working copies
+        # the blob-using cohorts update in place (each with one more slot
+        # that takes the writes of lanes that must not write), and this
+        # tick's free slots, compacted in ascending order, from which each
+        # allocating cohort hands its runnable actors disjoint windows
+        # (`blob_reservations`). The JAX package skips the compaction when
+        # no allocating cohort has queued work; its windows are then never
+        # read, so computing it always gives the same result.
+        pool = free_blob = None
+        if blob_users:
+            def wcopy(x):
+                return torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], -1)
+            pool = {"data": wcopy(st.blob_data), "used": wcopy(st.blob_used),
+                    "len": wcopy(st.blob_len), "gen": wcopy(st.blob_gen),
+                    "base": base}
+            if blob_allocs:
+                free_blob = free_blob_list(st.blob_used, base)
+        blob_fail = st.blob_fail[0]
+        blob_budget = st.blob_budget_fail[0]
+        nb_alloc = nb_free = nb_remote = torch.zeros((), dtype=i32,
+                                                     device=dev)
+
         # --- 2. drain + dispatch per cohort (≙ the actor run loop).
         new_type_state: Dict[str, Dict[str, torch.Tensor]] = dict(
             st.type_state)
@@ -775,12 +910,23 @@ def build_step(program: Program, opts: RuntimeOptions):
             s0, s1 = ch.local_start, ch.local_stop
             ids = base + s0 + torch.arange(ch.local_capacity, dtype=i32,
                                            device=dev)
+            blobd = None
+            if pool is not None and ch.uses_blobs:
+                blobd = dict(pool, resv=blob_reservations(
+                    ch, runnable, free_blob) if ch.blob_sites else None)
             (stf, out, new_head_rows, ef, ec, nproc, nbad, dstr,
-             errs, claims, inits, sfail) = run_cohort(
+             errs, claims, inits, sfail, bout) = run_cohort(
                 st.type_state[ch.atype.__name__],
                 st.buf[ch.atype.__name__], st.head[s0:s1], occ0[s0:s1],
                 runnable[s0:s1], ids,
-                spawn_reservations(ch, runnable, free_rows, base))
+                spawn_reservations(ch, runnable, free_rows, base),
+                blob=blobd)
+            if bout is not None:
+                blob_fail = blob_fail | bout[0]
+                blob_budget = blob_budget | bout[1]
+                nb_alloc = nb_alloc + bout[2]
+                nb_free = nb_free + bout[3]
+                nb_remote = nb_remote + bout[4]
             new_type_state[ch.atype.__name__] = stf
             for (t, _), cl, ini in zip(spawn_sites_of(ch), claims, inits):
                 claim_lists[t].append((cl, ini))
@@ -932,6 +1078,19 @@ def build_step(program: Program, opts: RuntimeOptions):
         def vec(x, dtype=i32):      # per-shard "scalar" → [1]
             return x.to(dtype).reshape(1)
 
+        blob_leaves = {}
+        if pool is not None:
+            blob_leaves = dict(
+                blob_data=pool["data"][:, :bsl].contiguous(),
+                blob_used=pool["used"][:bsl].contiguous(),
+                blob_len=pool["len"][:bsl].contiguous(),
+                blob_gen=pool["gen"][:bsl].contiguous(),
+                blob_fail=vec(blob_fail, b),
+                blob_budget_fail=vec(blob_budget, b),
+                n_blob_alloc=vec(st.n_blob_alloc[0] + nb_alloc),
+                n_blob_free=vec(st.n_blob_free[0] + nb_free),
+                n_blob_remote=vec(st.n_blob_remote[0] + nb_remote))
+
         st2 = dataclasses.replace(
             st,
             buf=res.buf, head=new_head, tail=new_tail,
@@ -956,12 +1115,13 @@ def build_step(program: Program, opts: RuntimeOptions):
             plan_bounds=res.plan_bounds,
             world_bits=vec(wb_new),
             type_state=new_type_state,
+            **blob_leaves,
         )
         aux = StepAux(
             device_pending=device_pending, host_pending=host_pending,
             exit_flag=exit_f, exit_code=exit_c,
             spill_overflow=overflow, spawn_fail=spawn_fail,
-            blob_fail=false, blob_budget_fail=false,
+            blob_fail=blob_fail, blob_budget_fail=blob_budget,
             any_muted=any_muted,
             n_processed=nproc_cum, n_delivered=ndel_cum,
             occ_sum=zero, occ_max=zero, n_muted_now=zero,

@@ -15,6 +15,13 @@ occupied (`host_pending`), and the run loop drains them (`_drain_host`).
 Messages from a host sender to a host target skip the device and queue
 on the host fast lane (`opts.host_fastpath`).
 
+Memory: the collector (`gc`, runtime/gc.py; `release` and `pin` move the
+host's roots) runs at host boundaries every `cd_interval` ticks once the
+host released an actor or the program spawns on the device, and early
+under host-heap pressure (`heap`, hostmem.py). The host reads and writes
+the device blob pool between windows (`blob_store`, `blob_fetch`, ...),
+and owns the handles it stored until a send moves them.
+
 The loop dispatches one window of up to `quiesce_interval` ticks per
 iteration (engine.build_multi_step_gated) and reads back one small
 vector of control scalars to decide termination — the analog of the
@@ -59,6 +66,15 @@ class SpawnCapacityError(RuntimeError):
     """A device-side spawn wanted a slot but found none."""
 
     code = ERROR_CODES["SpawnCapacityError"]
+
+
+class BlobCapacityError(RuntimeError):
+    """A device-side ctx.blob_alloc() wanted a pool slot but its window
+    had none free — raise RuntimeOptions.blob_slots (or the class's
+    BLOB_DISPATCHES, as the message says), or free blobs faster.
+    ≙ pony_alloc exhausting the heap."""
+
+    code = ERROR_CODES["BlobCapacityError"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -202,6 +218,20 @@ class Runtime:
         self._qi_loaded = 0
         self._state_epoch = 0
         self._rl_windows = 0          # retired windows (cache write-back)
+        # The collector and the blob pool (host side).
+        self._gc_fn = None
+        self._ever_released = False
+        self._last_gc_step = 0
+        self._next_gc = self.opts.gc_initial   # ≙ heap.c next_gc
+        self._idle_boundaries = 0     # skipped host-only boundaries; they
+        #   count toward the cd_interval cadence
+        self._heap = None
+        self._host_blobs: set = set()  # handles the host owns (GC roots)
+        self._blob_epoch = None       # state epoch of the pool cache below
+        self._blob_cache = None       # host (used, gen), and the lowest
+        #   slot that may be free
+        self._pool_own = None         # state epoch whose pool leaves the
+        #   host blob ops cloned, and may write in place
 
     @property
     def state(self) -> Optional[RtState]:
@@ -452,6 +482,38 @@ class Runtime:
                     v, want, f"field {atype.__name__}.{fname}")
 
     # ---- external sends (≙ pony_sendv from outside the runtime) ----
+    def _check_host_iso_blob(self, h: int) -> None:
+        """An iso Blob handle leaving the host must be host-owned (in
+        _host_blobs: blob_store mints ownership, host delivery of an iso
+        Blob argument transfers it). Anything else — a second send, a
+        stale handle, a forged int — is an aliased move, rejected as
+        HostHeap.send_iso and the device trace's use-after-move are
+        (null, -1, rides freely)."""
+        if h >= 0 and h not in self._host_blobs:
+            from ..hostmem import CapabilityError
+            raise CapabilityError(
+                f"capability: aliased move — iso blob handle {h} is not "
+                "owned by the host (already sent, freed, or never "
+                "obtained via blob_store/host delivery); an iso is "
+                "moved-unique — use a BlobVal parameter for shared "
+                "payloads")
+
+    def _move_host_blobs(self, specs, cols) -> None:
+        """Iso Blob arguments of a send leave the host: check each is
+        host-owned, then drop the host's roots (the in-flight message
+        keeps the blob alive until its receiver owns it). Val handles
+        alias: the host keeps its root until blob_release."""
+        if self.opts.blob_slots <= 0:
+            return
+        isos = [np.asarray(c).reshape(-1) for spec, c in zip(specs, cols)
+                if pack.is_blob(spec) and not pack.is_blob_val(spec)]
+        for col in isos:
+            for a in col:
+                self._check_host_iso_blob(int(a))
+        for col in isos:
+            for a in col:
+                self._host_blobs.discard(int(a))
+
     def send(self, target: int, behaviour_def: BehaviourDef, *args):
         if behaviour_def.global_id is None:
             raise RuntimeError(f"{behaviour_def} not part of this program")
@@ -463,6 +525,16 @@ class Runtime:
         words[0] = behaviour_def.global_id
         words[1:] = _host_pack_args(behaviour_def.arg_specs, args,
                                     self.opts.msg_words)
+        # Iso payloads move with the message (≙ the gc.c send handler),
+        # after packing validated, so a failed send never poisons a
+        # handle: a host-heap handle goes in flight (hostmem.HostHeap),
+        # a blob handle stops being a host root.
+        if self._heap is not None:
+            for spec, a in zip(behaviour_def.arg_specs, args):
+                if (pack.cap_mode(spec) == "iso"
+                        and not pack.is_blob(spec) and int(a) > 0):
+                    self._heap.send_iso(int(a))
+        self._move_host_blobs(behaviour_def.arg_specs, args)
         # Host senders (the API and host behaviours both run here) to
         # host targets take the fast lane; everything else rides the
         # device inject path. A sender's messages to one receiver always
@@ -489,6 +561,7 @@ class Runtime:
         self._check_ref_args(behaviour_def.arg_specs, arg_cols,
                              f"{behaviour_def.actor_type.__name__}."
                              f"{behaviour_def.name}")
+        self._move_host_blobs(behaviour_def.arg_specs, arg_cols)
         k = len(targets)
         words = np.zeros((k, 1 + self.opts.msg_words), np.int32)
         words[:, 0] = behaviour_def.global_id
@@ -622,6 +695,19 @@ class Runtime:
         ctx = HostContext(self, aid)
         st = self._host_state.get(aid, {})
         args = _host_unpack_args(bdef.arg_specs, payload)
+        if self._heap is not None:
+            # Delivery completes an iso move: the receiver may peek or
+            # unbox now (≙ the gc.c recv handler).
+            for spec, a in zip(bdef.arg_specs, args):
+                if pack.cap_mode(spec) == "iso" and int(a) > 0:
+                    self._heap.receive(int(a))
+        if self.opts.blob_slots > 0:
+            # An iso Blob delivered to a host actor is the host's now (a
+            # GC root, and legitimately sent on).
+            for spec, a in zip(bdef.arg_specs, args):
+                if (pack.is_blob(spec) and not pack.is_blob_val(spec)
+                        and int(a) >= 0):
+                    self._host_blobs.add(int(a))
         try:
             st2 = bdef.fn(ctx, st, *args)
         except PonyError as e:
@@ -723,6 +809,19 @@ class Runtime:
         if a.spawn_fail:
             raise SpawnCapacityError(
                 f"device spawn found no free slot by step {self.steps_run}")
+        if a.blob_fail:
+            raise BlobCapacityError(
+                f"device blob_alloc found no free pool slot by step "
+                f"{self.steps_run} — the pool is exhausted: raise "
+                "RuntimeOptions.blob_slots, or free blobs "
+                "(ctx.blob_free) faster")
+        if a.blob_budget_fail:
+            raise BlobCapacityError(
+                f"device blob_alloc exceeded its per-tick reservation "
+                f"budget by step {self.steps_run} — more allocating "
+                "dispatches than BLOB_DISPATCHES in one tick (free "
+                "pool slots may remain): raise the actor class's "
+                "BLOB_DISPATCHES (or lower its batch)")
 
     @staticmethod
     def _clean_busy(a) -> bool:
@@ -754,6 +853,7 @@ class Runtime:
                             and not a.host_pending and not self._inject_q
                             and not self._device_dirty):
                         skipped += 1
+                        self._idle_boundaries += 1
                     else:
                         budget = ctrl.window
                         if max_steps is not None:
@@ -791,6 +891,7 @@ class Runtime:
                 # drain just produced, dispatch now, without a device
                 # window a hop.
                 self._drain_host_fast(self.opts.host_fastpath_budget)
+                self._maybe_gc()
                 if self._exit_requested:
                     self._exit_requested = False    # consume the request
                     break
@@ -846,6 +947,270 @@ class Runtime:
                                           ctrl.window, self.device)
             self._qi_loaded = ctrl.window
         return self._exit_code
+
+    def _maybe_gc(self) -> None:
+        """The run loop's periodic collection (≙ the cycle detector run
+        off scheduler 0's idle path every --ponycdinterval,
+        scheduler.c:976-989): every `cd_interval` ticks (skipped host-only
+        boundaries count), once anything can be garbage — the host
+        released an actor, or actors spawn on the device — and early when
+        the host heap grew past its next trigger (≙ heap.c next_gc with
+        --ponygcinitial/--ponygcfactor, start.c:204-209)."""
+        if self.opts.noblock or not (self._ever_released
+                                     or self.program.has_device_spawns):
+            return
+        heap_pressure = (self._heap is not None
+                         and self._heap.bytes_since_gc > self._next_gc)
+        eff_step = self.steps_run + self._idle_boundaries
+        if heap_pressure or (self.opts.cd_interval > 0
+                             and eff_step - self._last_gc_step
+                             >= self.opts.cd_interval):
+            self._last_gc_step = eff_step
+            self.gc()
+
+    # ---- the collector (≙ ORCA + the cycle detector; runtime/gc.py) ----
+    def _set_flag_column(self, column: str, ids, value: bool) -> None:
+        """Set a per-actor bool column host-side. A flag never frees a
+        slot, so the spawn freelists stay valid."""
+        ids = self._tensor(np.asarray(ids, np.int64).reshape(-1),
+                           torch.int64)
+        fkey = self._freelist_key
+        col = getattr(self.state, column).clone()
+        col[ids] = value
+        self.state = self._replace(**{column: col})
+        self._freelist_key = fkey
+
+    def release(self, ids) -> None:
+        """Drop the host's reference(s): the actors become collectable
+        once they are unreachable and message-quiet (runtime/gc.py)."""
+        self._set_flag_column("pinned", ids, False)
+        self._ever_released = True
+
+    def pin(self, ids) -> None:
+        """(Re-)pin actors as host-held GC roots."""
+        self._set_flag_column("pinned", ids, True)
+
+    def gc(self) -> int:
+        """Run one collection: trace reachability from the roots, free
+        every actor not reached and sweep the blobs nothing holds (≙ ORCA
+        and the cycle detector in one pass; runtime/gc.py). Returns the
+        number of actors collected."""
+        if self.state is None:
+            raise RuntimeError("call start() first")
+        from . import gc as gc_mod
+        if self._gc_fn is None:
+            self._gc_fn = gc_mod.build_gc(self.program, self.opts)
+            self._ref_mask = gc_mod.build_ref_arg_mask(
+                self.program, self.opts.msg_words)
+            self._blob_mask = gc_mod.build_blob_arg_mask(
+                self.program, self.opts.msg_words)
+        # Host-side roots: refs in host-actor state and in queued
+        # injections (they reach the device later), and the blobs the
+        # host owns or has queued.
+        total = self.program.total
+        extra = np.zeros((total,), bool)
+        for aid, stt in self._host_state.items():
+            cohort = self.program.cohort_of(aid)
+            for fname, spec in cohort.atype.field_specs.items():
+                if pack.is_ref(spec):
+                    v = int(stt.get(fname, -1))
+                    if 0 <= v < total:
+                        extra[v] = True
+        n_blob = self.program.shards * self.opts.blob_slots
+        blob_roots = np.zeros((n_blob,), bool)
+        for h in self._host_blobs:
+            slot = pack.blob_slot(int(h))
+            if h >= 0 and 0 <= slot < n_blob:
+                blob_roots[slot] = True
+        for t, w in list(self._inject_q) + list(self._host_fast_q):
+            if 0 <= t < total:
+                extra[t] = True
+            gid = int(w[0])
+            if 0 <= gid < self._ref_mask.shape[0]:
+                for i in np.nonzero(self._ref_mask[gid])[0]:
+                    v = int(w[1 + i])
+                    if 0 <= v < total:
+                        extra[v] = True
+                for i in np.nonzero(self._blob_mask[gid])[0]:
+                    v = int(w[1 + i])
+                    slot = pack.blob_slot(v)
+                    if v >= 0 and 0 <= slot < n_blob:
+                        blob_roots[slot] = True
+        before = self.counter("n_collected")
+        fkey = self._freelist_key
+        self.state, (_n, converged, iters, n_swept) = self._gc_fn(
+            self.state, self._tensor(extra, torch.bool),
+            self._tensor(blob_roots, torch.bool))
+        collected = self.counter("n_collected") - before
+        if not collected:
+            self._freelist_key = fkey     # no slot was freed
+        self.totals["gc_runs"] += 1
+        self.totals["gc_iters"] += int(iters)
+        self.totals["gc_swept_blobs"] += int(n_swept)
+        if not converged:
+            self.totals["gc_aborted"] += 1
+        # ≙ heap.c's next_gc update after a collection: every collection,
+        # manual included, clears the allocation-pressure signal.
+        if self._heap is not None:
+            self._heap.bytes_since_gc = 0
+            self._next_gc = max(self.opts.gc_initial,
+                                int(self._heap.bytes_live
+                                    * self.opts.gc_factor))
+        return collected
+
+    @property
+    def heap(self):
+        """Host object heap for rich message payloads (hostmem.py)."""
+        if self._heap is None:
+            from ..hostmem import HostHeap
+            self._heap = HostHeap()
+        return self._heap
+
+    # ---- the device blob pool, host side ----
+    def _pool_host(self):
+        """(used, gen) of the pool as host arrays, and the lowest slot that
+        may be free: read from the device once per state write that was
+        not a host blob op (those keep it current)."""
+        if self._blob_epoch != self._state_epoch:
+            st = self.state
+            self._blob_cache = [st.blob_used.cpu().numpy().copy(),
+                                st.blob_gen.cpu().numpy().copy(), 0]
+            self._blob_epoch = self._state_epoch
+        return self._blob_cache
+
+    def _pool_write(self, slot: int, **cols) -> None:
+        """Write one slot of the pool leaves named in `cols` ({leaf: value
+        of the slot}; n_blob_alloc/n_blob_free: added), cloning the pool's
+        leaves on the first write since another state write, then in
+        place, so that a run of host blob ops costs no whole-pool copy
+        each."""
+        if self._pool_own != self._state_epoch:
+            st = self.state
+            self._pool_host()
+            fkey = self._freelist_key
+            self.state = self._replace(**{
+                f: getattr(st, f).clone() for f in (
+                    "blob_data", "blob_used", "blob_len", "blob_gen",
+                    "n_blob_alloc", "n_blob_free")})
+            self._freelist_key = fkey
+            self._blob_epoch = self._pool_own = self._state_epoch
+        st = self.state
+        for f, v in cols.items():
+            t = getattr(st, f)
+            if f.startswith("n_"):
+                t[0] += v
+            elif t.dim() == 2:
+                t[:, slot] = self._tensor(v, t.dtype)
+            else:
+                t[slot] = v
+
+    def _blob_slot_of(self, handle: int, what: str) -> int:
+        """Decode and validate a handle host-side (range, allocation,
+        generation: a stale handle to a recycled slot is rejected)."""
+        n = self.program.shards * self.opts.blob_slots
+        slot = pack.blob_slot(int(handle))
+        if handle < 0 or not 0 <= slot < n:
+            raise IndexError(f"{what}: blob handle {handle} out of range")
+        used, gen, _ = self._pool_host()
+        if not used[slot]:
+            raise KeyError(f"{what}: blob handle {handle} is not "
+                           "allocated")
+        if (int(gen[slot]) & pack.BLOB_GEN_MASK) != pack.blob_gen_of(
+                int(handle)):
+            raise KeyError(f"{what}: blob handle {handle} is STALE — "
+                           "its slot was recycled (generation mismatch)")
+        return slot
+
+    def blob_fetch(self, handle: int) -> np.ndarray:
+        """Host-side read of a device blob's logical words (≙ receiving a
+        payload on the main-thread scheduler). Raises on null,
+        unallocated and stale handles."""
+        slot = self._blob_slot_of(handle, "blob_fetch")
+        ln = int(self.state.blob_len[slot])
+        return self.state.blob_data[:ln, slot].cpu().numpy()
+
+    def blob_store(self, words, length: Optional[int] = None,
+                   near: Optional[int] = None) -> int:
+        """Host-side blob allocation between windows (≙ the embedder
+        building a message payload, pony_alloc_msg): claims the lowest
+        free pool slot, writes `words` (int32, at most blob_words),
+        returns the handle, which the host owns until a send moves it.
+        `near` names an actor whose shard should own the slot (one shard
+        here: every slot is near)."""
+        if self.opts.blob_slots <= 0:
+            raise RuntimeError("blob pool disabled: set "
+                               "RuntimeOptions.blob_slots/blob_words")
+        w = np.asarray(words, np.int32).reshape(-1)
+        if w.shape[0] > self.opts.blob_words:
+            raise ValueError(
+                f"{w.shape[0]} words > blob_words={self.opts.blob_words}")
+        ln = w.shape[0] if length is None else int(length)
+        if not 0 <= ln <= self.opts.blob_words:
+            raise ValueError(
+                f"length={ln} outside [0, blob_words="
+                f"{self.opts.blob_words}]")
+        cache = self._pool_host()
+        used, gen = cache[0], cache[1]
+        slot = cache[2]
+        while slot < used.shape[0] and used[slot]:
+            slot += 1
+        if slot >= used.shape[0]:
+            raise BlobCapacityError("host blob_store: pool exhausted")
+        full = np.zeros((self.opts.blob_words,), np.int32)
+        full[:w.shape[0]] = w
+        g = (int(gen[slot]) + 1) & pack.BLOB_GEN_MASK
+        self._pool_write(slot, blob_data=full, blob_used=True,
+                         blob_len=ln, blob_gen=g, n_blob_alloc=1)
+        used[slot], gen[slot], cache[2] = True, g, slot + 1
+        handle = pack.blob_handle(slot, g)
+        self._host_blobs.add(handle)    # a GC root until sent or freed
+        return handle
+
+    def blob_free_host(self, handle: int) -> None:
+        """Host-side release of a blob the host owns. Double frees and
+        stale handles are rejected."""
+        slot = self._blob_slot_of(handle, "blob_free_host")
+        self._pool_write(slot, blob_used=False, blob_len=0, n_blob_free=1)
+        cache = self._blob_cache
+        cache[0][slot] = False
+        cache[2] = min(cache[2], slot)
+        self._host_blobs.discard(int(handle))
+
+    def blob_store_str(self, text: str, near: Optional[int] = None) -> int:
+        """Store a UTF-8 string as a device blob (4 bytes a word; pair
+        with blob_fetch_str). A NUL in the text is rejected: it would be
+        indistinguishable from the last word's padding."""
+        raw = text.encode("utf-8")
+        if b"\x00" in raw:
+            raise ValueError(
+                "blob_store_str: NUL (U+0000) in text is "
+                "indistinguishable from word padding; store raw words "
+                "with blob_store instead")
+        if len(raw) > 4 * self.opts.blob_words:
+            raise ValueError(
+                f"{len(raw)} bytes > 4*blob_words="
+                f"{4 * self.opts.blob_words}")
+        padded = raw + b"\x00" * (-len(raw) % 4)
+        words = np.frombuffer(padded, np.int32) if padded else \
+            np.zeros((0,), np.int32)
+        return self.blob_store(words, near=near)
+
+    def blob_fetch_str(self, handle: int) -> str:
+        """Read back a blob_store_str payload."""
+        words = np.ascontiguousarray(self.blob_fetch(handle), np.int32)
+        return words.tobytes().rstrip(b"\x00").decode("utf-8")
+
+    def blob_release(self, handle: int) -> None:
+        """Drop the host's GC root on a handle without freeing the slot
+        (the val-blob release: device readers may still hold it; the next
+        gc() reclaims it once nothing does)."""
+        self._host_blobs.discard(int(handle))
+
+    @property
+    def blobs_in_use(self) -> int:
+        """Allocated pool slots (a leak shows here: an orphaned blob
+        persists until the next gc() sweeps it)."""
+        return int(self.state.blob_used.sum())
 
     # ---- introspection ----
     def check_invariants(self) -> None:

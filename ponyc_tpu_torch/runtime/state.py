@@ -16,10 +16,11 @@ threads of a warp handle neighbouring actors and touch neighbouring
 addresses.
 
 Field names, shapes and dtypes match the JAX package's RtState one for
-one, so a world can be carried across (interop.py). The analysis,
-tracing and blob-pool fields exist with the zero length the reference
-gives them when those features are off; this slice of the port serves
-none of them (config.check_supported).
+one, so a world can be carried across (interop.py). The analysis and
+tracing fields exist with the zero length the reference gives them when
+those features are off; this slice of the port serves neither
+(config.check_supported). The blob pool is sized by
+RuntimeOptions.blob_slots and blob_words (zero-size when off).
 """
 
 from __future__ import annotations
@@ -117,16 +118,23 @@ class RtState:
     plan_key: torch.Tensor      # [P*E] int32 — last tick's sort key
     plan_perm: torch.Tensor     # [P*E] int32 — its stable-sort permutation
     plan_bounds: torch.Tensor   # [P*(n_local+1)] int32 segment bounds
-    blob_data: torch.Tensor     # [0, 0] (blob pool off)
-    blob_used: torch.Tensor
-    blob_len: torch.Tensor
-    blob_gen: torch.Tensor
-    blob_fail: torch.Tensor
-    blob_budget_fail: torch.Tensor
-    n_blob_alloc: torch.Tensor
-    n_blob_free: torch.Tensor
-    n_blob_remote: torch.Tensor
-    n_blob_moved: torch.Tensor
+    # Device blob pool (≙ actor-heap message payloads, pony_alloc_msg;
+    # see api.BlobPoolView): payloads wider than msg_words ride messages
+    # as handles (ops.pack.blob_handle: slot | generation << 20; -1 null).
+    # Planar like every hot array: word index major, slot minor.
+    blob_data: torch.Tensor     # [blob_words, P*BS] int32 payload words
+    blob_used: torch.Tensor     # [P*BS] bool — slot allocated
+    blob_len: torch.Tensor      # [P*BS] int32 — logical word count
+    blob_gen: torch.Tensor      # [P*BS] int32 — generation, bumped per alloc
+    blob_fail: torch.Tensor     # [P] bool — sticky: an alloc found the pool
+    #                              exhausted (raise blob_slots)
+    blob_budget_fail: torch.Tensor  # [P] bool — sticky: an alloc fell past
+    #                              its BLOB_DISPATCHES reservation budget
+    n_blob_alloc: torch.Tensor  # [P] int32 — lifetime allocs
+    n_blob_free: torch.Tensor   # [P] int32 — lifetime frees (GC sweeps too)
+    n_blob_remote: torch.Tensor  # [P] int32 — Blob args that arrived
+    #                              undereferenceable (off this pool)
+    n_blob_moved: torch.Tensor  # [P] int32 — migrations (mesh only; 0)
     world_bits: torch.Tensor    # [P] int32 — bit0 pressured, bit1 muted,
     #                              bit2 route spill (previous tick's vote)
     type_state: Dict[str, Dict[str, torch.Tensor]]  # {type: {field: [cap]}}
@@ -187,8 +195,10 @@ def init_state(program: Program, opts: RuntimeOptions,
         plan_key=full((p * n_entries,), -1),
         plan_perm=z((p * n_entries,)),
         plan_bounds=z((p * (program.n_local + 1),)),
-        blob_data=z((opts.blob_words, 0)), blob_used=z((0,), b),
-        blob_len=z((0,)), blob_gen=z((0,)),
+        blob_data=z((opts.blob_words, p * opts.blob_slots)),
+        blob_used=z((p * opts.blob_slots,), b),
+        blob_len=z((p * opts.blob_slots,)),
+        blob_gen=z((p * opts.blob_slots,)),
         blob_fail=z((p,), b), blob_budget_fail=z((p,), b),
         n_blob_alloc=z((p,)), n_blob_free=z((p,)),
         n_blob_remote=z((p,)), n_blob_moved=z((p,)),

@@ -7,6 +7,7 @@ annotations``: the field and argument annotations must be the packages'
 marker objects, evaluated when the classes are built.
 """
 
+import collections
 import importlib
 import types
 
@@ -842,3 +843,307 @@ def run_corpus(pkg, T, name, device="cpu", rt=None, **okw):
                        for t in types},
             "alive": _host(rt.state.alive).tolist(),
             "last_error": _host(rt.state.last_error).tolist()}
+
+
+def define_blobs(pkg):
+    """Actor types of the blob-pool and collector tests (tests/
+    test_blobs.py, tests/test_gc.py, the blob chain of
+    tests/test_differential.py and examples/blob_pipeline.py), built with
+    `pkg`. Bodies use only Python operators: `jnp.int32(0)` is spelt 0
+    and `jnp.where(m, x, 0)` as `x * m`, which both packages evaluate
+    alike."""
+    I32, Ref, Blob, BlobVal = pkg.I32, pkg.Ref, pkg.Blob, pkg.BlobVal
+
+    @pkg.actor
+    class Producer:
+        out: Ref["Consumer"]
+        MAX_BLOBS = 1
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def go(self, st, n: I32):
+            h = self.blob_alloc(length=4)
+            for i in range(4):
+                self.blob_set(h, i, n * 10 + i)
+            self.send(st["out"], Consumer.take, h)
+            return st
+
+    @pkg.actor
+    class Consumer:
+        total: I32
+        seen: I32
+
+        @pkg.behaviour
+        def take(self, st, h: Blob):
+            s = 0
+            for i in range(4):
+                s = s + self.blob_get(h, i)
+            st = {**st, "total": st["total"] + s,
+                  "seen": st["seen"] + self.blob_length(h)}
+            self.blob_free(h)
+            return st
+
+    @pkg.actor
+    class Leaker:
+        n: I32
+        MAX_BLOBS = 1
+
+        @pkg.behaviour
+        def leak(self, st):
+            self.blob_alloc()                   # never freed
+            return st
+
+    @pkg.actor
+    class Hungry:
+        n: I32
+        MAX_BLOBS = 1
+        BLOB_DISPATCHES = 1
+
+        @pkg.behaviour
+        def grab(self, st):
+            self.blob_alloc(length=1)
+            return st
+
+    @pkg.actor
+    class Summer:
+        total: I32
+
+        @pkg.behaviour
+        def add(self, st, h: Blob):
+            s = 0
+            for i in range(3):
+                s = s + self.blob_get(h, i)
+            st = {**st, "total": st["total"] + s}
+            self.blob_free(h)
+            return st
+
+    @pkg.actor
+    class Reader:
+        got: I32
+
+        @pkg.behaviour
+        def probe(self, st, h: Blob):
+            return {**st, "got": st["got"] + self.blob_get(h, 0)}
+
+    @pkg.actor
+    class Holder:
+        stash: Blob
+        MAX_BLOBS = 1
+
+        @pkg.behaviour
+        def keep(self, st):
+            h = self.blob_alloc(length=2)
+            self.blob_set(h, 0, 9)
+            return {**st, "stash": h}
+
+    @pkg.actor
+    class Lean:
+        stash: Blob
+        MAX_BLOBS = 1
+        BLOB_DISPATCHES = 1
+
+        @pkg.behaviour
+        def fill(self, st, v: I32):
+            h = self.blob_alloc(length=1)
+            self.blob_set(h, 0, v)
+            return {**st, "stash": h}
+
+    @pkg.actor
+    class Caster:
+        a: Ref["ValReader"]
+        b: Ref["ValReader"]
+        MAX_BLOBS = 1
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def cast(self, st, x: I32):
+            h = self.blob_alloc(length=2)
+            self.blob_set(h, 0, x)
+            self.blob_set(h, 1, x * 2)
+            v = self.blob_freeze(h)
+            self.send(st["a"], ValReader.read, v)
+            self.send(st["b"], ValReader.read, v)   # alias: legal for val
+            return st
+
+    @pkg.actor
+    class ValReader:
+        got: I32
+
+        @pkg.behaviour
+        def read(self, st, v: BlobVal):
+            return {**st, "got": st["got"] + self.blob_get(v, 0)
+                    + self.blob_get(v, 1)}
+
+    @pkg.actor
+    class Fwd:
+        sink: Ref["Keeper"]
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def fwd(self, st, h: Blob):
+            self.send(st["sink"], Keeper.keep, h)
+            return st
+
+    @pkg.actor
+    class Keeper:
+        held: Blob
+
+        @pkg.behaviour
+        def keep(self, st, h: Blob):
+            return {**st, "held": h}
+
+    @pkg.actor
+    class BlobWalker:
+        """tests/test_differential.py's BlobWalker: each hop reads the
+        token blob's word, frees it, and (while v > 0) allocates a fresh
+        blob carrying word + 1 for the successor."""
+        acc: I32
+        nxt: Ref["BlobWalker"]
+
+        MAX_SENDS = 1
+        MAX_BLOBS = 1
+        BLOB_DISPATCHES = 1
+        BATCH = 1
+
+        @pkg.behaviour
+        def step(self, st, v: I32, h: Blob):
+            w0 = self.blob_get(h, 0)
+            self.blob_free(h)
+            go = v > 0
+            h2 = self.blob_alloc(length=1, when=go)
+            self.blob_set(h2, 0, w0 + 1, when=go)
+            self.send(st["nxt"], BlobWalker.step, v - 1, h2, when=go)
+            return {**st, "acc": st["acc"] + w0}
+
+    @pkg.actor
+    class Tokenizer:
+        """examples/blob_pipeline.py: checksum a line, free it, and
+        broadcast one frozen summary to both reviewers."""
+        a: Ref["Reviewer"]
+        b: Ref["Reviewer"]
+        MAX_BLOBS = 1
+        BATCH = 2
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def take(self, st, line: Blob):
+            ln = self.blob_length(line)
+            s = 0
+            for i in range(PIPE_W):
+                s = s + self.blob_get(line, i) * (i < ln)
+            self.blob_free(line)
+            out = self.blob_alloc(length=2)
+            self.blob_set(out, 0, s)
+            self.blob_set(out, 1, ln)
+            summary = self.blob_freeze(out)
+            self.send(st["a"], Reviewer.review, summary)
+            self.send(st["b"], Reviewer.review, summary)
+            return st
+
+    @pkg.actor
+    class Reviewer:
+        checks: I32
+        words: I32
+        n: I32
+
+        @pkg.behaviour
+        def review(self, st, summary: BlobVal):
+            return {"checks": st["checks"] + self.blob_get(summary, 0),
+                    "words": st["words"] + self.blob_get(summary, 1),
+                    "n": st["n"] + 1}
+
+    @pkg.actor
+    class GNode:
+        """tests/test_gc.py's Node."""
+        next_ref: Ref
+        hits: I32
+
+        @pkg.behaviour
+        def link(self, st, to: Ref):
+            return {**st, "next_ref": to}
+
+        @pkg.behaviour
+        def poke(self, st):
+            return {**st, "hits": st["hits"] + 1}
+
+    return types.SimpleNamespace(
+        Producer=Producer, Consumer=Consumer, Leaker=Leaker, Hungry=Hungry,
+        Summer=Summer, Reader=Reader, Holder=Holder, Lean=Lean,
+        Caster=Caster, ValReader=ValReader, Fwd=Fwd, Keeper=Keeper,
+        BlobWalker=BlobWalker, Tokenizer=Tokenizer, Reviewer=Reviewer,
+        GNode=GNode)
+
+
+PIPE_W = 16       # examples/blob_pipeline.py's pool width
+PIPE_LINES = ("hello pony", "actors all the way down",
+              "payloads live on the device now")
+
+
+def blob_world(rt, *atypes):
+    """What a blob run leaves behind that the packages (and the window
+    kernel's host build) must agree on: counters, ticks, every field,
+    liveness and the pool arrays."""
+    names = ("n_blob_alloc", "n_blob_free", "n_blob_remote", "n_collected")
+    st = rt.state
+    return {"counters": {**counters(rt),
+                         **{n: rt.counter(n) for n in names}},
+            "steps": rt.steps_run, "exit": rt.exit_code,
+            "alive": _host(st.alive).tolist(),
+            "fields": {t.__name__: {f: np.asarray(v).tolist() for f, v in
+                                    rt.cohort_state(t).items()}
+                       for t in atypes},
+            "pool": {f: _host(getattr(st, f)).tolist() for f in (
+                "blob_data", "blob_used", "blob_len", "blob_gen",
+                "blob_fail", "blob_budget_fail")}}
+
+
+def run_blob_chain(pkg, T, seed, opts_kw, n=None, n_starts=6, vmax=10,
+                   device="cpu"):
+    """tests/test_differential.py's run_blob_chain on one shard: a random
+    functional graph of BlobWalkers, chains seeded by host-stored blobs,
+    checked against the sequential oracle. Returns the runtime."""
+    rng = np.random.default_rng(seed)
+    n = n or int(rng.integers(8, 40))
+    nxt = rng.integers(0, n, n)
+    seeds = [(int(rng.integers(0, n)), int(rng.integers(1, vmax)),
+              int(rng.integers(0, 50))) for _ in range(n_starts)]
+    want = np.zeros(n, np.int64)
+    q = collections.deque(seeds)
+    while q:
+        i, v, w = q.popleft()
+        want[i] += w
+        if v > 0:
+            q.append((int(nxt[i]), v - 1, w + 1))
+    rt = new_runtime(pkg, dict(msg_words=3, blob_slots=256, blob_words=2,
+                               **opts_kw), device)
+    rt.declare(T.BlobWalker, n).start()
+    ids = rt.spawn_many(T.BlobWalker, n, acc=0)
+    rt.set_fields(T.BlobWalker, ids, nxt=ids[np.asarray(nxt)])
+    for i, v, w in seeds:
+        h = rt.blob_store([w], near=int(ids[i]))
+        rt.send(int(ids[i]), T.BlobWalker.step, v, h)
+    assert rt.run(max_steps=100_000) == 0
+    st = rt.cohort_state(T.BlobWalker)
+    assert (st["acc"][:n].astype(np.int64) == want).all()
+    assert rt.blobs_in_use == 0
+    assert rt.counter("n_blob_remote") == 0
+    return rt
+
+
+def run_blob_pipeline(pkg, T, device="cpu", **okw):
+    """examples/blob_pipeline.py's program at its own size: lines stored
+    as blobs, tokenized, one frozen summary broadcast to two reviewers,
+    the summaries swept by gc(). Returns (runtime, reviewers, blobs in
+    use before the gc)."""
+    rt = new_runtime(pkg, dict(blob_slots=32, blob_words=PIPE_W,
+                               msg_words=2, max_sends=2, **okw), device)
+    rt.declare(T.Tokenizer, 4).declare(T.Reviewer, 4).start()
+    r1 = rt.spawn(T.Reviewer, checks=0, words=0, n=0)
+    r2 = rt.spawn(T.Reviewer, checks=0, words=0, n=0)
+    tok = rt.spawn(T.Tokenizer, a=r1, b=r2)
+    for text in PIPE_LINES:
+        rt.send(tok, T.Tokenizer.take, rt.blob_store_str(text))
+    rt.run()
+    before = rt.blobs_in_use
+    rt.gc()
+    return rt, (r1, r2), before

@@ -387,3 +387,46 @@ def test_host_worlds_card_match_cpu(world, path):
                     {e: list(v) for e, v in TT.host_logs.items()}))
     assert out[0] == out[1]
     assert out[0][3]["host_processed"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("world", ["chain", "records", "pipeline"])
+def test_blob_worlds_card_match_cpu(world, path):
+    """The blob pool on the card against the CPU, on each path: the blob
+    chain (its oracle checked by run_blob_chain), the records model (its
+    oracle checked by run_records) and the blob pipeline; fields,
+    counters, ticks and the pool's arrays equal; the path's kernel
+    launched (the drain under pallas_fused: the blob cohorts take the
+    plain dispatch)."""
+    _need_cuda()
+    from ponyc_tpu_torch.models import records
+    from _torch_programs import (blob_world, define_blobs, run_blob_chain,
+                                 run_blob_pipeline)
+    tb = define_blobs(ponyc_tpu_torch)
+    out = []
+    for device in ("cuda", "cpu"):
+        before = _launched()
+        if world == "chain":
+            rt = run_blob_chain(ponyc_tpu_torch, tb, 77, dict(
+                mailbox_cap=2, batch=1, max_sends=1, spill_cap=1024,
+                inject_slots=16, **PATHS[path]), n=64, n_starts=12,
+                device=device)
+            types = (tb.BlobWalker,)
+        elif world == "records":
+            rt, _st = records.run_records(
+                8, 6, opts=records.options(8, tuning_cache="off",
+                                           **PATHS[path]), device=device)
+            types = (records.RecSource, records.RecWorker, records.RecSink)
+        else:
+            rt, _r, _b = run_blob_pipeline(ponyc_tpu_torch, tb,
+                                           device=device, **PATHS[path])
+            types = (tb.Tokenizer, tb.Reviewer)
+        moved = [b - a for a, b in zip(before, _launched())]
+        out.append(blob_world(rt, *types))
+        if device == "cuda":
+            k = 0 if path == "fused" and world != "records" \
+                else list(PATHS).index(path)
+            assert moved[k] > 0, moved
+    assert out[0] == out[1]
+    assert out[0]["counters"]["n_blob_alloc"] > 0

@@ -148,11 +148,17 @@ def test_host_reporting_matches_oracle(path):
     _mega_ran(path)
 
 
+# Stamps a producer sends: 20 (tests/test_fifo.py sends 40) keep every
+# path of the world at half the ticks, a rejected and muting host ring
+# included.
+HOST_FIFO_ITEMS = 20
+
+
 def _host_fifo(pkg, T, path):
     """tests/test_fifo.py::test_host_consumer_fifo: per-edge stamps into
     one host consumer; returns its arrival log."""
     T.host_logs.clear()
-    n_prod, items = 6, 40
+    n_prod, items = 6, HOST_FIFO_ITEMS
     rt = _runtime(pkg, path, dict(mailbox_cap=2, batch=1, msg_words=2,
                                   max_sends=2, spill_cap=2048,
                                   inject_slots=16, host_out_slots=8))
@@ -170,8 +176,12 @@ def _host_fifo(pkg, T, path):
 def test_host_consumer_fifo(path):
     code, got, logs, sink = _host_fifo(ponyc_tpu_torch, TT, path)
     assert code == 0
-    assert got["host"][int(sink)]["got"] == 6 * 40
-    assert logs == {e: list(range(40)) for e in range(6)}
+    assert got["host"][int(sink)]["got"] == 6 * HOST_FIFO_ITEMS
+    assert logs == {e: list(range(HOST_FIFO_ITEMS)) for e in range(6)}
+    # The host ring (cap 2) overflowed: the stamps crossed the spill and
+    # muted their producers, the paths FIFO order must survive.
+    assert got["counters"]["n_rejected"] > 0
+    assert got["counters"]["n_mutes"] > 0
     j = _jax("_host_fifo")
     assert (got, logs) == (j[1], j[2])
     _mega_ran(path)

@@ -60,7 +60,7 @@ def test_default_device_is_cuda_and_never_silently_cpu():
     (dict(pallas_fused="auto"), 6),
     (dict(checkpoint_every_s=1.0), 9), (dict(delivery="cosort"), 6),
     (dict(delivery="auto"), 6), (dict(mesh_shards=2), 10),
-    (dict(analysis=1), 8), (dict(blob_slots=4, blob_words=2), 7),
+    (dict(analysis=1), 8), (dict(watchdog_s=1.0), 8),
 ])
 def test_unported_options_raise(kw, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
@@ -95,12 +95,13 @@ def test_unported_program_features_raise():
             self.blob_alloc(4)
             return st
 
-    # The blob pool is not: a body that uses it raises at its first tick.
+    # The blob pool is served since slice 7, and a body that uses it
+    # with the pool off raises at its first tick, naming the options.
     rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
     rt.declare(Pooled, 2)
     rt.start()
     rt.send(rt.spawn(Pooled), Pooled.go)
-    with pytest.raises(NotImplementedError, match="blob pool.*slice 7"):
+    with pytest.raises(RuntimeError, match="blob pool is disabled"):
         rt.run()
 
     @ponyc_tpu_torch.actor
