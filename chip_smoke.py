@@ -32,8 +32,12 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 payloads past int16; ubench at 2**20 lanes with 2048
                 pingers seeded; with the radix sort forced, all seeded
                 and 256 seeded, whose ticks' live entries fit one tile:
-                ubench's own ticks take the segment sort), two 16-tick
-                windows each,
+                ubench's own ticks take the segment sort), the spawn
+                tree, the hostlog world and the blob chain, and the
+                telemetry worlds (ubench at analysis=1, the spawn tree at
+                analysis=3, the hostlog world traced, and traced with a
+                span ring of 1024 and an event ring of 64, both
+                overflowing), two 16-tick windows each,
                 the gated-out window and the forced spelling; and every
                 window of Runtime.run() on the agree phase's worlds with
                 heads and tails moved next to 2**31-1. Device and wall
@@ -51,7 +55,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 pinger processes `pings` messages a tick and the path's
                 kernel launches once a tick (once a window for the
                 window kernel);
-  5. ring     — the token ring, 1024 nodes, 4096 hops (512 on the
+  5. ring     — the token ring, 1024 nodes, 4096 hops (128 on the
                 plain and fused paths, whose hops take milliseconds), through
                 Runtime.run(), on each path: the pass count, the exit
                 code, and one launch of the path's kernel per enqueued
@@ -83,14 +87,17 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 host_processed, ticks run and windows equal across the
                 paths; one launch of the path's kernel per tick enqueued
                 (a window kernel per window), the windows the device
-                ended for the host (host_pending), wall a run; under
+                ended for the host (host_pending), wall a run (the plain
+                and fused paths at 2**17 walkers and 2**12 chains of
+                1..256 hops, held against the window kernel there; the window
+                kernel at full width too); under
                 pallas_mega a second run whose first windows and every
                 128th run the host C++ build of the window kernel on the
                 same input too, bit-equal to the card, and the kernel's
                 per-phase clock on this world (a forced window). Then
-                examples/spreader.py's program at depth 12 (device
+                examples/spreader.py's program at depth 10 (device
                 spawns and a host collector, no promise) on each path:
-                got = 2**12;
+                got = 2**10;
  10. blobs    — the device blob pool and the collector: the blob chain
                 of tests/test_differential.py (the reference's
                 BlobWalker, tests/_torch_programs.py's define_blobs) at
@@ -99,7 +106,11 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 Runtime.blob_store into a pool of 2**20 - 1 slots of 2
                 words (cap 2, batch 1, 3 words, 1 send, inject 16; the
                 spill raised to 2**14, one a chain),
-                through Runtime.run() on each path: every walker's acc
+                through Runtime.run() on each path (the plain and fused
+                paths at 2**17 walkers and 2**12 chains of 1..256 hops,
+                held against the
+                window kernel there; the window kernel at full width
+                too): every walker's acc
                 equal to a NumPy oracle, blobs_in_use 0, n_blob_remote 0;
                 fields, the pool's arrays (handles' generations
                 included), counters, ticks and windows equal across the
@@ -111,10 +122,27 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 world with every walker but 1,024 released: the collected
                 count, the alive mask, `iters` and `converged` against a
                 NumPy reachability oracle over `nxt`, and the GC's wall.
-                Then the `records` model at 256 sources x 8 records and
+                Then the `records` model at 256 sources x 2 records and
                 examples/blob_pipeline.py's program on each path, each
                 against its oracle with blobs_in_use 0;
- 11. profile  — kernels launched a tick and the device's busy share
+ 11. telemetry — analysis levels 1-3 and causal tracing on each path
+                at full width: ubench at analysis=1 (beh_runs and
+                beh_delivered sum to the counters, fields and counters
+                equal the analysis=0 run's, every telemetry leaf equal
+                across the paths; ms a tick beside analysis=0's, and the
+                window kernel's `phases` line with its profiler lanes);
+                the spawn tree at analysis=3 (exit code 2**20, its spawns
+                overflowing the 4,096-entry event ring: the event ring's
+                leaves, the events CSV and every telemetry leaf equal
+                across the paths); the hostlog world at analysis=3 with
+                every chain traced (bulk_send(..., trace=)): acc equal
+                to the oracle, Runtime.traces() one consistent tree of
+                2**12 branches, each its chain's dispatches then one odd
+                host span (HostLog.done), no span dropped; the spans,
+                events, the level-2 CSV's deterministic columns, ticks
+                and windows equal across the paths, ticks and windows
+                equal to the untraced run's;
+ 12. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -138,7 +166,10 @@ Host cohorts take delivery on every path; the window kernel's host rows
 are checked in `kernels-mega` on the hostlog world at full width (the
 gated windows, which stop for the host, and a forced window, timed), and
 `agree` runs a small host reporting world on the card and the CPU.
-`--only host` runs the build and the host phase.
+`--only host` runs the build and the host phase; `--only telemetry` the
+build and the telemetry phase (its analysis=0 references then run too).
+The analysis CSVs go to _chipwork/smoke_analysis/ (git-ignored, removed
+after the phase).
 
 Output: the card's name and power limit (nvidia-smi) first, one line per
 phase, one JSON line listing every kernel, and as the last line
@@ -296,12 +327,12 @@ def _mode_name(mode):
     return "pallas_mega" if mode == "mega" else f"pallas_fused={mode}"
 
 
-def ubench_opts(fused, ticks=64):
+def ubench_opts(fused, ticks=64, **kw):
     from ponyc_tpu_torch import RuntimeOptions
     return RuntimeOptions(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
                           spill_cap=1024, inject_slots=8,
                           quiesce_interval=ticks, tuning_cache="off",
-                          **_mode_kw(fused))
+                          **_mode_kw(fused), **kw)
 
 
 def ring_opts(fused):
@@ -330,11 +361,11 @@ def nbody_opts(fused):
 SPAWN_DEPTH = 20         # the spawn tree on the card: 2^21 - 1 nodes
 
 
-def spawn_opts(mode, ticks=16):
+def spawn_opts(mode, ticks=16, **kw):
     # examples/spawn_tree.py's options
     from ponyc_tpu_torch.models import spawn_tree
     return spawn_tree.options(quiesce_interval=ticks, tuning_cache="off",
-                              **_mode_kw(mode))
+                              **_mode_kw(mode), **kw)
 
 
 def corpus_opts():
@@ -346,14 +377,18 @@ def corpus_opts():
 HOST_WALKERS = 1 << 20    # the hostlog world on the card
 HOST_CHAINS = 1 << 12
 HOST_SEED = 2026
-SPREAD_DEPTH = 12         # examples/spreader.py's program on the card
+HOST_CUT = (1 << 17, 1 << 12, 256)  # walkers, chains, longest chain of its
+#   untraced plain and fused runs (their ticks take tens of ms on the host's
+#   clock, and the host actor's ring of 4 takes a window a tick)
+SPREAD_DEPTH = 10         # examples/spreader.py's program on the card
+#   (cut from 12: a window a tick on the plain and fused paths)
 
 
-def hostlog_kw(mode):
+def hostlog_kw(mode, **kw):
     # tests/test_differential.py's host reporting options, the spill
     # raised for 2^12 chains
     return dict(mailbox_cap=4, batch=1, msg_words=2, max_sends=2,
-                spill_cap=8192, inject_slots=16, **_mode_kw(mode))
+                spill_cap=8192, inject_slots=16, **_mode_kw(mode), **kw)
 
 
 def hostlog_plan(n=HOST_WALKERS, chains=HOST_CHAINS, seed=HOST_SEED,
@@ -377,21 +412,23 @@ def hostlog_plan(n=HOST_WALKERS, chains=HOST_CHAINS, seed=HOST_SEED,
     return nxt, starts, lens, acc
 
 
-def hostlog_build(mode, plan, device="cuda"):
+def hostlog_build(mode, plan, device="cuda", trace=None, **kw):
     """The hostlog world, started and seeded (the chains' first messages
-    straight into their start walkers' mailboxes): (runtime, the host
-    actor's id)."""
+    straight into their start walkers' mailboxes, joining trace `trace`
+    where given): (runtime, the host actor's id). `kw`: more options (the
+    telemetry's)."""
     import numpy as np
     import ponyc_tpu_torch
     tp, T = programs()
     nxt, starts, lens, _acc = plan
     n = len(nxt)
-    rt = tp.new_runtime(ponyc_tpu_torch, hostlog_kw(mode), device)
+    rt = tp.new_runtime(ponyc_tpu_torch, hostlog_kw(mode, **kw), device)
     rt.declare(T.WalkerH, n).declare(T.HostLog, 1).start()
     ids = rt.spawn_many(T.WalkerH, n)
     log = rt.spawn(T.HostLog)
     rt.set_fields(T.WalkerH, ids, nxt=ids[nxt], log=np.full(n, log))
-    rt.bulk_send(ids[starts], T.WalkerH.step, lens.astype(np.int32))
+    rt.bulk_send(ids[starts], T.WalkerH.step, lens.astype(np.int32),
+                 **({} if trace is None else {"trace": trace}))
     return rt, log
 
 
@@ -413,11 +450,13 @@ def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
 BLOB_WALKERS = 1 << 19    # the blob chain on the card
 BLOB_CHAINS = 1 << 14
 BLOB_SEED = 2026
+BLOB_CUT = (1 << 17, 1 << 12, 256)  # walkers, chains, longest chain of its
+#   plain and fused runs (their ticks take tens of ms on the host's clock)
 BLOB_SLOTS = (1 << 20) - 1    # the most one shard addresses (ops/pack.py)
 BLOB_SPILL = 1 << 14          # one a chain: a chain has one token in
 #   flight, so the spill cannot overflow (1,024 overflowed at tick 309)
 BLOB_KEEP = 1024              # walkers the GC check keeps pinned
-RECORDS = (256, 8)            # the records model: sources x records
+RECORDS = (256, 2)            # the records model: sources x records
 
 
 def blob_kw(mode):
@@ -690,6 +729,19 @@ def mega_windows():
                blob_slots=32, blob_words=tp.PIPE_W, msg_words=2,
                max_sends=2, tuning_cache="off", **_mode_kw("mega")),
                [(blob_t.Reviewer, 4)])}
+    # The telemetry worlds (one kernel each: the levels and ring sizes are
+    # constants of pony_world.h).
+    for label, kw in TEL_WORLDS.items():
+        if label.startswith("ubench"):
+            out[label] = window(ubench.Pinger, 1 << 20,
+                                ubench_opts("mega", MEGA_TICKS, **kw))
+        elif label.startswith("spawn"):
+            out[label] = window(spawn_tree.Node, 4 << SPAWN_DEPTH,
+                                spawn_opts("mega", **kw))
+        else:
+            out[label] = window(host_t.WalkerH, HOST_WALKERS, RuntimeOptions(
+                tuning_cache="off", **hostlog_kw("mega", **kw)),
+                [(host_t.HostLog, 1)])
     for name, build, _finish in agree_worlds():
         out[f"agree {name}"] = build("cpu", "mega")._multi_g
     return out
@@ -931,9 +983,31 @@ def check_kernels(rec, frec):
 
 
 MEGA_TICKS = 16          # ticks a window in the window kernel's checks
+# The telemetry worlds of the window kernel's checks (their options
+# beside the world's own): ubench at analysis 1, the spawn tree at
+# analysis 3 (its spawns overflow the event ring), the hostlog world
+# traced, and traced with both rings too small for a window (the span
+# ring 1,024 for 2^12 chains in flight, the event ring 64).
+# Worlds of the window kernel's checks that are checked and not timed
+# (their times add nothing PERF.md records; they keep the script within
+# its limit).
+UNTIMED = ("ubench 2^20 hops=30000 (no payload escaped)",
+           "ubench 2^20, 2048 pingers seeded",
+           "hostlog 2^20 walkers, 2^12 chains, traced, span ring 1024, event "
+           "ring 64 (both overflow)")
+TEL_WORLDS = {
+    "ubench 2^20 hops=2^30, analysis=1": dict(analysis=1),
+    f"spawn tree depth {SPAWN_DEPTH} (2^22 rows), analysis=3":
+        dict(analysis=3),
+    "hostlog 2^20 walkers, 2^12 chains, analysis=3, traced":
+        dict(analysis=3, trace_sample=1, trace_slots=1 << 16),
+    "hostlog 2^20 walkers, 2^12 chains, traced, span ring 1024, event "
+    "ring 64 (both overflow)": dict(analysis=3, trace_sample=1,
+                                    trace_slots=1024, analysis_events=64)}
 
 
-def mega_bound(mw, ticks, processed, live, branch, allocs=0, frees=0):
+def mega_bound(mw, ticks, processed, live, branch, allocs=0, frees=0,
+               tel=None):
     """The least time (ms) the card could take for `ticks` ticks of this
     program's window, and which term bounds it, from the bytes the window
     has to move whatever the design: the per-lane state (head, tail,
@@ -948,7 +1022,14 @@ def mega_bound(mw, ticks, processed, live, branch, allocs=0, frees=0):
     allocation writes (blob_words of them); and the word each blob_get
     reads (4 bytes; the gets are those the bodies of the `processed`
     messages run). A get's own generation and `used` check is left out,
-    so the count stays at or below what the window must move.
+    so the count stays at or below what the window must move. Telemetry
+    (`tel`, the window's counts: slots drained and delivered, spans and
+    events written): the enqueue stamp (4 bytes) read for each drained
+    slot and written for each delivered one (analysis >= 1), each slot's
+    two trace words (8 bytes) likewise with tracing on (the outbox is
+    workspace: an entry's trace words are counted as the slot it is
+    delivered to), 32 bytes a span and 12 bytes an event written to
+    their rings.
 
     Also returns `design_bytes`, what this kernel's own design moves over
     the window, at `live` live entries a tick that take the sort `branch`
@@ -992,6 +1073,11 @@ def mega_bound(mw, ticks, processed, live, branch, allocs=0, frees=0):
     design_pool = (ticks * w["BSL"] * (1 + 1 + 4) + touched
                    if w["BLOB"] else 0)
     nbytes = ticks * (2 * lane + 2 * ring_words * 4) + plan + pool
+    if tel is not None and w["PROF"]:
+        slots = tel["drained"] + tel["delivered"]
+        nbytes += 4 * slots + 12 * tel["events"]
+        if w["TRACE"]:
+            nbytes += 8 * slots + 32 * tel["spans"]
     if branch == "segment":
         sort = 16 * live + 4 * e
     else:
@@ -1088,6 +1174,21 @@ def full_worlds():
     def blobs():
         return blob_build("mega", blob_plan())
 
+    def tel(label, kw):
+        def build():
+            from ponyc_tpu_torch.models import spawn_tree
+            if label.startswith("ubench"):
+                rt, ids = ubench.build(1 << 20, ubench_opts(
+                    "mega", MEGA_TICKS, **kw), pings=4)
+                ubench.seed_all(rt, ids, hops=1 << 30, pings=4)
+                return rt
+            if label.startswith("spawn"):
+                return spawn_tree.build(SPAWN_DEPTH, spawn_opts("mega",
+                                                                **kw))[0]
+            return hostlog_build("mega", hostlog_plan(), trace=TEL_TRACE_ID,
+                                 **kw)[0]
+        return build
+
     return [("ubench 2^20 hops=2^30 (every payload escaped)",
              pingers(1 << 30)),
             ("ubench 2^20 hops=30000 (no payload escaped)", pingers(30000)),
@@ -1101,7 +1202,8 @@ def full_worlds():
             (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree),
             ("hostlog 2^20 walkers, 2^12 chains into a host actor",
              hostlog),
-            ("blob chain 2^19 walkers, 2^14 chains, pool 2^20 - 1", blobs)]
+            ("blob chain 2^19 walkers, 2^14 chains, pool 2^20 - 1", blobs)
+            ] + [(label, tel(label, kw)) for label, kw in TEL_WORLDS.items()]
 
 
 def graph_yardstick(mw, st, it, iw, ticks):
@@ -1216,7 +1318,8 @@ def check_mega(mrec):
             print(f"window kernel {label}: gated-out window runs 0 ticks "
                   "and returns its input; forced spelling (5 ticks, "
                   "injections every tick) bit-equal", flush=True)
-        if ticks == T:       # times from the steady state after window 1
+        if ticks == T and label not in UNTIMED:
+            # times from the steady state after window 1
             def kern():
                 if forced_world:
                     return mw.forced(st1, e_it, e_iw, T)
@@ -1251,8 +1354,19 @@ def check_mega(mrec):
             allocs, frees = (int(getattr(want[0], f)[0])
                              - int(getattr(st1, f)[0])
                              for f in ("n_blob_alloc", "n_blob_free"))
+            tel = None
+            if mw.world["PROF"]:
+                def delta(f, k=0):
+                    v = getattr(want[0], f)
+                    return int(v[k]) - int(getattr(st1, f)[k]) \
+                        if v.numel() else 0
+                tel = dict(drained=delta("phase_cost", 1),
+                           delivered=delta("n_delivered"),
+                           spans=delta("span_count"),
+                           events=delta("ev_count"))
+                rec.update(tel=tel)
             b_ms, b_by, nbytes, t_b, t_o, design = mega_bound(
-                mw, T, processed, live, branch, allocs, frees)
+                mw, T, processed, live, branch, allocs, frees, tel)
             t.update(phases=mega_phases(mw, kern, label))
             t.update(seconds=time.perf_counter() - t0)
             t.update(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
@@ -1318,6 +1432,7 @@ def check_mega(mrec):
                 source="ponyc_tpu_torch/csrc/mega_window.cu",
                 replaces="ponyc_tpu/ops/megakernel.py:347",
                 max_abs_err=worst, bit_equal=worst == 0,
+                shapes=list(worlds),
                 **{k: ub.get(k) for k in (
                     "ms", "ms_tick", "call_ms", "plain_ms", "plain_ms_tick",
                     "plain_call_ms", "bound_ms", "bound_ms_tick", "bound_by",
@@ -1532,13 +1647,47 @@ def expected_launches(mode, ticks, windows):
     return (0, ticks, 0) if mode else (ticks, 0, 0)
 
 
-def ubench_windows(mode, n, pings, warm, ticks):
+# The telemetry leaves a run's paths must agree on (each where its level
+# has it; qwait_enq and trace_buf too).
+TEL_LEAVES = ("beh_runs", "beh_delivered", "beh_rejected", "coh_mute_ticks",
+              "qwait_hist", "phase_cost", "ev_data", "ev_count", "ev_dropped",
+              "span_data", "span_count", "span_dropped", "span_next")
+
+
+def world_numbers(rt, atype):
+    """A finished run's fields of `atype`, counters, ticks and telemetry
+    leaves (numpy), for comparing runs."""
+    st = rt.state
+    tel = {f: getattr(st, f).cpu().numpy() for f in TEL_LEAVES
+           if getattr(st, f).numel()}
+    for f in ("qwait_enq", "trace_buf"):
+        tel.update({f"{f}.{k}": v.cpu().numpy()
+                    for k, v in getattr(st, f).items()})
+    return {"fields": {k: v for k, v in rt.cohort_state(atype).items()},
+            "counters": {c: rt.counter(c) for c in (
+                "n_processed", "n_delivered", "n_rejected", "n_mutes",
+                "n_deadletter", "n_spawned", "n_destroyed", "n_errors")},
+            "steps": rt.steps_run, "tel": tel}
+
+
+def same_arrays(a, b):
+    """Two dicts of numpy arrays (or numbers) equal, key by key."""
+    import numpy as np
+    if set(a) != set(b):
+        return False
+    return all(np.array_equal(a[k], b[k]) if hasattr(a[k], "shape")
+               else a[k] == b[k] for k in a)
+
+
+def ubench_windows(mode, n, pings, warm, ticks, **kw):
     """Three timed windows of `ticks` ticks of ubench; checks the
-    processed count and the path's launches."""
+    processed count and the path's launches. `kw`: more options (the
+    telemetry's). Returns (the launches of the last window, the times,
+    the final world's numbers: fields, counters and telemetry leaves)."""
     import torch
     from ponyc_tpu_torch.models import ubench
     t0 = time.perf_counter()
-    rt, ids = ubench.build(n, ubench_opts(mode, ticks), pings=pings)
+    rt, ids = ubench.build(n, ubench_opts(mode, ticks, **kw), pings=pings)
     ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
     torch.cuda.synchronize()
     print(f"ubench {_mode_name(mode)} build+seed "
@@ -1577,23 +1726,29 @@ def ubench_windows(mode, n, pings, warm, ticks):
               f"processed counter ok; {wins} windows; launches (drain, "
               f"fused, window) {got}", flush=True)
     p50 = statistics.median(per_tick)
-    print(f"ubench {_mode_name(mode)} median of {len(per_tick)} windows: "
-          f"{1e3 * p50:.3f} ms/tick, {n * pings / p50:.4g} msgs/s (spread "
-          f"{1e3 * min(per_tick):.3f}-{1e3 * max(per_tick):.3f} ms/tick)",
-          flush=True)
+    tel = "".join(f" {k}={v}" for k, v in kw.items())
+    print(f"ubench{tel} {_mode_name(mode)} median of {len(per_tick)} "
+          f"windows: {1e3 * p50:.3f} ms/tick, {n * pings / p50:.4g} msgs/s "
+          f"(spread {1e3 * min(per_tick):.3f}-{1e3 * max(per_tick):.3f} "
+          f"ms/tick)", flush=True)
+    final = world_numbers(rt, ubench.Pinger)
     del rt
     torch.cuda.empty_cache()
     return max(got), {"msgs_per_s": n * pings / p50, "s_per_tick": p50,
-                      "s_per_tick_each": per_tick}
+                      "s_per_tick_each": per_tick}, final
+
+
+UBENCH = (1 << 20, 4, 8, 64)     # pingers, pings, warm-up ticks, ticks
 
 
 @phase("ubench")
 def run_ubench(rec, frec, mrec):
-    n, pings, warm, ticks = 1 << 20, 4, 8, 64
-    rec["launches"], plain = ubench_windows(False, n, pings, warm, ticks)
-    frec["launches"], fused = ubench_windows(True, n, pings, warm, ticks)
-    mrec["launches"], mega = ubench_windows("mega", n, pings, warm, ticks)
-    return {"plain": plain, "fused": fused, "mega": mega}
+    out, finals = {}, _CACHE.setdefault("ubench", {})
+    for mode, r, key in ((False, rec, "plain"), (True, frec, "fused"),
+                         ("mega", mrec, "mega")):
+        r["launches"], out[key], final = ubench_windows(mode, *UBENCH)
+        finals[mode] = (out[key], final)
+    return out
 
 
 @phase("ring")
@@ -1606,11 +1761,11 @@ def run_ring(rec, frec, mrec, hops=4096):
         opts = ring_opts(mode)
         ring.run(nodes, 64, opts=opts)                    # warm-up
         per_hop = []
-        # The plain and fused ticks take about 7 ms a hop: they run an
-        # eighth of the hops (three runs of 512), which keeps the whole
-        # script, the blob chain's plain and fused runs included, near
-        # half its time limit (the time a hop is what this phase reports).
-        n_hops = hops if mode == "mega" else hops // 8
+        # The plain and fused ticks take 7-20 ms a hop on the host's
+        # clock: they run a 32nd of the hops (three runs of 128), which
+        # keeps the whole script within its time limit (the time a hop is
+        # what this phase reports).
+        n_hops = hops if mode == "mega" else hops // 32
         for _ in range(3):
             rt, ids = ring.build(nodes, opts)
             rt.send(int(ids[0]), ring.RingNode.token, n_hops)
@@ -1899,15 +2054,22 @@ def card_vs_host_build(plan, every=128):
 @phase("host")
 def run_host(rec, frec, mrec):
     """Host cohorts on each path (see the module docstring): the hostlog
-    world at 2^20 walkers, then the spreader at depth 12."""
+    world at 2^20 walkers, then the spreader at SPREAD_DEPTH."""
     import numpy as np
     import torch
     tp, T = programs()
-    plan = hostlog_plan()
-    acc = plan[3]
+    plans = {HOST_CUT[0]: hostlog_plan(*HOST_CUT[:2], max_len=HOST_CUT[2]),
+             HOST_WALKERS: hostlog_plan()}
     card = _CACHE["card"]
     res, out = {}, {}
-    for mode in (False, True, "mega"):
+    # The plain and fused paths at HOST_CUT (walkers, chains, longest
+    # chain), held against the window kernel there; the window kernel at
+    # full width too.
+    cut = HOST_CUT[0]
+    for mode, n in ((False, cut), (True, cut), ("mega", cut),
+                    ("mega", HOST_WALKERS)):
+        plan = plans[n]
+        acc = plan[3]
         t0 = time.perf_counter()
         rt, log = hostlog_build(mode, plan)
         windows = count_windows(rt)
@@ -1929,11 +2091,12 @@ def run_host(rec, frec, mrec):
         enqueued = rt.ticks_enqueued - q0
         nums = host_numbers(rt, log)
         walk = rt.cohort_state(T.WalkerH)["acc"]
-        if code != 0 or nums["host"]["ends"] != HOST_CHAINS \
+        chains = HOST_CHAINS if n == HOST_WALKERS else HOST_CUT[1]
+        if code != 0 or nums["host"]["ends"] != chains \
                 or not np.array_equal(walk.astype(np.int64), acc):
             raise AssertionError(
                 f"hostlog {_mode_name(mode)}: exit code {code}, host "
-                f"{nums['host']} (want {HOST_CHAINS} ends), acc equal to "
+                f"{nums['host']} (want {chains} ends), acc equal to "
                 f"the oracle: {np.array_equal(walk.astype(np.int64), acc)}")
         want = expected_launches(mode, enqueued, windows[0])
         if got != want or rt.steps_run > enqueued:
@@ -1956,19 +2119,25 @@ def run_host(rec, frec, mrec):
         if mode == "mega" and not early:
             raise AssertionError("hostlog pallas_mega: no window ended "
                                  "early for the host")
-        res[mode] = dict(nums, acc=walk, windows=windows[0])
-        out[_mode_name(mode)] = dict(
+        res[(mode, n)] = dict(nums, acc=walk, windows=windows[0])
+        out[f"{_mode_name(mode)} {n} walkers"] = dict(
             seconds=elapsed, setup_s=setup, ticks=rt.steps_run,
             enqueued=enqueued, windows=windows[0], host_windows=for_host,
             early_host_windows=early, ms_per_tick=1e3 * elapsed
             / max(1, rt.steps_run), launches=got,
             host_processed=nums["host_processed"], **nums["counters"])
         if timed is not None:
-            out[_mode_name(mode)].update(device_ms=dev_us / 1e3,
-                                         busy_share=dev_us / 1e6 / elapsed)
+            out[f"{_mode_name(mode)} {n} walkers"].update(
+                device_ms=dev_us / 1e3, busy_share=dev_us / 1e6 / elapsed)
         {False: rec, True: frec, "mega": mrec}[mode]["launches_host"] = \
             max(got)
-        print(f"hostlog {HOST_WALKERS} walkers {HOST_CHAINS} chains "
+        if mode == "mega" and n == HOST_WALKERS:
+            _CACHE["hostlog_untraced"] = dict(ticks=rt.steps_run,
+                                              windows=windows[0],
+                                              seconds=elapsed)
+        print(f"hostlog {n} walkers "
+              f"{HOST_CHAINS if n == HOST_WALKERS else HOST_CUT[1]} chains "
+              f"of 1..{256 if n == HOST_WALKERS else HOST_CUT[2]} hops "
               f"{_mode_name(mode)} [{card}]: exit code {code}, ends "
               f"{nums['host']['ends']}, acc equal to the oracle; wall "
               f"{elapsed:.3f} s a run (setup {setup:.1f} s), "
@@ -1982,15 +2151,17 @@ def run_host(rec, frec, mrec):
         del rt
         torch.cuda.empty_cache()
     for mode in (True, "mega"):
-        a, b = res[mode], res[False]
+        a, b = res[(mode, cut)], res[(False, cut)]
         na = {k: v for k, v in a.items() if k != "acc"}
         nb = {k: v for k, v in b.items() if k != "acc"}
         if not np.array_equal(a["acc"], b["acc"]) or na != nb:
             raise AssertionError(f"hostlog: {_mode_name(mode)} differs from "
                                  f"the plain tick: {na} vs {nb}")
-    print("hostlog: acc, the host actor's state, counters, host_processed, "
-          "ticks run and windows equal across the plain tick, the fused "
-          "kernel and the window kernel", flush=True)
+    print(f"hostlog at {HOST_CUT} (walkers, chains, longest chain): acc, "
+          "the host actor's state, "
+          "counters, host_processed, ticks run and windows equal across the "
+          "plain tick, the fused kernel and the window kernel", flush=True)
+    plan = plans[HOST_WALKERS]
     # The window kernel's per-phase clock on this world: a forced window
     # from the seeded start (the host ring fills and spills).
     rt, _log = hostlog_build("mega", plan)
@@ -2003,10 +2174,10 @@ def run_host(rec, frec, mrec):
     del rt, st0
     t0 = time.perf_counter()
     n_chk, t_chk, nums, rt = card_vs_host_build(plan)
-    ref = {k: v for k, v in res["mega"].items()
-           if k not in ("acc", "windows")}
+    full = res[("mega", HOST_WALKERS)]
+    ref = {k: v for k, v in full.items() if k not in ("acc", "windows")}
     if nums != ref or not np.array_equal(
-            rt.cohort_state(T.WalkerH)["acc"], res["mega"]["acc"]):
+            rt.cohort_state(T.WalkerH)["acc"], full["acc"]):
         raise AssertionError(f"hostlog: the checked run differs: {nums} vs "
                              f"{ref}")
     print(f"hostlog pallas_mega: {n_chk} windows ({t_chk} ticks) of a "
@@ -2099,12 +2270,20 @@ def run_blobs(rec, frec, mrec):
     import ponyc_tpu_torch
     from ponyc_tpu_torch.models import records
     tp, T = blob_programs()
-    plan = blob_plan()
-    nxt, acc = plan[0], plan[4]
+    full = (BLOB_WALKERS, BLOB_CHAINS, 256)
+    plans = {BLOB_CUT: blob_plan(BLOB_CUT[0], BLOB_CUT[1],
+                                 max_len=BLOB_CUT[2]),
+             full: blob_plan()}
     card = _CACHE["card"]
     res, out = {}, {}
     rt = None
-    for mode in (False, True, "mega"):
+    # The plain and fused paths at BLOB_CUT (walkers, chains, longest
+    # chain), held against the window kernel there; the window kernel at
+    # full width too, whose finished world the GC takes.
+    for mode, size in ((False, BLOB_CUT), (True, BLOB_CUT), ("mega", BLOB_CUT),
+                       ("mega", full)):
+        plan = plans[size]
+        nxt, acc = plan[0], plan[4]
         del rt
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2160,9 +2339,10 @@ def run_blobs(rec, frec, mrec):
             mrec["launches_blobs"] = got[2]
         else:
             rec.setdefault("launches_blobs", {})[_mode_name(mode)] = got[0]
-        out[_mode_name(mode)] = row
-        res[mode] = dict(nums, windows=windows[0])
-        print(f"blob chain {BLOB_WALKERS} walkers {BLOB_CHAINS} chains "
+        out[f"{_mode_name(mode)} {size[0]} walkers"] = row
+        res[(mode, size)] = dict(nums, windows=windows[0])
+        print(f"blob chain {size[0]} walkers {size[1]} chains of "
+              f"1..{size[2]} hops "
               f"{_mode_name(mode)} [{card}]: exit code {code}, acc equal "
               f"to the oracle, blobs in use 0; wall {elapsed:.3f} s a run "
               f"(setup {setup:.1f} s), {rt.steps_run} ticks run = "
@@ -2172,13 +2352,14 @@ def run_blobs(rec, frec, mrec):
               f"window) {got}{dev}; dispatch {dispatch_paths(rt)}",
               flush=True)
     for mode in (True, "mega"):
-        if not same_numbers(res[mode], res[False]):
+        if not same_numbers(res[(mode, BLOB_CUT)], res[(False, BLOB_CUT)]):
             raise AssertionError(f"blob chain: {_mode_name(mode)} differs "
                                  "from the plain tick")
-    print("blob chain: acc, the pool's arrays (data, used, len, gen: the "
-          "handles' slots and generations), counters, ticks and windows "
-          "equal across the plain tick, the fused path and the window "
-          "kernel", flush=True)
+    print(f"blob chain at {BLOB_CUT[0]} walkers, {BLOB_CUT[1]} chains of "
+          f"1..{BLOB_CUT[2]} hops: acc, "
+          "the pool's arrays (data, used, len, gen: the handles' slots and "
+          "generations), counters, ticks and windows equal across the plain "
+          "tick, the fused path and the window kernel", flush=True)
     # The collector at full width, from the finished world (the window
     # kernel's run): every walker but BLOB_KEEP released, then one gc().
     n = len(nxt)
@@ -2252,6 +2433,267 @@ def run_blobs(rec, frec, mrec):
     print("records and the blob pipeline: results, counters, ticks and "
           "the pool's generations equal across the three paths",
           flush=True)
+    return out
+
+
+TEL_DIR = os.path.join(ROOT, "_chipwork", "smoke_analysis")   # git-ignored
+TEL_TRACE_ID = 4242          # the hostlog chains' trace id (bulk_send)
+TEL_TRACE_SLOTS = 1 << 16    # span-ring entries (the run drops none)
+
+
+def tel_csv(path, skip=("time_ms", "rss_kb", "cpu_ms", "host_gap_us",
+                        "bytes_msg")):
+    """An analysis CSV's deterministic columns, row by row: the wall
+    clock, rss and cpu columns left out, and bytes_msg, the record width
+    of the run's delivery formulation (2 bytes a word under pallas_mega,
+    4 elsewhere: a label of the path, not a measurement)."""
+    import csv
+    with open(path) as f:
+        return [{k: v for k, v in r.items() if k not in skip}
+                for r in csv.DictReader(f)]
+
+
+def tel_run(label, mode, rt, windows, run):
+    """Run `rt` as the main path (launch counts reset just before and
+    read just after; one kernel of the path per tick enqueued, or one
+    window kernel per window), stop it, and return (exit code, seconds,
+    launches)."""
+    import torch
+    torch.cuda.synchronize()
+    q0 = rt.ticks_enqueued
+    reset_launches()                # the main path's run starts here
+    t0 = time.perf_counter()
+    code = run()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    got = launches()                # ... and ends here
+    enqueued = rt.ticks_enqueued - q0
+    want = expected_launches(mode, enqueued, windows[0])
+    if got != want or rt.steps_run > enqueued:
+        raise AssertionError(f"{label} {_mode_name(mode)}: launches (drain, "
+                             f"fused, window) {got} for {enqueued} ticks "
+                             f"enqueued, {windows[0]} windows (expected "
+                             f"{want})")
+    return code, elapsed, got
+
+
+@phase("telemetry")
+def run_telemetry(rec, frec, mrec):
+    """Analysis levels 1-3 and causal tracing on each path at full width
+    (see the module docstring)."""
+    import hashlib
+    import shutil
+    import numpy as np
+    import torch
+    from ponyc_tpu_torch import tracing
+    from ponyc_tpu_torch.models import spawn_tree, ubench
+    card = _CACHE["card"]
+    recs = {False: rec, True: frec, "mega": mrec}
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    os.makedirs(TEL_DIR)
+    out = {}
+    # -- ubench 2^20 x 4 at analysis 1: the telemetry's cost a tick.
+    finals = _CACHE.setdefault("ubench", {})
+    tel = {}
+    for mode in (False, True, "mega"):
+        if mode not in finals:        # the ubench phase did not run
+            _l, t0_, f0 = ubench_windows(mode, *UBENCH)
+            finals[mode] = (t0_, f0)
+        base_t, base = finals[mode]
+        recs[mode]["launches_telemetry"], t1, fin = ubench_windows(
+            mode, *UBENCH, analysis=1)
+        tr = fin["tel"]
+        if int(tr["beh_runs"].sum()) != fin["counters"]["n_processed"] or \
+                int(tr["beh_delivered"].sum()) != \
+                fin["counters"]["n_delivered"]:
+            raise AssertionError(f"ubench analysis=1 {_mode_name(mode)}: "
+                                 "beh_runs or beh_delivered do not sum to "
+                                 f"the counters: {fin['counters']}")
+        if not same_arrays(fin["fields"], base["fields"]) or \
+                fin["counters"] != base["counters"] or \
+                fin["steps"] != base["steps"]:
+            raise AssertionError(f"ubench analysis=1 {_mode_name(mode)}: "
+                                 "fields, counters or ticks differ from the "
+                                 "analysis=0 run's")
+        tel[mode] = tr
+        a0, a1 = base_t["s_per_tick"], t1["s_per_tick"]
+        out[f"ubench analysis=1 {_mode_name(mode)}"] = dict(
+            ms_tick=1e3 * a1, ms_tick_analysis0=1e3 * a0,
+            cost=a1 / a0 - 1, each=t1["s_per_tick_each"])
+        print(f"ubench analysis=1 {_mode_name(mode)} [{card}]: "
+              f"{1e3 * a1:.3f} ms/tick against {1e3 * a0:.3f} at analysis=0 "
+              f"({100 * (a1 / a0 - 1):+.1f} %); sum beh_runs = n_processed "
+              f"= {fin['counters']['n_processed']}; fields and counters "
+              f"equal the analysis=0 run's", flush=True)
+    for mode in (True, "mega"):
+        if not same_arrays(tel[mode], tel[False]):
+            raise AssertionError(f"ubench analysis=1: telemetry leaves of "
+                                 f"{_mode_name(mode)} differ from the plain "
+                                 "tick's")
+    print(f"ubench analysis=1: every telemetry leaf ({', '.join(tel[False])}"
+          ") bit-equal across the three paths", flush=True)
+    rt, ids = ubench.build(UBENCH[0], ubench_opts("mega", MEGA_TICKS,
+                                                  analysis=1), pings=4)
+    ubench.seed_all(rt, ids, hops=1 << 30, pings=4)
+    rt.run(max_steps=MEGA_TICKS)
+    mw, st, (e_it, e_iw) = rt._multi_g, rt.state, rt._empty_inject
+    out["ubench analysis=1 phases"] = mega_phases(
+        mw, lambda: mw.forced(st, e_it, e_iw, MEGA_TICKS),
+        f"ubench 2^20 analysis=1 (PROF) [{card}]")
+    del rt, mw, st
+    torch.cuda.empty_cache()
+    # -- the spawn tree at analysis 3: its 2^21 - 2 spawns overflow the
+    # 4,096-entry event ring every window.
+    leaves, ev = 1 << SPAWN_DEPTH, {}
+    for mode in (False, True, "mega"):
+        path = os.path.join(TEL_DIR, f"spawn-{_mode_name(mode)}.csv")
+        rt, _root = spawn_tree.build(SPAWN_DEPTH, spawn_opts(
+            mode, analysis=3, analysis_path=path))
+        windows = count_windows(rt)
+        code, elapsed, got = tel_run("spawn tree analysis=3", mode, rt,
+                                     windows, lambda: rt.run(max_steps=10_000))
+        nums = world_numbers(rt, spawn_tree.Node)
+        rt.stop()
+        if code != leaves or nums["counters"]["n_spawned"] != 2 * leaves - 2:
+            raise AssertionError(f"spawn tree analysis=3 {_mode_name(mode)}: "
+                                 f"exit code {code}, {nums['counters']}")
+        rows = tel_csv(path + ".events.csv", skip=("time_ms",))
+        ev[mode] = (nums, rows, windows[0])
+        dropped = int(nums["tel"]["ev_dropped"][0])
+        recs[mode]["launches_telemetry_spawn"] = max(got)
+        out[f"spawn tree analysis=3 {_mode_name(mode)}"] = dict(
+            seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
+            events=len(rows), ev_dropped=dropped, launches=got)
+        print(f"spawn tree depth {SPAWN_DEPTH} analysis=3 {_mode_name(mode)} "
+              f"[{card}]: exit code {code}, n_spawned "
+              f"{nums['counters']['n_spawned']}; {len(rows)} events "
+              f"recorded, {dropped} dropped (ring of 4096 a window); "
+              f"{rt.steps_run} ticks in {elapsed:.3f} s = "
+              f"{1e3 * elapsed / rt.steps_run:.3f} ms/tick, {windows[0]} "
+              f"windows; launches (drain, fused, window) {got}", flush=True)
+        del rt
+        torch.cuda.empty_cache()
+    for mode in (True, "mega"):
+        (a, ra, wa), (b, rb, wb) = ev[mode], ev[False]
+        if not (same_arrays(a["tel"], b["tel"]) and ra == rb and wa == wb
+                and same_arrays(a["fields"], b["fields"])
+                and a["counters"] == b["counters"]):
+            raise AssertionError(f"spawn tree analysis=3: {_mode_name(mode)} "
+                                 "differs from the plain tick")
+    if not int(ev[False][0]["tel"]["ev_dropped"][0]) > 0:
+        raise AssertionError("spawn tree analysis=3: the event ring did not "
+                             "overflow")
+    print("spawn tree analysis=3: ev_count, ev_dropped, ev_data, every "
+          "telemetry leaf, the events CSV, fields and counters equal across "
+          "the three paths", flush=True)
+    # -- the hostlog world at analysis 3, every chain traced.
+    plan = hostlog_plan()
+    nxt, starts, lens, acc = plan
+    runs = {}
+    for mode in (False, True, "mega"):
+        path = os.path.join(TEL_DIR, f"hostlog-{_mode_name(mode)}.csv")
+        rt, log = hostlog_build(mode, plan, trace=TEL_TRACE_ID, analysis=3,
+                                trace_sample=1, trace_slots=TEL_TRACE_SLOTS,
+                                analysis_path=path)
+        windows = count_windows(rt)
+        code, elapsed, got = tel_run("hostlog traced", mode, rt, windows,
+                                     rt.run)
+        nums = world_numbers(rt, programs()[1].WalkerH)
+        host = rt.state_of(log)
+        walk = nums["fields"]["acc"].astype(np.int64)
+        if code != 0 or host["ends"] != HOST_CHAINS or \
+                not np.array_equal(walk, acc):
+            raise AssertionError(f"hostlog traced {_mode_name(mode)}: exit "
+                                 f"code {code}, host {host}, acc equal to the "
+                                 f"oracle {np.array_equal(walk, acc)}")
+        t0 = time.perf_counter()
+        rt._tracer.drain(rt)
+        spans = sorted(rt._tracer.spans)
+        digest = hashlib.sha256(repr(spans).encode()).hexdigest()
+        ok = True
+        if mode is False:     # the tree once; the other paths' spans equal
+            trees = tracing.reassemble(spans)
+            if set(trees) != {TEL_TRACE_ID}:
+                raise AssertionError(f"hostlog traced: traces "
+                                     f"{sorted(trees)}")
+            tree = trees[TEL_TRACE_ID]
+            (root,) = tree["roots"]
+            want_len = dict(zip(starts.tolist(), (lens + 1).tolist()))
+            ok = tracing.consistent(tree) and \
+                len(root.children) == HOST_CHAINS
+            for first in root.children:
+                s, n_dev = first, 0
+                while s.actor >= 0 and s.span_id % 2 == 0:
+                    n_dev += 1
+                    if len(s.children) != 1:
+                        break
+                    s = s.children[0]
+                ok = ok and n_dev == want_len.get(first.actor) and \
+                    s.span_id % 2 == 1 and s.beh == "HostLog.done" and \
+                    not s.children
+        if not ok or rt._tracer.dropped:
+            raise AssertionError(f"hostlog traced {_mode_name(mode)}: the "
+                                 f"trace is not one consistent tree of "
+                                 f"{HOST_CHAINS} chains, each its oracle's "
+                                 f"dispatches then one host span (dropped "
+                                 f"{rt._tracer.dropped})")
+        check_s = time.perf_counter() - t0
+        rt.stop()
+        runs[mode] = dict(nums=nums, host=host, digest=digest,
+                          n_spans=len(spans), windows=windows[0],
+                          csv=tel_csv(path),
+                          events=tel_csv(path + ".events.csv",
+                                         skip=("time_ms",)))
+        recs[mode]["launches_telemetry_host"] = max(got)
+        out[f"hostlog traced {_mode_name(mode)}"] = dict(
+            seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
+            spans=len(spans), launches=got, ms_per_tick=1e3 * elapsed /
+            rt.steps_run, trace_check_s=check_s)
+        what = ("one consistent trace of {} spans, {} branches each of "
+                "its chain's dispatches then one host span".format(
+                    len(spans), HOST_CHAINS) if mode is False else
+                f"{len(spans)} spans")
+        print(f"hostlog {HOST_WALKERS} walkers traced (analysis=3, "
+              f"trace_sample=1, trace_slots {TEL_TRACE_SLOTS}) "
+              f"{_mode_name(mode)} [{card}]: acc equal to the oracle, ends "
+              f"{host['ends']}; {what}, none dropped (checked in "
+              f"{check_s:.1f} s); "
+              f"wall {elapsed:.3f} s a run, {rt.steps_run} ticks = "
+              f"{1e3 * elapsed / rt.steps_run:.3f} ms/tick, {windows[0]} "
+              f"windows; launches (drain, fused, window) {got}", flush=True)
+        del rt
+        torch.cuda.empty_cache()
+    for mode in (True, "mega"):
+        a, b = runs[mode], runs[False]
+        same = dict(spans=a["digest"] == b["digest"],
+                    events=a["events"] == b["events"],
+                    csv=a["csv"] == b["csv"], host=a["host"] == b["host"],
+                    windows=a["windows"] == b["windows"],
+                    telemetry=same_arrays(a["nums"]["tel"], b["nums"]["tel"]),
+                    counters=a["nums"]["counters"] == b["nums"]["counters"],
+                    ticks=a["nums"]["steps"] == b["nums"]["steps"])
+        if not all(same.values()):
+            raise AssertionError(f"hostlog traced: {_mode_name(mode)} differs "
+                                 f"from the plain tick: {same}")
+    untraced = _CACHE.get("hostlog_untraced")
+    if untraced is None:              # the host phase did not run
+        rt, _log = hostlog_build("mega", plan)
+        windows = count_windows(rt)
+        rt.run()
+        untraced = dict(ticks=rt.steps_run, windows=windows[0])
+        del rt
+    b = runs[False]
+    if (b["nums"]["steps"], b["windows"]) != (untraced["ticks"],
+                                             untraced["windows"]):
+        raise AssertionError(f"hostlog traced: {b['nums']['steps']} ticks, "
+                             f"{b['windows']} windows; untraced "
+                             f"{untraced}")
+    print(f"hostlog traced: spans (sha256 {runs[False]['digest'][:16]}), "
+          f"events, the level-2 CSV's deterministic columns, every "
+          f"telemetry leaf, counters, ticks and windows equal across the "
+          f"three paths; ticks and windows equal the untraced run's "
+          f"({untraced['ticks']}, {untraced['windows']})", flush=True)
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
     return out
 
 
@@ -2485,6 +2927,8 @@ def main():
             summary["host"] = run_host(rec, frec, mrec)
         if want("blobs"):
             summary["blobs"] = run_blobs(rec, frec, mrec)
+        if want("telemetry"):
+            summary["telemetry"] = run_telemetry(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -2499,6 +2943,8 @@ def main():
     extra = ("call_ms", "plain_call_ms", "library_call_ms",
              "launches_ring", "launches_mixed", "launches_nbody",
              "launches_spawn", "launches_host", "launches_blobs",
+             "launches_telemetry", "launches_telemetry_spawn",
+             "launches_telemetry_host",
              "spawn_tree",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
              "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",

@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import sys
+import tempfile
 from typing import List, Optional, Union
 
 
@@ -132,7 +133,8 @@ class RuntimeOptions:
     #   <analysis_path>.events.csv at window boundaries — ≙ the fork's
     #   per-event rows, analysis.c:587-692; costs one compaction per
     #   busy tick while enabled)
-    analysis_path: str = "/tmp/pony_tpu.analytics.csv"
+    analysis_path: str = os.path.join(tempfile.gettempdir(),
+                                      "pony_tpu.analytics.csv")
     analysis_events: int = 4096    # device event-ring entries per shard
     #   (level 3); overflow between two drains drops and counts
     analysis_flush_ms: int = 200   # writer-thread flush cadence: rows
@@ -498,9 +500,8 @@ PORT_SLICES = {
     "cosort": ("cosort delivery (delivery='cosort')", 6),
     "tuner": ("the formulation tuner (delivery='auto', "
               "pallas_fused='auto')", 6),
-    "analysis": ("analysis and causal tracing (analysis > 0)", 8),
-    "observability": ("the flight recorder, watchdog, metrics and cost "
-                      "capture", 8),
+    "observability": ("the flight recorder, watchdog, metrics, cost "
+                      "capture and pin", 11),
     "durability": ("durable checkpoints (checkpoint_every_s)", 9),
     "mesh": ("mesh sharding (mesh_shards > 1)", 10),
 }
@@ -529,8 +530,6 @@ def check_supported(opts: RuntimeOptions) -> None:
                         "auto": "tuner"}[opts.delivery])
     if opts.mesh_shards > 1:
         raise unported("mesh")
-    if opts.analysis > 0 or opts.trace_sample > 0:
-        raise unported("analysis")
     if (opts.watchdog_s is not None or opts.metrics_port is not None
             or opts.cost_capture):
         raise unported("observability")

@@ -101,6 +101,37 @@
 // one apart from the device rows, and the gate writes it as
 // host_pending (OB_HOST), which ends the window for the host's drain.
 //
+// Telemetry (W::PROF at analysis >= 1, W::EV at analysis >= 3, W::TRACE
+// with causal tracing; constants of pony_world.h, so the kernels of other
+// programs have none of this code) replays engine.py's profile_lanes,
+// phase_cost_lanes, trace_span_lanes, event ring and aggregates:
+//
+//   keys: per device row, over a contiguous range of rows a block, the
+//     slots its lane drained (head to NEWHEAD): beh_runs by behaviour id,
+//     the queue-wait bucket of step - qwait_enq into the cohort's
+//     histogram, the drained count; with tracing, each block's count of
+//     traced drained slots per (cohort, ring slot) (BTR);
+//   scan (tracing): each traced drained slot's rank, in the reference's
+//     slot-major [cap, rows] order within a cohort, from those counts
+//     (a block's prefix over the blocks before it), its span id and its
+//     span-ring row; then every outbox entry's two trailing words,
+//     (trace id, span id) of the batch slot that emitted it, or (-1, 0);
+//   deliver: beh_delivered of every filled slot, the fresh slots'
+//     qwait_enq stamps (device cohorts) and trace_buf rows;
+//   commit: beh_rejected from the new spill, coh_mute_ticks, the
+//     occupancy aggregates; at W::EV each row's transitions (mute,
+//     release, overload-on, spawn, destroy, error), over a contiguous
+//     range of rows a block, and each block's count of each;
+//   gate: the event ring in the reference's class-major, row order (every
+//     block writes its rows from its prefix, and stops where the ring is
+//     full), the phase costs, the span and event counters, and the aux's
+//     aggregates and qw_p99 from the cumulative histograms.
+//
+// Counts go through per-block shared counters (warp-aggregated) and one
+// atomic per counter per block; integer sums do not depend on order. The
+// rings are compacted in the reference's order by block prefix sums, never
+// by atomic slot claims.
+//
 // State the kernel updates lies in the caller's tensors (copies of the
 // input state). Word tables (mailbox rings, spill words) are int32, read
 // and written in place. A buffer one phase writes and a later phase reads
@@ -263,7 +294,16 @@ constexpr int64_t UPREB = BBUSY + BPN * GMAX;            // [NCOH + 1]
 constexpr int64_t NFREEB = UPREB + BPN * (W::NCOH + 1);  // [1]
 constexpr int64_t FREEB = NFREEB + BPN;                  // [BSL]
 constexpr int64_t RANKB = FREEB + BPN * W::BSL;          // [NL]
-constexpr int64_t END = RANKB + BPN * W::NL;
+// Telemetry (empty unless W::TRACE / W::EV): each block's traced drained
+// slots per (cohort, ring slot); each row's error flag and transition bits
+// this tick, and each block's count of each transition class.
+constexpr int64_t TRN = W::TRACE ? 1 : 0;
+constexpr int64_t EVN = W::EV ? 1 : 0;
+constexpr int64_t BTR = RANKB + BPN * W::NL;     // [NCOH, CAP, GMAX]
+constexpr int64_t ERRF = BTR + TRN * W::NCOH * W::CAP * GMAX;   // [NL]
+constexpr int64_t EVM = ERRF + EVN * W::NL;      // [NL]
+constexpr int64_t BEV = EVM + EVN * W::NL;       // [6, GMAX]
+constexpr int64_t END = BEV + EVN * 6 * GMAX;
 static_assert(ACC % 2 == 0, "the 64-bit exit key is aligned");
 }  // namespace pws
 
@@ -273,8 +313,12 @@ enum PonyAcc {
   A_NPROC = 2, A_NBAD, A_NDESTROYED, A_NERR, A_NDEAD, A_SEGMAX,
   A_BECAME, A_ANY_OCC, A_ANY_MUTED, A_ANY_PR_END, A_OCC_MAX, A_NSPAWN,
   A_SFAIL, A_HOSTOCC, A_BALLOC, A_BFREE, A_BREMOTE, A_BFAIL, A_BBUDGET,
-  A_NACC
+  // Telemetry (W::PROF): the occupancy aggregates, the phase costs'
+  // delivery-list entries and drained slots, the spans of the tick.
+  A_PROF0, A_OCCSUM = A_PROF0, A_NMUTED, A_NOVER, A_PCDELIV, A_PCDRAIN,
+  A_SPANS, A_NACC
 };
+static_assert(A_NACC <= ACC_SET, "an accumulator set holds them all");
 
 struct PonyMegaArgs {
   void* p[W::NPTR];
@@ -413,6 +457,74 @@ PONY_FN int32_t block_scan_array(const Grid& g, int32_t* x, int64_t n) {
   }
   return carry;
 }
+
+// ---- telemetry: per-block counters ------------------------------------
+
+// The telemetry leaves, W::PTEL + k (the profiler's at W::PROF, the event
+// ring's at W::EV, the span ring's at W::TRACE; ops/megakernel.py:
+// telemetry_leaves).
+enum PonyTel {
+  T_RUNS, T_DELIV, T_REJ, T_MUTE, T_QWH, T_PHASE, T_EVDATA, T_EVCOUNT,
+  T_EVDROP, T_SPDATA, T_SPCOUNT, T_SPDROP, T_SPNEXT
+};
+constexpr int QWB = 16;              // queue-wait buckets (state.py)
+constexpr int NEVC = 6;              // event classes (codes 1..6)
+
+// A bucket of a queue-wait delta: k for [2^k, 2^(k+1)), deltas below 1
+// as 1, the last bucket open (engine.py: _qwait_bucket).
+PONY_FN int32_t qwait_bucket(int32_t d) {
+  d = d < 1 ? 1 : d;
+  int32_t b = 0;
+  for (int k = 1; k < QWB; ++k) b += d >= (1 << k);
+  return b;
+}
+
+#if PONY_PROF
+// A block's shared counters, by section: beh_runs, beh_delivered,
+// beh_rejected [NB] each, coh_mute_ticks [NCOH], qwait_hist [NCOH, QWB].
+constexpr int64_t TS_RUNS = 0, TS_DELIV = W::NB, TS_REJ = 2 * W::NB,
+                  TS_MUTE = 3 * W::NB, TS_QWH = 3 * W::NB + W::NCOH,
+                  TEL_N = 3 * W::NB + (1 + QWB) * W::NCOH;
+
+#ifdef __CUDACC__
+PONY_FN int32_t* tel_smem() {
+  __shared__ int32_t s[TEL_N > 0 ? TEL_N : 1];
+  return s;
+}
+#else
+// The host build's counters: a variable of internal linkage, one for each
+// program's library (a static local of an inline function would be one
+// symbol for the whole process, shared by every library loaded).
+static thread_local int32_t pony_tel_host[TEL_N > 0 ? TEL_N : 1];
+static inline int32_t* tel_smem() { return pony_tel_host; }
+#endif
+
+// Count one at s[k] where `on`: the lanes of a warp that meet here with
+// the same k add together, through one shared atomic.
+PONY_FN void tel_count(int32_t* s, int32_t k, bool on) {
+#ifdef __CUDACC__
+  const unsigned act = __activemask();
+  const unsigned peers = __match_any_sync(act, on ? k : -1);
+  if (on && (peers & ((1u << (threadIdx.x & 31)) - 1u)) == 0)
+    atomicAdd(s + k, (int32_t)__popc(peers));
+#else
+  if (on) s[k] = wadd(s[k], 1);
+#endif
+}
+
+// Add a section of the block's counters into the leaf `dst` (one atomic
+// per nonzero counter) and clear it. Every thread of the block calls it.
+PONY_FN void tel_flush(const Grid& g, int32_t* s, int64_t n, int32_t* dst) {
+  PONY_BSYNC();
+  for (int64_t k = g.tid; k < n; k += g.nthreads) {
+    const int32_t v = s[k];
+    if (v) {
+      g_add(dst + k, v);
+      s[k] = 0;
+    }
+  }
+}
+#endif
 
 // ---- the entry list ----------------------------------------------------
 
@@ -653,6 +765,7 @@ PONY_FN void lane_dispatch(const PonyMegaArgs& a, int32_t* ws,
     PI32(P_LAST_ERROR)[r] = l.erc;
     PI32(P_LAST_ERROR_LOC)[r] = l.erl;
   }
+  if constexpr (W::EV) ws[pws::ERRF + r] = l.erf;   // the error event
   sums.nproc = wadd(sums.nproc, l.nproc);
   sums.nbad = wadd(sums.nbad, l.nbad);
   sums.ndes += l.ds;
@@ -742,6 +855,7 @@ PONY_FN void ph_lanes(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
       if constexpr (W::HOST) {     // a host row: no dispatch, head kept
         ws[pws::NEWHEAD + r] = (int32_t)h;
         ws[pws::DSTR + r] = 0;
+        if constexpr (W::EV) ws[pws::ERRF + r] = 0;
       }
     }
 #undef PONY_LANE
@@ -980,6 +1094,158 @@ PONY_FN void ph_bfree(const PonyMegaArgs& a, const Grid& g, int32_t* ws) {
   if (g.block == g.nblocks - 1 && g.tid == 0) ws[pws::NFREEB] = pf;
 }
 
+// ---- telemetry of the drained slots (keys phase) and the spans (scan) --
+
+// The rows of cohort C in this block's contiguous range [*lo, *hi).
+template <class C>
+PONY_FN void cohort_rows(const Grid& g, int64_t* lo, int64_t* hi) {
+  int64_t r0, r1;
+  block_rows(g, &r0, &r1);
+  *lo = r0 > C::S0 ? r0 : C::S0;
+  *hi = r1 < C::S0 + C::ROWS ? r1 : C::S0 + C::ROWS;
+}
+
+// Ring slot c of lane r was drained this tick: its count lies in
+// [head, NEWHEAD) (engine.py: _drained).
+template <class C>
+PONY_FN bool slot_drained(uint32_t h0, uint32_t n, int c) {
+  return (((uint32_t)c - h0) & (uint32_t)(C::CAP - 1)) < n;
+}
+
+#if PONY_PROF
+// Cohort C's drained slots in this block's rows: beh_runs and the
+// queue-wait histogram into the block's counters; with tracing, the
+// block's count of traced drained slots per ring slot (BTR). Returns this
+// thread's drained slots.
+template <class C>
+PONY_FN int32_t keys_rows(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                          int32_t step) {
+  int64_t lo, hi;
+  cohort_rows<C>(g, &lo, &hi);
+  int32_t* s = tel_smem();
+  const int32_t* buf = (const int32_t*)a.p[C::PBUF];
+  const int32_t* qw = (const int32_t*)a.p[C::PQW];
+  const int32_t* head = PI32(P_HEAD);
+  int32_t nd = 0;
+  int32_t tc[C::CAP];
+  for (int c = 0; c < C::CAP; ++c) tc[c] = 0;
+  for (int64_t b = lo; b < hi; b += g.nthreads) {
+    const int64_t r = b + g.tid;
+    const bool in = r < hi;
+    const int64_t i = in ? r - C::S0 : 0;
+    const uint32_t h0 = in ? (uint32_t)head[r] : 0u;
+    const uint32_t n = in ? (uint32_t)ws[pws::NEWHEAD + r] - h0 : 0u;
+    nd += (int32_t)n;
+    for (int c = 0; c < C::CAP; ++c) {
+      const bool d = slot_drained<C>(h0, n, c);
+      const int32_t gid = d ? buf[(int64_t)c * C::W1_IN * C::ROWS + i] : -1;
+      tel_count(s + TS_RUNS, gid, d && gid >= C::BASE && gid < C::BASE + C::NB);
+      const int32_t wait = d ? (int32_t)((uint32_t)step -
+                                         (uint32_t)qw[c * C::ROWS + i])
+                             : 0;
+      tel_count(s + TS_QWH, C::CIDX * QWB + qwait_bucket(wait), d);
+      if constexpr (W::TRACE) {
+        const int32_t* tb = (const int32_t*)a.p[C::PTB];
+        tc[c] += d && tb[(int64_t)c * 2 * C::ROWS + i] >= 0;
+      }
+    }
+  }
+  if constexpr (W::TRACE) {
+    for (int c = 0; c < C::CAP; ++c) {
+      const int32_t v = block_sum(tc[c]);
+      if (g.tid == 0)
+        ws[pws::BTR + ((int64_t)C::CIDX * C::CAP + c) * GMAX + g.block] = v;
+    }
+  }
+  return nd;
+}
+#endif
+
+#if PONY_TRACE
+// Cohort C's spans (engine.py: trace_span_lanes), in the scan phase: the
+// traced drained slots before each of this block's rows, per ring slot,
+// are the counts of the blocks before it (BTR) plus the block's own
+// prefix; a slot's rank is that within its cohort in slot-major [cap,
+// rows] order, its span id (span_next + spans of earlier cohorts + rank) *
+// 2 + 2, its span-ring row span_count + earlier + rank while below
+// TSCAP. Then the two trailing words of each of the lanes' outbox entries
+// (batch slot b, send m): (trace id, span id) of the message the lane
+// drained in batch slot b, or (-1, 0). `done` = the spans of the cohorts
+// before C; returns it with C's added.
+template <class C>
+PONY_FN int32_t span_rows(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
+                          int32_t step, int32_t nxt0, int32_t cnt0,
+                          int32_t done) {
+  int32_t pre[C::CAP], before[C::CAP], tot = 0;
+  for (int c = 0; c < C::CAP; ++c) {
+    const int32_t* row =
+        ws + pws::BTR + ((int64_t)C::CIDX * C::CAP + c) * GMAX;
+    int32_t p = 0, t = 0;
+    for (int64_t b = g.tid; b < g.nblocks; b += g.nthreads) {
+      t += row[b];
+      if (b < g.block) p += row[b];
+    }
+    pre[c] = block_sum(p);
+    before[c] = tot;
+    tot += block_sum(t);
+  }
+  int64_t lo, hi;
+  cohort_rows<C>(g, &lo, &hi);
+  const int32_t* buf = (const int32_t*)a.p[C::PBUF];
+  const int32_t* qw = (const int32_t*)a.p[C::PQW];
+  const int32_t* tb = (const int32_t*)a.p[C::PTB];
+  const int32_t* head = PI32(P_HEAD);
+  int32_t* sd = PI32(W::PTEL + T_SPDATA);
+  int32_t* ow = ws + pws::OUT_W;
+  const uint32_t sbase = (uint32_t)nxt0 + (uint32_t)done;
+  const int64_t cbase = (int64_t)cnt0 + done < W::TSCAP
+                            ? (int64_t)cnt0 + done : (int64_t)W::TSCAP;
+  for (int64_t b = lo; b < hi; b += g.nthreads) {
+    const int64_t r = b + g.tid;
+    const bool in = r < hi;
+    const int64_t i = in ? r - C::S0 : 0;
+    const uint32_t h0 = in ? (uint32_t)head[r] : 0u;
+    const uint32_t n = in ? (uint32_t)ws[pws::NEWHEAD + r] - h0 : 0u;
+    int32_t tid[C::CAP], sid[C::CAP];
+    for (int c = 0; c < C::CAP; ++c) {
+      const bool d = in && slot_drained<C>(h0, n, c);
+      tid[c] = d ? tb[(int64_t)c * 2 * C::ROWS + i] : -1;
+      const int32_t t = tid[c] >= 0;
+      int32_t tt;
+      const int32_t ex = block_excl_scan(t, &tt);
+      const int32_t rank = before[c] + pre[c] + ex;
+      pre[c] += tt;
+      sid[c] = t ? (int32_t)((sbase + (uint32_t)rank) * 2u + 2u) : 0;
+      const int64_t pos = cbase + rank;
+      if (t && pos < W::TSCAP) {
+        const int32_t v[8] = {
+            tid[c], sid[c], tb[((int64_t)c * 2 + 1) * C::ROWS + i],
+            buf[(int64_t)c * C::W1_IN * C::ROWS + i], (int32_t)r,
+            qw[c * C::ROWS + i], step, (int32_t)((uint32_t)step + 1u)};
+        for (int k = 0; k < 8; ++k) sd[(int64_t)k * W::TSCAP + pos] = v[k];
+      }
+    }
+    if (!in) continue;
+    for (int k = 0; k < C::BATCH; ++k) {
+      const uint32_t slot = (h0 + (uint32_t)k) & (uint32_t)(C::CAP - 1);
+      int32_t ts = -1, ss = 0;
+      for (int c = 0; c < C::CAP; ++c)
+        if ((uint32_t)c == slot) {
+          ts = tid[c];
+          ss = sid[c];
+        }
+      const bool ok = (uint32_t)k < n && ts >= 0;
+      for (int m = 0; m < C::MS; ++m) {
+        const int64_t o = C::OUT_OFF + ((int64_t)k * C::MS + m) * C::ROWS + i;
+        ow[o * W::W1 + W::WT] = ok ? ts : -1;
+        ow[o * W::W1 + W::WT + 1] = ok ? ss : 0;
+      }
+    }
+  }
+  return (int32_t)((uint32_t)done + (uint32_t)tot);
+}
+#endif
+
 // ---- phase 2: keys, dead letters, per-target counts, digit counts -------
 
 PONY_FN int32_t digit(int32_t key, int pass) {
@@ -989,7 +1255,8 @@ PONY_FN int32_t digit(int32_t key, int pass) {
 PONY_FN void acc_reset(int32_t* acc) {
   // The spawn, host and blob accumulators only where the program has
   // them.
-  for (int k = 0; k < (W::BLOB ? (int)A_NACC
+  for (int k = 0; k < (W::PROF   ? (int)A_NACC
+                       : W::BLOB ? (int)A_PROF0
                        : W::SPAWN || W::HOST ? (int)A_BALLOC
                                              : (int)A_NSPAWN);
        ++k)
@@ -1006,6 +1273,7 @@ PONY_FN void ph_keys(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   const uint8_t* alive = PU8(P_ALIVE);
   int32_t* key_out = PI32(P_PLAN_KEY);
   int32_t ndead = 0;
+  int32_t ngather = 0;       // entries with a target (W::PROF)
   // Each block takes a contiguous run of chunks of one entry a thread (a
   // chunk lies in one tile); a warp counts its tile's live entries and
   // adds them to LCNT when its tile changes, so blocks meet on no counter.
@@ -1035,6 +1303,7 @@ PONY_FN void ph_keys(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
 #endif
       }
       ndead += dead;
+      if constexpr (W::PROF) ngather += tgt >= 0;
     }
     const int64_t tile = c * g.nthreads / TILE;
     if (tile != tile_at) {
@@ -1052,6 +1321,26 @@ PONY_FN void ph_keys(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   if (tile_live) g_add(ws + pws::LCNT + tile_at, tile_live);
   ndead = block_sum(ndead);
   if (g.tid == 0 && ndead) g_add(cur + A_NDEAD, ndead);
+#if PONY_PROF
+  // The profiler's drain side (engine.py: profile_lanes) and the phase
+  // costs' delivery-list entries and drained slots.
+  const int32_t step = PI32(P_STEP_NO)[0];
+  int32_t nd = 0;
+#define PONY_KEYS_ROWS(C) nd += keys_rows<C>(a, g, ws, step);
+  PONY_COHORTS(PONY_KEYS_ROWS)
+#undef PONY_KEYS_ROWS
+  nd = block_sum(nd);
+  ngather = block_sum(ngather);
+  if (g.tid == 0) {
+    if (nd) g_add(cur + A_PCDRAIN, nd);
+    if (ngather) g_add(cur + A_PCDELIV, ngather);
+  }
+  int32_t* s = tel_smem();
+  tel_flush(g, s + TS_RUNS, W::NB, PI32(W::PTEL + T_RUNS));
+  tel_flush(g, s + TS_QWH, (int64_t)W::NCOH * QWB, PI32(W::PTEL + T_QWH));
+#else
+  (void)ngather;
+#endif
 }
 
 // ---- phase 3: per-target scans; digit offsets or the tiles' live prefix -
@@ -1203,6 +1492,16 @@ PONY_FN void ph_scan(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
       if (g.tid == 0) ws[pws::LCNT + NTILE] = tot;
     }
   }
+#if PONY_TRACE
+  const int32_t step = PI32(P_STEP_NO)[0];
+  const int32_t nxt0 = PI32(W::PTEL + T_SPNEXT)[0];
+  const int32_t cnt0 = PI32(W::PTEL + T_SPCOUNT)[0];
+  int32_t done = 0;
+#define PONY_SPAN_ROWS(C) done = span_rows<C>(a, g, ws, step, nxt0, cnt0, done);
+  PONY_COHORTS(PONY_SPAN_ROWS)
+#undef PONY_SPAN_ROWS
+  if (g.first()) cur[A_SPANS] = done;
+#endif
 }
 
 // Add each chunk's prefix of the chunk totals (run in the sort phase).
@@ -1451,6 +1750,21 @@ PONY_FN void ring_fill(const PonyMegaArgs& a, const int32_t* ws, int64_t t,
     for (int j = 0; j < C::W1_IN; ++j) w[j] = entry_word(a, ws, es[c], j, inject);
     for (int j = 0; j < C::W1_IN; ++j)
       buf[((int64_t)c * C::W1_IN + j) * C::ROWS + i] = w[j];
+#if PONY_PROF
+    // beh_delivered of the cohort's own behaviours, the enqueue stamp of
+    // a device cohort's slot, and with tracing the slot's trace rows,
+    // from the entry's two trailing words.
+    tel_count(tel_smem() + TS_DELIV, w[0],
+              w[0] >= C::BASE && w[0] < C::BASE + C::NB);
+    if constexpr (C::PQW >= 0)
+      ((int32_t*)a.p[C::PQW])[c * C::ROWS + i] = PI32(P_STEP_NO)[0];
+    if constexpr (W::TRACE) {
+      int32_t* tb = (int32_t*)a.p[C::PTB];
+      tb[(int64_t)c * 2 * C::ROWS + i] = entry_word(a, ws, es[c], W::WT, inject);
+      tb[((int64_t)c * 2 + 1) * C::ROWS + i] =
+          entry_word(a, ws, es[c], W::WT + 1, inject);
+    }
+#endif
   }
 }
 
@@ -1523,6 +1837,9 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     }
     ws[pws::DSP_CNT + t] = kept;
   }
+#if PONY_PROF
+  tel_flush(g, tel_smem() + TS_DELIV, W::NB, PI32(W::PTEL + T_DELIV));
+#endif
   if (seg) return;
   // The radix sort's mute triggers, per sorted live entry (valid entries
   // sort first); the sender is read only for an entry that can trigger.
@@ -1560,7 +1877,23 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   uint8_t* pr = PU8(P_PRESSURED);
   int32_t any_occ = 0, any_m = 0, any_p = 0, became_n = 0, occ_max = INT_MIN;
   int32_t any_host = 0;    // an occupied host row (W::HOST only)
+#if PONY_PROF
+  // The aggregates (occupancy, muted, overloaded).
+  int32_t occ_sum = 0, n_mut = 0, n_over = 0;
+  int32_t* tel = tel_smem();
+#endif
+#if PONY_EV
+  int32_t nev[NEVC] = {0, 0, 0, 0, 0, 0};   // each transition class
+#endif
+#if PONY_EV
+  // The event ring is written in row order (at the gate), from each
+  // block's prefix: a contiguous range of rows a block.
+  int64_t rr0, rr1;
+  block_rows(g, &rr0, &rr1);
+  for (int64_t r = rr0 + g.tid; r < rr1; r += g.nthreads) {
+#else
   PONY_FOR(r, W::NL) {
+#endif
     // A claimed row (≙ engine.py's apply_claims) becomes alive with head
     // and tail 0 and its fields at their null words or its sync
     // constructor's values.
@@ -1577,6 +1910,10 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     uint32_t nh = born ? 0u : (uint32_t)ws[pws::NEWHEAD + r];
     const bool d = ws[pws::DSTR + r] != 0;
     const bool al = (alive[r] || born) && !d;
+#if PONY_EV
+    const bool al0 = alive[r] != 0, m0 = muted[r] != 0;   // tick start
+    const int32_t occ0 = (int32_t)((uint32_t)tail[r] - (uint32_t)head[r]);
+#endif
     bool wm = ws[pws::WMUTED + r] != 0;
     bool o = ovf[r];
     if (d) {                 // ≙ ponyint_actor_destroy, actor.c:570-664
@@ -1620,6 +1957,27 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     any_m |= m2;
     any_p |= pr[r];
     became_n += became;
+#if PONY_PROF
+    occ_sum = wadd(occ_sum, occ);
+    n_mut += m2;
+    n_over += occ > W::OVERLOAD;
+    {
+      int k;
+      bool target, spawner;
+      row_cohort(r, &k, &target, &spawner);
+      tel_count(tel + TS_MUTE, k, m2 && r < W::FH);
+    }
+#endif
+#if PONY_EV
+    // Transitions (engine.py: the event ring's classes 1..6).
+    const int32_t bits =
+        (int32_t)became | (int32_t)(m0 && !wm && al) << 1 |
+        (int32_t)(occ > W::OVERLOAD && !(occ0 > W::OVERLOAD)) << 2 |
+        (int32_t)(al && !al0) << 3 | (int32_t)(al0 && !al) << 4 |
+        (int32_t)(ws[pws::ERRF + r] != 0) << 5;
+    ws[pws::EVM + r] = bits;
+    for (int k = 0; k < NEVC; ++k) nev[k] += (bits >> k) & 1;
+#endif
     // This tick's per-lane scratch, cleared for the next.
     ws[pws::TCNT + r] = 0;
     ws[pws::NEWLY + r] = 0;
@@ -1636,6 +1994,11 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
   const int64_t n_sp = rtot < W::SPILL ? rtot : W::SPILL;
   PONY_FOR(q, W::SPILL) {
     const bool v = q < n_sp;
+#if PONY_PROF
+    // beh_rejected: the new spill's behaviour ids (every behaviour).
+    const int32_t rg = v ? ws[pws::NSP_W + q] : -1;
+    tel_count(tel + TS_REJ, rg, rg >= 0 && rg < W::NB);
+#endif
     PI32(P_DSPILL_TGT)[q] = v ? ws[pws::NSP_TGT + q] : -1;
     PI32(P_DSPILL_SENDER)[q] = v ? ws[pws::NSP_SND + q] : -1;
     for (int k = 0; k < W::W1; ++k)
@@ -1658,6 +2021,24 @@ PONY_FN void ph_commit(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     any_host = block_sum(any_host);
     if (g.tid == 0 && any_host) g_add(cur + A_HOSTOCC, 1);
   }
+#if PONY_PROF
+  occ_sum = block_sum(occ_sum);
+  n_mut = block_sum(n_mut);
+  n_over = block_sum(n_over);
+  if (g.tid == 0) {
+    if (occ_sum) g_add(cur + A_OCCSUM, occ_sum);
+    if (n_mut) g_add(cur + A_NMUTED, n_mut);
+    if (n_over) g_add(cur + A_NOVER, n_over);
+  }
+  tel_flush(g, tel + TS_MUTE, W::NCOH, PI32(W::PTEL + T_MUTE));
+  tel_flush(g, tel + TS_REJ, W::NB, PI32(W::PTEL + T_REJ));
+#endif
+#if PONY_EV
+  for (int k = 0; k < NEVC; ++k) {
+    const int32_t v = block_sum(nev[k]);
+    if (g.tid == 0) ws[pws::BEV + (int64_t)k * GMAX + g.block] = v;
+  }
+#endif
 }
 
 // ---- the gate: counters and aux, computed by every block ----------------
@@ -1675,7 +2056,9 @@ inline bool aux_is_bool(int k) { return k <= 8 && k != 3; }
 // n_deadletter, n_mutes, qw_p99, then ticks run.
 enum { OB_PENDING, OB_HOST, OB_EXIT, OB_OVERFLOW, OB_SPAWN, OB_BLOB,
        OB_BUDGET, OB_MUTED, OB_N };
-enum { OI_CODE, OI_NPROC, OI_NDELIV, OI_TICKS = 12 };
+enum { OI_CODE, OI_NPROC, OI_NDELIV, OI_OCCSUM, OI_OCCMAX, OI_NMUTED,
+       OI_NOVER, OI_NREJ, OI_NBAD, OI_NDEAD, OI_NMUTES, OI_QW99,
+       OI_TICKS };
 
 PONY_FN bool aux_go(const uint8_t* b) {
   return b[OB_PENDING] && !b[OB_HOST] && !b[OB_EXIT] && !b[OB_OVERFLOW] &&
@@ -1692,11 +2075,87 @@ struct Sticky {
 struct StickyB : Sticky {
   bool bf, bbf;
 };
-typedef std::conditional<W::BLOB != 0, StickyB, Sticky>::type StickyT;
+typedef std::conditional<W::BLOB != 0, StickyB, Sticky>::type StickyT0;
+// An event-ring world's: the tick's step and the ring's count.
+struct StickyE : StickyT0 {
+  int32_t step, evc;
+};
+typedef std::conditional<W::EV != 0, StickyE, StickyT0>::type StickyT;
 template <class S>
 PONY_FN bool& sticky_bf(S& s) { return s.bf; }
 template <class S>
 PONY_FN bool& sticky_bbf(S& s) { return s.bbf; }
+template <class S>
+PONY_FN int32_t& sticky_step(S& s) { return s.step; }
+template <class S>
+PONY_FN int32_t& sticky_evc(S& s) { return s.evc; }
+
+#if PONY_PROF
+// The worst device cohort's queue-wait p99 of the cumulative histograms
+// `h` [NCOH, QWB] (engine.py: queue_wait_p99, in its int32 arithmetic):
+// 2^k of the first bucket whose cumulative count reaches max(1, (total *
+// 99 + 99) // 100); 0 for an empty histogram.
+PONY_FN int32_t queue_wait_p99(const int32_t* h) {
+  int32_t best = 0;
+  for (int d = 0; d < W::NCOH; ++d) {
+    uint32_t tot = 0;
+    for (int k = 0; k < QWB; ++k) tot += (uint32_t)h[d * QWB + k];
+    int32_t need = pony_floordiv((int32_t)(tot * 99u + 99u), (int32_t)100);
+    need = need < 1 ? 1 : need;
+    uint32_t cum = 0;
+    int32_t first = -1;
+    for (int k = 0; k < QWB; ++k) {
+      cum += (uint32_t)h[d * QWB + k];
+      if (first < 0 && (int32_t)cum >= need) first = k;
+    }
+    const int32_t v = (int32_t)tot > 0 ? 1 << (first < 0 ? 0 : first) : 0;
+    best = v > best ? v : best;
+  }
+  return best;
+}
+#endif
+
+#if PONY_EV
+// The event ring (engine.py: event_ring), at the gate: class k's events
+// after those of the classes before it, each class in row order, from the
+// ring's count `evc` at the tick's start; a block writes its rows' events
+// from the counts of the blocks before it (BEV) and stops where the ring
+// is full. Returns the tick's events.
+PONY_FN int32_t ev_rows(const PonyMegaArgs& a, const Grid& g,
+                        const int32_t* ws, int32_t evc, int32_t step) {
+  int32_t* ev = PI32(W::PTEL + T_EVDATA);
+  int64_t r0, r1;
+  block_rows(g, &r0, &r1);
+  int32_t before = 0;
+  for (int k = 0; k < NEVC; ++k) {
+    const int32_t* row = ws + pws::BEV + (int64_t)k * GMAX;
+    int32_t p = 0, t = 0;
+    for (int64_t b = g.tid; b < g.nblocks; b += g.nthreads) {
+      t += row[b];
+      if (b < g.block) p += row[b];
+    }
+    p = block_sum(p);
+    t = block_sum(t);
+    int64_t at = (int64_t)evc + before + p;
+    if (row[g.block] > 0) {
+      for (int64_t b = r0; b < r1 && at < W::EVCAP; b += g.nthreads) {
+        const int64_t r = b + g.tid;
+        const int32_t on = r < r1 && ((ws[pws::EVM + r] >> k) & 1);
+        int32_t tot;
+        const int64_t q = at + block_excl_scan(on, &tot);
+        if (on && q < W::EVCAP) {
+          ev[q] = k + 1;
+          ev[W::EVCAP + q] = (int32_t)r;
+          ev[2 * W::EVCAP + q] = (int32_t)((uint32_t)step + 1u);
+        }
+        at += tot;
+      }
+    }
+    before += t;
+  }
+  return before;
+}
+#endif
 
 
 // After tick i's commit: every block reads the tick's accumulators `cur`
@@ -1730,6 +2189,13 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
     ob[OB_BLOB] = bf;
     ob[OB_BUDGET] = bbf;
   }
+#if PONY_EV
+  const int32_t evc0 = sticky_evc(s);
+  const int32_t nev = ev_rows(a, g, ws, evc0, sticky_step(s));
+  sticky_evc(s) = (int64_t)evc0 + nev < W::EVCAP ? evc0 + nev
+                                                 : (int32_t)W::EVCAP;
+  sticky_step(s) = wadd(sticky_step(s), 1);
+#endif
   if (g.block == 0) {
     // One counter a thread of block 0, so their round trips overlap.
     const int ptr[] = {P_N_REJECTED, P_N_BADMSG, P_N_DEADLETTER, P_N_MUTES,
@@ -1738,6 +2204,14 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
                            cur[A_NDESTROYED], cur[A_NERR], 1};
     for (int64_t k = g.tid; k < 7; k += g.nthreads)
       PI32(ptr[k])[0] = wadd(PI32(ptr[k])[0], add[k]);
+#if PONY_PROF
+    // The phase costs (engine.py: phase_cost_lanes; state.PHASE_NAMES).
+    const int32_t pc[] = {cur[A_PCDELIV], cur[A_PCDRAIN], cur[A_NPROC],
+                          wadd(cur[A_NSPAWN], cur[A_NDESTROYED])};
+    int32_t* ph = PI32(W::PTEL + T_PHASE);
+    for (int64_t k = g.tid; k < 4; k += g.nthreads) ph[k] = wadd(ph[k], pc[k]);
+    PONY_BSYNC();        // the counters, read below
+#endif
   }
   if (g.first()) {
     int32_t* c;
@@ -1770,6 +2244,37 @@ PONY_FN bool gate(const PonyMegaArgs& a, const Grid& g, const int32_t* ws,
     oi[OI_NPROC] = PI32(P_N_PROCESSED)[0];
     oi[OI_NDELIV] = PI32(P_N_DELIVERED)[0];
     oi[OI_TICKS] = i + 1;
+#if PONY_PROF
+    // The aggregates and the cumulative counters ride the aux.
+    oi[OI_OCCSUM] = cur[A_OCCSUM];
+    oi[OI_OCCMAX] = cur[A_OCC_MAX];
+    oi[OI_NMUTED] = cur[A_NMUTED];
+    oi[OI_NOVER] = cur[A_NOVER];
+    oi[OI_NREJ] = PI32(P_N_REJECTED)[0];
+    oi[OI_NBAD] = PI32(P_N_BADMSG)[0];
+    oi[OI_NDEAD] = PI32(P_N_DEADLETTER)[0];
+    oi[OI_NMUTES] = PI32(P_N_MUTES)[0];
+    oi[OI_QW99] = queue_wait_p99(PI32(W::PTEL + T_QWH));
+#endif
+#if PONY_EV
+    PI32(W::PTEL + T_EVCOUNT)[0] = sticky_evc(s);
+    c = PI32(W::PTEL + T_EVDROP);
+    if ((int64_t)evc0 + nev > W::EVCAP)
+      c[0] = wadd(c[0], (int32_t)((int64_t)evc0 + nev - W::EVCAP));
+#endif
+#if PONY_TRACE
+    // The span counters (engine.py: trace_span_lanes).
+    int32_t* sc = PI32(W::PTEL + T_SPCOUNT);
+    const int32_t spans = cur[A_SPANS], cnt0 = sc[0];
+    c = PI32(W::PTEL + T_SPNEXT);
+    c[0] = wadd(c[0], spans);
+    if ((int64_t)cnt0 + spans > W::TSCAP) {
+      c = PI32(W::PTEL + T_SPDROP);
+      c[0] = wadd(c[0], (int32_t)((int64_t)cnt0 + spans - W::TSCAP));
+    }
+    sc[0] = (int64_t)cnt0 + spans < W::TSCAP ? cnt0 + spans
+                                            : (int32_t)W::TSCAP;
+#endif
   }
   return (i + 1 < a.limit) && (a.forced || aux_go(ob));
 }
@@ -1842,6 +2347,13 @@ PONY_FN void pony_window(const PonyMegaArgs& a, const Grid& g, Smem& sm) {
     sticky_bf(s) = PU8(W::PBLOB + 4)[0] != 0;
     sticky_bbf(s) = PU8(W::PBLOB + 5)[0] != 0;
   }
+  if constexpr (W::EV) {
+    sticky_step(s) = PI32(P_STEP_NO)[0];
+    sticky_evc(s) = PI32(W::PTEL + T_EVCOUNT)[0];
+  }
+#if PONY_PROF
+  for (int64_t k = g.tid; k < TEL_N; k += g.nthreads) tel_smem()[k] = 0;
+#endif
   bool go = a.forced ? a.limit > 0 : (a.force || aux_go(ob));
   if (g.first()) {
     // A window that runs no tick returns the previous aux unchanged.
@@ -1945,7 +2457,10 @@ extern "C" int pony_mega_aux_layout(int* out) {
   for (int k = 0; k < n; ++k) out[m++] = aux_is_bool(k) ? nb++ : 100 + ni++;
   const int named[] = {OB_PENDING, OB_HOST, OB_EXIT, OB_OVERFLOW, OB_SPAWN,
                        OB_BLOB, OB_BUDGET, OB_MUTED, 100 + OI_CODE,
-                       100 + OI_NPROC, 100 + OI_NDELIV, 100 + OI_TICKS};
+                       100 + OI_NPROC, 100 + OI_NDELIV, 100 + OI_OCCSUM,
+                       100 + OI_OCCMAX, 100 + OI_NMUTED, 100 + OI_NOVER,
+                       100 + OI_NREJ, 100 + OI_NBAD, 100 + OI_NDEAD,
+                       100 + OI_NMUTES, 100 + OI_QW99, 100 + OI_TICKS};
   for (int v : named) out[m++] = v;
   return m;
 }

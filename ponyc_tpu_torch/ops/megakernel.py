@@ -53,6 +53,15 @@ free slots; the lanes' blob ops (ops/lanecode.py's blob nodes) load and
 store the pool directly, and the gate writes the sticky blob_fail and
 blob_budget_fail and the alloc, free and remote counts.
 
+Telemetry is served where the options ask for it (world["PROF"] at
+analysis >= 1, world["EV"] at analysis >= 3, world["TRACE"] with causal
+tracing): the kernel computes the profiler lanes, the phase costs, the
+aux's aggregates and qw_p99, the event ring and the span ring, and the
+two trace words of every record in flight (the record width W1 includes
+them), in the telemetry leaves and each cohort's qwait_enq and trace_buf,
+cloned and updated in place (`telemetry_leaves`). Other programs'
+kernels are compiled without any of it.
+
 Host cohorts (HOST = True) are served as the plain step serves them:
 their rows take delivery into their rings, which the kernel updates in
 place with the device cohorts', and the window ends on the device at the
@@ -189,7 +198,9 @@ SRC = os.path.join(_build.CSRC_DIR, "mega_window.cu")
 _AUX_NAMED = ("device_pending", "host_pending", "exit_flag",
               "spill_overflow", "spawn_fail", "blob_fail",
               "blob_budget_fail", "any_muted", "exit_code", "n_processed",
-              "n_delivered")
+              "n_delivered", "occ_sum", "occ_max", "n_muted_now",
+              "n_overloaded_now", "n_rejected", "n_badmsg", "n_deadletter",
+              "n_mutes", "qw_p99")
 # State leaves the kernel updates in place: each is cloned before the
 # launch, since the caller's input state stays referenced (the window is a
 # function of it; Runtime and the checks read it again). The mailbox rings
@@ -209,6 +220,22 @@ _UPDATED = ("head", "tail", "alive", "muted", "mute_refs", "mute_age",
 BLOB_LEAVES = ("blob_data", "blob_used", "blob_len", "blob_gen",
                "blob_fail", "blob_budget_fail", "n_blob_alloc",
                "n_blob_free", "n_blob_remote")
+# The telemetry leaves, in the order of the kernel's W::PTEL pointers
+# (cloned, updated in place): the profiler's at analysis >= 1, the event
+# ring's at analysis >= 3, the span ring's with tracing on. Each device
+# cohort's qwait_enq (analysis >= 1) and each cohort's trace_buf (tracing)
+# follow them, as the cohort structs' PQW and PTB.
+PROF_LEAVES = ("beh_runs", "beh_delivered", "beh_rejected",
+               "coh_mute_ticks", "qwait_hist", "phase_cost")
+EV_LEAVES = ("ev_data", "ev_count", "ev_dropped")
+SPAN_LEAVES = ("span_data", "span_count", "span_dropped", "span_next")
+
+
+def telemetry_leaves(opts) -> tuple:
+    """The telemetry leaves the window kernel updates for `opts`."""
+    return ((PROF_LEAVES if opts.analysis >= 1 else ())
+            + (EV_LEAVES if opts.analysis >= 3 else ())
+            + (SPAN_LEAVES if opts.tracing else ()))
 
 
 def aux_layout():
@@ -382,6 +409,27 @@ class MegaWindow:
         self.p_blob = ptr
         if self.blob:
             ptr += len(BLOB_LEAVES)
+        # The telemetry leaves (W::PTEL), then each device cohort's
+        # enqueue stamps (PQW) and each cohort's trace rows (PTB).
+        self.tel = telemetry_leaves(opts)
+        self.p_tel = ptr
+        ptr += len(self.tel)
+        prof, trace = opts.analysis >= 1, opts.tracing
+        for sp in self.specs:
+            if prof:
+                sp["extra"]["PQW"] = ptr
+                ptr += 1
+            if trace:
+                sp["extra"]["PTB"] = ptr
+                ptr += 1
+        for sp in self.host_specs:
+            if prof:        # a host cohort's behaviours, and no stamps
+                bs = sp["cohort"].behaviours
+                sp["extra"].update(BASE=bs[0].global_id if bs else 0,
+                                   NB=len(bs), PQW=-1)
+            if trace:
+                sp["extra"]["PTB"] = ptr
+                ptr += 1
         self.n_ptr = ptr
         self.site_targets = {sp["name"]: [index[t] for t, _ in sp["sites"]]
                              for sp in self.specs}
@@ -395,7 +443,7 @@ class MegaWindow:
         self.world = dict(
             NL=nl, CAP=opts.mailbox_cap, SPILL=opts.spill_cap,
             INJ=opts.inject_slots, K=opts.mute_slots,
-            W1=1 + opts.msg_words, E_OUT=e_out, E=e,
+            W1=1 + opts.msg_words + opts.trace_lanes, E_OUT=e_out, E=e,
             NLEV=self.n_levels, UNMUTE=opts.unmute_occ,
             OVERLOAD=opts.overload_occ, AGE=opts.mute_age_limit,
             NPASS=npass, DBITS=dbits, SEG=SEGMENT_MAX,
@@ -404,7 +452,13 @@ class MegaWindow:
             FH=program.first_host_row, BLOB=int(self.blob),
             BSL=opts.blob_slots if self.blob else 0,
             BW=opts.blob_words if self.blob else 0,
-            PBLOB=self.p_blob if self.blob else 0)
+            PBLOB=self.p_blob if self.blob else 0,
+            PROF=int(prof), EV=int(opts.analysis >= 3), TRACE=int(trace),
+            NB=len(program.behaviour_table) if prof else 0,
+            EVCAP=opts.analysis_events if opts.analysis >= 3 else 0,
+            TSCAP=opts.trace_slots if trace else 0,
+            WT=1 + opts.msg_words,
+            PTEL=self.p_tel if self.tel else 0)
         self.header = self.source("cuda")      # refusals surface here
         self.tag = "pony_mega_" + re.sub(
             r"\W", "_", "_".join(s["name"] for s in self.specs))[:48]
@@ -434,6 +488,10 @@ class MegaWindow:
                 for k, v in self.world.items()]
         out.append(f"  static constexpr int NPTR = {self.n_ptr};")
         out.append("};")
+        # The telemetry levels for the preprocessor too, for code whose
+        # loop structure changes with them.
+        out += [f"#define PONY_{k} {self.world[k]}"
+                for k in ("PROF", "EV", "TRACE")]
         for k, sp in enumerate(self.specs):
             ch = sp["cohort"]
             progs = sp["progs"]
@@ -586,7 +644,7 @@ class MegaWindow:
         if forced:
             prev_aux = zero_aux(dev)
         new = {f: getattr(st, f).clone() for f in _UPDATED
-               + (BLOB_LEAVES if self.blob else ())}
+               + (BLOB_LEAVES if self.blob else ()) + self.tel}
         for f, t in list(new.items()) + [("rspill_words", st.rspill_words)]:
             if not t.is_contiguous() or t.device != dev:
                 raise ValueError(f"window kernel: state leaf {f} must be "
@@ -595,6 +653,8 @@ class MegaWindow:
                 for sp in self.specs + self.host_specs}
         fields = {sp["name"]: {f: st.type_state[sp["name"]][f].clone()
                                for f in sp["fields"]} for sp in self.specs}
+        qwe = {n: t.clone() for n, t in st.qwait_enq.items()}
+        tbuf = {n: t.clone() for n, t in st.trace_buf.items()}
         ws = self.workspace(dev, fn.ws_words)
         n_b = len(_AUX_BOOL)
         n_i = len(StepAux._fields) - n_b          # ticks run goes last
@@ -620,6 +680,14 @@ class MegaWindow:
         tensors += [bufs[sp["name"]] for sp in self.host_specs]
         if self.blob:
             tensors += [new[f] for f in BLOB_LEAVES]
+        tensors += [new[f] for f in self.tel]
+        for sp in self.specs:
+            if "PQW" in sp["extra"]:
+                tensors.append(qwe[sp["name"]])
+            if "PTB" in sp["extra"]:
+                tensors.append(tbuf[sp["name"]])
+        tensors += [tbuf[sp["name"]] for sp in self.host_specs
+                    if "PTB" in sp["extra"]]
         ptrs = _build.pointers(tensors)
         if host:
             err = fn(ptrs, int(limit), int(bool(force)), int(forced), 1,
@@ -635,7 +703,8 @@ class MegaWindow:
         if not host:
             MegaWindow.launches += 1
         st2 = dataclasses.replace(
-            st, **new, buf=bufs, type_state={**st.type_state, **fields})
+            st, **new, buf=bufs, type_state={**st.type_state, **fields},
+            qwait_enq=qwe, trace_buf=tbuf)
         bools, ints = iter(range(n_b)), iter(range(n_i))
         aux = StepAux(*(out_b[next(bools)] if f in _AUX_BOOL
                         else out_i[next(ints)] for f in StepAux._fields))

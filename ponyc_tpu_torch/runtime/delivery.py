@@ -49,6 +49,7 @@ class Entries(NamedTuple):
 
 class DeliveryResult(NamedTuple):
     buf: dict                  # {type: [cap, 1+W_c, rows_c]} per cohort
+    trace_buf: dict            # {type: [cap, 2, rows_c]}; {} untraced
     tail: torch.Tensor
     spill: Entries             # rejected entries, compacted, oldest first
     spill_count: torch.Tensor  # [] int32
@@ -100,12 +101,15 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
             mailbox_cap: int, spill_cap: int, overload_occ: int,
             shard_base: int, cohort_layout, mute_slots: int = 4,
             level=None, n_levels: int = 1,
-            pressured=None) -> DeliveryResult:
+            pressured=None, trace_buf=None) -> DeliveryResult:
     """`buf` is the per-cohort mailbox dict {type: [cap, 1+W_c, rows_c]};
     `cohort_layout` = [(type, s0, s1, w1_c)] tiles the local rows
     [0, n_local) in cohort order. `level` ([E] int32, 0 = most urgent)
     orders contenders for one mailbox by priority: 0 is the receiver
-    spill, 1 host injections, 2+ sender cohorts by PRIORITY."""
+    spill, 1 host injections, 2+ sender cohorts by PRIORITY.
+    `trace_buf` (causal tracing on: {type: [cap, 2, rows_c]}) takes the
+    entries' two trailing word rows, (trace id, parent span), through
+    the same (mask, source) pair as the payload."""
     n, c = n_local, mailbox_cap
     tgt, sender, words = entries
     e = tgt.shape[0]
@@ -156,6 +160,17 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
                                   pulled.permute(1, 0, 2).contiguous(),
                                   buf[cname])
 
+    tbuf2 = {}
+    if trace_buf is not None:
+        w1f = wds.shape[0]
+        for cname, s0, s1, _w1c in cohort_layout:
+            nn = s1 - s0
+            pulled = wds[w1f - 2:].index_select(
+                1, srcs[:, s0:s1].reshape(c * nn).long()).reshape(2, c, nn)
+            tbuf2[cname] = torch.where(wmasks[:, None, s0:s1],
+                                       pulled.permute(1, 0, 2).contiguous(),
+                                       trace_buf[cname])
+
     n_delivered = _isum(acc)
     nrej = _isum(cnt - acc)
     occ_after = new_tail - head
@@ -196,7 +211,7 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
                                n=n, k=mute_slots)
 
     return DeliveryResult(
-        buf=buf2, tail=new_tail,
+        buf=buf2, trace_buf=tbuf2, tail=new_tail,
         spill=spill, spill_count=nrej.clamp(max=spill_cap),
         spill_overflow=nrej > spill_cap,
         newly_muted=newly[:n] > 0, new_mute_refs=refs, new_mute_ovf=ovf,

@@ -28,6 +28,14 @@ actor. The whole world advances in lockstep:
   4. apply destroys and errors, then mute bookkeeping, and vote the
      small aux scalars the host reads.
 
+Telemetry (analysis >= 1: the profiler lanes, the phase costs, the
+occupancy aggregates and qw_p99; analysis >= 3: the event ring; causal
+tracing: the span ring and the (trace id, span id) words every outbox
+entry carries) is recomputed from the ring head and tail advances
+(`profile_lanes`, `phase_cost_lanes`, `trace_span_lanes`), so one
+implementation serves the plain and the fused dispatch. The gates are
+Python-level, as in the reference: at analysis 0 none of it runs.
+
 Control flow. The reference is compiled by XLA, so its `lax.cond`s and
 its window `lax.while_loop` cost no host round trip. In eager PyTorch a
 branch on a device value is a synchronisation. This port therefore
@@ -52,8 +60,9 @@ from ..ops import fused_dispatch, megakernel, pack
 from ..ops.mailbox_kernel import drain_msgs
 from ..ops.segment import counts_by_key
 from ..program import Cohort, Program
+from ..ops.segment import DUMP_SLOTS, dump_index
 from .delivery import Entries, _isum, deliver, empty_mute_slots
-from .state import RtState
+from .state import PHASE_NAMES, QW_BUCKETS, RtState
 
 
 class StepAux(NamedTuple):
@@ -767,6 +776,224 @@ def apply_claims(tc: Cohort, clist, alive, head, tail, ts, base: int,
     return alive, head, tail, ts, _isum(valid)
 
 
+def _scatter_into(dst, idx, keep, vals):
+    """dst (a copy) with vals written at idx where keep; the other writes
+    go to dump slots (a ``.at[idx].set(mode="drop")`` of the JAX
+    package)."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst.new_zeros((DUMP_SLOTS,))])
+    out.scatter_(0, dump_index(keep, idx.long(), n), vals.to(dst.dtype))
+    return out[:n]
+
+
+def _add_counts(acc, keys, n: int):
+    """acc [n] int32 plus the count of each key in [0, n) of `keys`."""
+    flat = keys.reshape(-1)
+    return acc + counts_by_key(flat, torch.ones_like(flat), n)
+
+
+def _qwait_bucket(delta):
+    """Power-of-two bucket of a queue-wait delta in ticks: bucket k holds
+    [2^k, 2^(k+1)), deltas clipped to >= 1, the last bucket open."""
+    d = delta.clamp(min=1)
+    b = torch.zeros_like(d)
+    for k in range(1, QW_BUCKETS):
+        b = b + (d >= (1 << k)).to(torch.int32)
+    return b
+
+
+def _drained(head0, head1, cap: int):
+    """[cap, rows]: ring slot c of a lane held a message drained this
+    tick (its count fell in [head0, head1))."""
+    ci = torch.arange(cap, dtype=torch.int32, device=head0.device)[:, None]
+    return torch.remainder(ci - head0[None, :], cap) < (head1 - head0)[None, :]
+
+
+def profile_lanes(program: Program, opts: RuntimeOptions, st: RtState,
+                  tail0, res, drain_facts, muted2):
+    """The per-behaviour profiler lanes (≙ the fork's per-actor
+    --ponyanalysis records, re-based on the cohort; the JAX package's
+    engine.profile_lanes). Only called at analysis >= 1. From the ring
+    head and tail advances: beh_runs (the drained slots of each of a
+    cohort's own behaviours), the queue-wait histogram of each device
+    cohort (step - the slot's enqueue stamp), coh_mute_ticks (actors
+    muted at the end of the tick), beh_delivered (the fresh slots of
+    every row, host rows included), beh_rejected (the compacted spill's
+    behaviour ids) and the enqueue stamps of the fresh slots of device
+    cohorts. `drain_facts` = [(cohort, head before, head after)] in
+    device-cohort order. Returns the six updated leaves."""
+    cap = opts.mailbox_cap
+    nb = len(program.behaviour_table)
+    s_now = st.step_no[0]
+    beh_runs, beh_del = st.beh_runs, st.beh_delivered
+    coh_mt, qw_hist = st.coh_mute_ticks, st.qwait_hist
+    qw_enq = dict(st.qwait_enq)
+
+    def own(ch, gid, mask):          # the cohort's own behaviour ids
+        b0 = ch.behaviours[0].global_id if ch.behaviours else 0
+        ok = mask & (gid >= b0) & (gid < b0 + len(ch.behaviours))
+        return torch.where(ok, gid, -1)
+
+    hist_add, mute_add = [], []
+    for ch, head0, head1 in drain_facts:
+        cname = ch.atype.__name__
+        drained = _drained(head0, head1, cap)
+        gid = st.buf[cname][:, 0, :]
+        beh_runs = _add_counts(beh_runs, own(ch, gid, drained), nb)
+        bidx = _qwait_bucket(s_now - qw_enq[cname])
+        hist_add.append(counts_by_key(
+            torch.where(drained, bidx, -1).reshape(-1),
+            torch.ones((cap * ch.local_capacity,), dtype=torch.int32,
+                       device=gid.device), QW_BUCKETS))
+        mute_add.append(_isum(muted2[ch.local_start:ch.local_stop]))
+    if hist_add:
+        qw_hist = qw_hist + torch.cat(hist_add)
+        coh_mt = coh_mt + torch.stack(mute_add)
+    ci = torch.arange(cap, dtype=torch.int32, device=s_now.device)[:, None]
+    for ch in program.cohorts:
+        cname = ch.atype.__name__
+        s0, s1 = ch.local_start, ch.local_stop
+        n_new = res.tail[s0:s1] - tail0[s0:s1]
+        fresh = torch.remainder(ci - tail0[None, s0:s1], cap) < n_new[None, :]
+        gid = res.buf[cname][:, 0, :]
+        beh_del = _add_counts(beh_del, own(ch, gid, fresh), nb)
+        if cname in qw_enq:                          # device cohorts
+            qw_enq[cname] = torch.where(fresh, s_now, qw_enq[cname])
+    sp = res.spill
+    beh_rej = _add_counts(st.beh_rejected,
+                          torch.where(sp.tgt >= 0, sp.words[0], -1), nb)
+    return beh_runs, beh_del, beh_rej, coh_mt, qw_hist, qw_enq
+
+
+def phase_cost_lanes(st: RtState, all_e, drain_facts, nproc_total,
+                     n_spawned, n_destroyed):
+    """Per-phase work units of the tick (the JAX package's
+    engine.phase_cost_lanes; analysis >= 1 only), in PHASE_NAMES order:
+    valid delivery-list entries gathered, ring slots drained, behaviours
+    run, and spawns plus destroys."""
+    drained = torch.zeros((), dtype=torch.int32, device=nproc_total.device)
+    for _ch, head0, head1 in drain_facts:
+        drained = drained + (head1 - head0).sum(dtype=torch.int32)
+    work = {"delivery": _isum(all_e.tgt >= 0), "drain": drained,
+            "dispatch": nproc_total, "gc_mark": n_spawned + n_destroyed}
+    return st.phase_cost + torch.stack(
+        [work[n] for n in PHASE_NAMES]).to(torch.int32)
+
+
+def trace_span_lanes(program: Program, opts: RuntimeOptions, st: RtState,
+                     drain_facts, base: int):
+    """The causal-tracing lanes (the JAX package's engine.trace_span_lanes;
+    only called when opts.tracing). Every drained ring slot whose trace
+    id is >= 0 becomes a span with a fresh even id, (span_next + rank) *
+    2 + 2, its rank counted over the traced drained slots of the cohort
+    in slot-major [cap, rows] order, cohorts in device order; the span
+    ring takes (trace id, span id, parent span, behaviour, actor,
+    enqueue tick, dispatch tick, retire tick) while it has room, and
+    counts the rest as dropped (their ids are used up all the same).
+    Each outbox entry (b, m, r) of a cohort inherits (trace id, span id)
+    of the message in batch slot b of lane r, or (-1, 0): the two rows
+    the caller appends to the cohort's outbox words (the rows-minor
+    [batch, ms, rows] flatten of both dispatch paths). Returns
+    (span_data, span_count, span_dropped, span_next, [[2, e_c] per
+    cohort])."""
+    cap = opts.mailbox_cap
+    ts_cap = opts.trace_slots
+    s_now = st.step_no[0]
+    span_data = st.span_data
+    count, dropped, nxt = st.span_count[0], st.span_dropped[0], \
+        st.span_next[0]
+    rows_out = []
+    for ch, head0, head1 in drain_facts:
+        cname = ch.atype.__name__
+        rows = ch.local_capacity
+        batch, ms = ch.batch, ch.max_sends
+        dev = head0.device
+        drained = _drained(head0, head1, cap)
+        tid = st.trace_buf[cname][:, 0, :]               # [cap, rows]
+        traced = (drained & (tid >= 0)).reshape(-1)      # slot-major
+        rank = torch.cumsum(traced.to(torch.int32), 0,
+                            dtype=torch.int32) - 1
+        total = _isum(traced)
+        sid = torch.where(traced, (nxt + rank) * 2 + 2, 0).to(torch.int32)
+        pos = count + rank
+        ok = traced & (pos < ts_cap)
+        actor = (base + ch.local_start
+                 + torch.arange(rows, dtype=torch.int32, device=dev))
+        vals = (tid.reshape(-1), sid,
+                st.trace_buf[cname][:, 1, :].reshape(-1),
+                st.buf[cname][:, 0, :].reshape(-1),
+                actor.expand(cap, rows).reshape(-1),
+                st.qwait_enq[cname].reshape(-1),
+                s_now.expand(cap * rows), (s_now + 1).expand(cap * rows))
+        span_data = torch.stack([_scatter_into(span_data[k], pos, ok, v)
+                                 for k, v in enumerate(vals)])
+        dropped = dropped + (count + total - ts_cap).clamp(min=0)
+        count = (count + total).clamp(max=ts_cap)
+        nxt = nxt + total
+        # Propagation rows: batch slot b of lane r is ring slot
+        # (head0 + b) mod cap.
+        sid2 = sid.reshape(cap, rows)
+        tid_b, sid_b = [], []
+        for b in range(batch):
+            slot = torch.remainder(head0 + b, cap).long()[None, :]
+            tb = tid.gather(0, slot)[0]
+            sb = sid2.gather(0, slot)[0]
+            okb = ((head1 - head0) > b) & (tb >= 0)
+            tid_b.append(torch.where(okb, tb, -1))
+            sid_b.append(torch.where(okb, sb, 0))
+        if ms and batch:
+            pair = torch.stack([torch.stack(tid_b), torch.stack(sid_b)])
+            pair = pair[:, :, None, :].expand(2, batch, ms, rows)
+            rows_out.append(pair.reshape(2, batch * ms * rows))
+        else:
+            rows_out.append(torch.zeros((2, 0), dtype=torch.int32,
+                                        device=dev))
+    return span_data, count, dropped, nxt, rows_out
+
+
+def event_ring(opts: RuntimeOptions, st: RtState, classes, base: int):
+    """The level-3 event ring (the JAX package's step 5b): the tick's
+    transitions, `classes` = [(code, [nl] mask)] in code order, recorded
+    class-major then by row as (code, actor, step + 1) while the ring has
+    room; the rest count as dropped. Returns (ev_data, ev_count,
+    ev_dropped)."""
+    ev_cap = opts.analysis_events
+    dev = st.head.device
+    nl = classes[0][1].shape[0]
+    masks = torch.cat([m for _, m in classes])
+    codes = torch.cat([torch.full((nl,), c, dtype=torch.int32, device=dev)
+                       for c, _ in classes])
+    actors = base + torch.arange(nl, dtype=torch.int32,
+                                 device=dev).repeat(len(classes))
+    count = st.ev_count[0]
+    rank = torch.cumsum(masks.to(torch.int32), 0, dtype=torch.int32) - 1
+    total = _isum(masks)
+    pos = count + rank
+    ok = masks & (pos < ev_cap)
+    step = (st.step_no[0] + 1).expand(masks.shape[0])
+    ev = torch.stack([_scatter_into(st.ev_data[k], pos, ok, v)
+                      for k, v in enumerate((codes, actors, step))])
+    return (ev, (count + total).clamp(max=ev_cap),
+            st.ev_dropped[0] + (count + total - ev_cap).clamp(min=0))
+
+
+def queue_wait_p99(qw_hist, nd: int):
+    """Worst-cohort queue-wait p99 of the cumulative histograms (the
+    lower bound 2^k of the first bucket whose cumulative count reaches
+    ceil(0.99 * total)), in the reference's int32 arithmetic; 0 without
+    device cohorts."""
+    if nd == 0:
+        return torch.zeros((), dtype=torch.int32, device=qw_hist.device)
+    h2 = qw_hist.reshape(nd, QW_BUCKETS)
+    tot = h2.sum(1, dtype=torch.int32)
+    need = torch.div(tot * 99 + 99, 100, rounding_mode="floor").clamp(min=1)
+    reach = torch.cumsum(h2, 1, dtype=torch.int32) >= need[:, None]
+    first = torch.argmax(reach.to(torch.int32), 1).to(torch.int32)
+    one = torch.ones((), dtype=torch.int32, device=qw_hist.device)
+    return torch.where(tot > 0, torch.bitwise_left_shift(one, first),
+                       0).max().to(torch.int32)
+
+
 def build_step(program: Program, opts: RuntimeOptions):
     """Build one whole-world scheduler tick: returns
     step(state, inject_tgt, inject_words) → (state, StepAux)."""
@@ -802,6 +1029,7 @@ def build_step(program: Program, opts: RuntimeOptions):
     bsl = opts.blob_slots
     blob_users = any(ch.uses_blobs for ch in dev_cohorts)
     blob_allocs = any(ch.blob_sites for ch in dev_cohorts)
+    tracing = opts.tracing
 
     def step(st: RtState, inject_tgt, inject_words
              ) -> Tuple[RtState, StepAux]:
@@ -906,6 +1134,7 @@ def build_step(program: Program, opts: RuntimeOptions):
         exit_c = st.exit_code[0]
         nproc_total = torch.zeros((), dtype=i32, device=dev)
         nbad_total = torch.zeros((), dtype=i32, device=dev)
+        drain_facts = []   # (cohort, head before, head after): telemetry
         for run_cohort, ch in dispatchers:
             s0, s1 = ch.local_start, ch.local_stop
             ids = base + s0 + torch.arange(ch.local_capacity, dtype=i32,
@@ -933,6 +1162,8 @@ def build_step(program: Program, opts: RuntimeOptions):
             if sfail is not None:
                 spawn_fail = spawn_fail | sfail
             head_segments.append(new_head_rows)
+            if opts.analysis >= 1:
+                drain_facts.append((ch, st.head[s0:s1], new_head_rows))
             out_entries.append(out)
             destroy_rows.append((s0, dstr))
             error_rows.append((s0, errs))
@@ -960,6 +1191,17 @@ def build_step(program: Program, opts: RuntimeOptions):
              n_t) = apply_claims(tc, clist, alive, new_head, tail0,
                                  new_type_state[tname], base, nl)
             n_spawned = n_spawned + n_t
+
+        # --- 2c. causal tracing (tracing on only): the spans of the
+        # traced messages drained this tick, and two more word rows on
+        # every outbox entry, (trace id, span id) of the dispatch that
+        # emitted it; spill and delivery carry them with the payload.
+        if tracing:
+            (span_data2, span_count2, span_dropped2, span_next2,
+             tr_rows) = trace_span_lanes(program, opts, st, drain_facts,
+                                         base)
+            out_entries = [o._replace(words=torch.cat([o.words, t]))
+                           for o, t in zip(out_entries, tr_rows)]
 
         # --- 3. single device: produced messages pass straight through
         # (after the always-empty route spill, as in the reference's
@@ -995,7 +1237,8 @@ def build_step(program: Program, opts: RuntimeOptions):
                       cohort_layout=cohort_layout,
                       mute_slots=opts.mute_slots,
                       level=lvl_all, n_levels=n_levels,
-                      pressured=st.pressured)
+                      pressured=st.pressured,
+                      trace_buf=st.trace_buf if tracing else None)
 
         # --- 4b. destroys (≙ ponyint_actor_destroy, actor.c:570-664):
         # the slot dies at end of step, its queue is discarded (head :=
@@ -1058,6 +1301,44 @@ def build_step(program: Program, opts: RuntimeOptions):
         ndl_new = st.n_deadletter[0] + res.n_deadletter
         nmut_new = st.n_mutes[0] + _isum(became_muted)
         occ_after = new_tail - new_head
+
+        def vec(x, dtype=i32):      # per-shard "scalar" → [1]
+            return x.to(dtype).reshape(1)
+
+        # --- 5b. the event ring (analysis >= 3): the tick's transitions
+        # (mute, release, overload-on, spawn, destroy, error).
+        telemetry = {}
+        if opts.analysis >= 3:
+            err_ev = torch.zeros((nl,), dtype=b, device=dev)
+            for s0, errs in error_rows:
+                if errs is not None:
+                    err_ev[s0:s0 + errs[0].shape[0]] = errs[0]
+            over = opts.overload_occ
+            classes = [(1, became_muted), (2, st.muted & ~muted & alive),
+                       (3, (occ_after > over) & ~(occ0 > over)),
+                       (4, alive & ~st.alive), (5, st.alive & ~alive),
+                       (6, err_ev)]
+            ev_data, ev_count, ev_dropped = event_ring(opts, st, classes,
+                                                       base)
+            telemetry.update(ev_data=ev_data, ev_count=vec(ev_count),
+                             ev_dropped=vec(ev_dropped))
+        # --- 5c. the profiler lanes and phase costs (analysis >= 1).
+        if opts.analysis >= 1:
+            (beh_runs2, beh_del2, beh_rej2, coh_mt2, qw_hist2,
+             qw_enq2) = profile_lanes(program, opts, st, tail0, res,
+                                      drain_facts, muted2)
+            telemetry.update(
+                beh_runs=beh_runs2, beh_delivered=beh_del2,
+                beh_rejected=beh_rej2, coh_mute_ticks=coh_mt2,
+                qwait_hist=qw_hist2, qwait_enq=qw_enq2,
+                phase_cost=phase_cost_lanes(st, all_e, drain_facts,
+                                            nproc_total, n_spawned,
+                                            n_destroyed))
+        if tracing:
+            telemetry.update(trace_buf=res.trace_buf, span_data=span_data2,
+                             span_count=vec(span_count2),
+                             span_dropped=vec(span_dropped2),
+                             span_next=vec(span_next2))
         device_pending = ((occ_after[:fh] > 0).any()
                           | (res.spill_count > 0)
                           | (st.rspill_count[0] > 0))
@@ -1074,9 +1355,22 @@ def build_step(program: Program, opts: RuntimeOptions):
         nproc_cum = st.n_processed[0] + nproc_total
         ndel_cum = st.n_delivered[0] + res.n_delivered
         zero = torch.zeros((), dtype=i32, device=dev)
-
-        def vec(x, dtype=i32):      # per-shard "scalar" → [1]
-            return x.to(dtype).reshape(1)
+        if opts.analysis >= 1:
+            # The occupancy aggregates, the cumulative counters and the
+            # worst cohort's queue-wait p99 ride the aux (the CSV writer
+            # and the window controller read them with no extra fetch).
+            aggs = dict(
+                occ_sum=_isum(occ_after), occ_max=occ_after.max(),
+                n_muted_now=_isum(muted2),
+                n_overloaded_now=_isum(occ_after > opts.overload_occ),
+                n_rejected=nrej_new, n_badmsg=nbad_new,
+                n_deadletter=ndl_new, n_mutes=nmut_new,
+                qw_p99=queue_wait_p99(qw_hist2, len(dev_cohorts)))
+        else:
+            aggs = dict(occ_sum=zero, occ_max=zero, n_muted_now=zero,
+                        n_overloaded_now=zero, n_rejected=zero,
+                        n_badmsg=zero, n_deadletter=zero, n_mutes=zero,
+                        qw_p99=zero)
 
         blob_leaves = {}
         if pool is not None:
@@ -1115,7 +1409,7 @@ def build_step(program: Program, opts: RuntimeOptions):
             plan_bounds=res.plan_bounds,
             world_bits=vec(wb_new),
             type_state=new_type_state,
-            **blob_leaves,
+            **blob_leaves, **telemetry,
         )
         aux = StepAux(
             device_pending=device_pending, host_pending=host_pending,
@@ -1123,10 +1417,7 @@ def build_step(program: Program, opts: RuntimeOptions):
             spill_overflow=overflow, spawn_fail=spawn_fail,
             blob_fail=blob_fail, blob_budget_fail=blob_budget,
             any_muted=any_muted,
-            n_processed=nproc_cum, n_delivered=ndel_cum,
-            occ_sum=zero, occ_max=zero, n_muted_now=zero,
-            n_overloaded_now=zero, n_rejected=zero, n_badmsg=zero,
-            n_deadletter=zero, n_mutes=zero, qw_p99=zero)
+            n_processed=nproc_cum, n_delivered=ndel_cum, **aggs)
         return st2, aux
 
     step.fused = fused      # the cohorts' fused kernels, built at start()

@@ -40,6 +40,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import sys
+import time
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -101,10 +102,14 @@ class HostContext:
         self.exit_flag = False
         self.exit_code = 0
         self.yield_flag = False
+        self.trace_ctx = None   # (trace id, span id) of this dispatch when
+        #   causal tracing followed the message here: the sends below
+        #   continue the chain
 
     def send(self, target, behaviour_def, *args, when=True):
         if when:
-            self.rt.send(int(target), behaviour_def, *args)
+            self.rt.send(int(target), behaviour_def, *args,
+                         trace=self.trace_ctx)
 
     def exit(self, code=0, when=True):
         if when:
@@ -232,6 +237,15 @@ class Runtime:
         #   slot that may be free
         self._pool_own = None         # state epoch whose pool leaves the
         #   host blob ops cloned, and may write in place
+        # Telemetry: host behaviours' runs (the device lanes never see
+        # them; profile() merges both), the tracer (causal tracing on)
+        # and the analysis hook (attached by run() at analysis >= 1).
+        self._beh_host_runs: collections.Counter = collections.Counter()
+        self._tracer = None
+        self._analysis = None
+        self._last_retire_t = None    # host clock at the last retire
+        self._last_counters: Dict[str, int] = {}   # cumulative aux
+        #   counters at the last retire (totals["processed"], ...)
 
     @property
     def state(self) -> Optional[RtState]:
@@ -265,7 +279,7 @@ class Runtime:
                 check_supported(self.opts)
                 self.program.opts = self.opts
         if self.opts.pin >= 0:
-            raise unported("observability")
+            raise unported("observability")     # pin: slice 11
         self.program.finalize()
         # Building the window validates the program first (meshes raise
         # before anything is allocated;
@@ -297,8 +311,15 @@ class Runtime:
         self.program.opts = self.opts
         self._probe = engine.StopProbe(self.device)
         self._zero_aux = engine.zero_aux(self.device)
-        w1 = 1 + self.opts.msg_words
+        # Inject buffers carry the trace rows when tracing is on.
+        w1 = 1 + self.opts.msg_words + self.opts.trace_lanes
         k = self.opts.inject_slots
+        if self.opts.tracing:
+            from ..tracing import Tracer
+            self._tracer = Tracer(
+                self.opts.trace_sample, self.opts.trace_seed,
+                beh_names=[f"{b.actor_type.__name__}.{b.name}"
+                           for b in self.program.behaviour_table])
         self._empty_inject = (
             torch.full((k,), -1, dtype=torch.int32, device=self.device),
             torch.zeros((w1, k), dtype=torch.int32, device=self.device))
@@ -514,17 +535,46 @@ class Runtime:
             for a in col:
                 self._host_blobs.discard(int(a))
 
-    def send(self, target: int, behaviour_def: BehaviourDef, *args):
+    def _trace_context(self, trace):
+        """A send's causal-trace context as (trace id, parent span), or
+        (-1, 0) untraced. `trace`: None, the deterministic sampler
+        decides (1 in trace_sample); an int, an explicit trace id (always
+        traced, its root span got or created); a (trace id, span id)
+        tuple, the continuation of a span (a host behaviour's sends)."""
+        tr = self._tracer
+        if tr is None:
+            return -1, 0
+        step = self.steps_run
+        if isinstance(trace, tuple):
+            return int(trace[0]), int(trace[1])
+        if trace is not None:
+            tid = int(trace)
+            return tid, tr.root_span(tid, step)
+        if tr.sample():
+            return tr.begin(step)
+        return -1, 0
+
+    def send(self, target: int, behaviour_def: BehaviourDef, *args,
+             trace=None):
+        """Queue one message for `target` (≙ pony_sendv from outside the
+        runtime). `trace` (causal tracing on): see `_trace_context`."""
         if behaviour_def.global_id is None:
             raise RuntimeError(f"{behaviour_def} not part of this program")
         self._check_send_target(int(target), behaviour_def)
         self._check_ref_args(behaviour_def.arg_specs, args,
                              f"{behaviour_def.actor_type.__name__}."
                              f"{behaviour_def.name}")
-        words = np.zeros((1 + self.opts.msg_words,), np.int32)
+        tlanes = self.opts.trace_lanes
+        words = np.zeros((1 + self.opts.msg_words + tlanes,), np.int32)
         words[0] = behaviour_def.global_id
-        words[1:] = _host_pack_args(behaviour_def.arg_specs, args,
-                                    self.opts.msg_words)
+        words[1:1 + self.opts.msg_words] = _host_pack_args(
+            behaviour_def.arg_specs, args, self.opts.msg_words)
+        tctx = None
+        if tlanes:
+            tid, psid = self._trace_context(trace)
+            words[-2], words[-1] = tid, psid
+            if tid >= 0:
+                tctx = (tid, psid)
         # Iso payloads move with the message (≙ the gc.c send handler),
         # after packing validated, so a failed send never poisons a
         # handle: a host-heap handle goes in flight (hostmem.HostHeap),
@@ -542,14 +592,21 @@ class Runtime:
         if (self.opts.host_fastpath
                 and 0 <= int(target) < self.program.total
                 and self.program.cohort_of(int(target)).host):
-            self._host_fast_q.append((int(target), words))
+            # The fast lane never touches the device: the trace context
+            # rides the queue entry.
+            self._host_fast_q.append((int(target), words, tctx))
         else:
             self._inject_q.append((int(target), words))
 
-    def bulk_send(self, targets, behaviour_def: BehaviourDef, *arg_cols):
+    def bulk_send(self, targets, behaviour_def: BehaviourDef, *arg_cols,
+                  trace=None):
         """Mass-enqueue one message per (distinct) target directly into
         the device mailboxes — the setup path for benchmark-scale
-        seeding. Targets must be unique within one call."""
+        seeding. Targets must be unique within one call.
+
+        `trace` (causal tracing on): an explicit trace id every seeded
+        message joins (one root, a branch each). None: untraced (the
+        sampler never fires here)."""
         targets = np.asarray(targets, np.int64)
         if len(np.unique(targets)) != len(targets):
             raise ValueError("bulk_send targets must be distinct; use "
@@ -606,8 +663,29 @@ class Runtime:
         cbuf[slot, :, cols] = self._tensor(words[:, :w1c])
         tail = self.state.tail.clone()
         tail[tg] += 1
+        extra = {}
+        if self._tracer is not None:
+            # Stamp (or clear: ring slots are reused, and a stale lane
+            # would adopt an earlier message's trace) every written
+            # slot's trace rows.
+            lanes = np.full((k, 2), -1, np.int32)
+            lanes[:, 1] = 0
+            if trace is not None:
+                tid = int(trace)
+                lanes[:, 0] = tid
+                lanes[:, 1] = self._tracer.root_span(tid, self.steps_run)
+            tb = self.state.trace_buf[cname].clone()
+            tb[slot, :, cols] = self._tensor(lanes)
+            extra["trace_buf"] = {**self.state.trace_buf, cname: tb}
+        if cname in self.state.qwait_enq:
+            # The profiler's enqueue stamp (analysis >= 1): the seeding
+            # bypasses the delivery that writes it, so the queue waits of
+            # seeded messages count from this boundary.
+            qe = self.state.qwait_enq[cname].clone()
+            qe[slot, cols] = self.steps_run
+            extra["qwait_enq"] = {**self.state.qwait_enq, cname: qe}
         self.state = self._replace(buf={**self.state.buf, cname: cbuf},
-                                   tail=tail)
+                                   tail=tail, **extra)
 
     def _drain_inject_tracked(self):
         """The next inject batch (targets [K], words [1+W, K]) and the
@@ -617,7 +695,7 @@ class Runtime:
         if not self._inject_q:
             return (*self._empty_inject, [])
         k = self.opts.inject_slots
-        w1 = 1 + self.opts.msg_words
+        w1 = 1 + self.opts.msg_words + self.opts.trace_lanes
         tgt = np.full((k,), -1, np.int32)
         words = np.zeros((w1, k), np.int32)
         taken: Dict[int, int] = {}
@@ -659,6 +737,7 @@ class Runtime:
             return False
         c = self.opts.mailbox_cap
         bufs: Dict[str, np.ndarray] = {}
+        tbufs: Dict[str, np.ndarray] = {}     # the trace rows (tracing)
         new_head = head.astype(np.int64)
         for i in np.nonzero(pending)[0]:
             aid = fh + int(i)
@@ -667,13 +746,21 @@ class Runtime:
             cbuf = bufs.get(cname)
             if cbuf is None:       # [cap, 1 + W_c, capacity], the ring
                 cbuf = bufs[cname] = st.buf[cname].cpu().numpy()
+                if self._tracer is not None:      # [cap, 2, capacity]
+                    tbufs[cname] = st.trace_buf[cname].cpu().numpy()
             col = int(cohort.gid_to_col(aid))
             consumed = 0
             for k in range(int(pending[i])):
-                msg = cbuf[(int(head[i]) + k) % c, :, col]
+                slot = (int(head[i]) + k) % c
+                msg = cbuf[slot, :, col]
+                tctx = None
+                if self._tracer is not None:
+                    tlane = tbufs[cname][slot, :, col]
+                    if int(tlane[0]) >= 0:
+                        tctx = (int(tlane[0]), int(tlane[1]))
                 consumed += 1
                 ctx = self._dispatch_host_msg(aid, cohort, int(msg[0]),
-                                              msg[1:])
+                                              msg[1:], trace_ctx=tctx)
                 if ctx is not None and ctx.yield_flag:
                     break
             new_head[i] = head[i] + consumed
@@ -683,16 +770,24 @@ class Runtime:
         self.state = self._replace(head=head_all)
         return True
 
-    def _dispatch_host_msg(self, aid: int, cohort, gid: int, payload):
+    def _dispatch_host_msg(self, aid: int, cohort, gid: int, payload,
+                           trace_ctx=None):
         """Dispatch one message to a host-resident actor (shared by the
         mailbox drain and the fast lane). Returns the HostContext, or
-        None for a message its type has no behaviour for."""
+        None for a message its type has no behaviour for. `trace_ctx`,
+        the message's (trace id, parent span) where tracing followed it
+        here: the dispatch becomes an odd host span, and the behaviour's
+        sends continue the chain."""
         table = self.program.behaviour_table
         bdef = table[gid] if 0 <= gid < len(table) else None
         if bdef is None or bdef.actor_type is not cohort.atype:
             self.totals["badmsg"] += 1
             return None
         ctx = HostContext(self, aid)
+        if trace_ctx is not None and self._tracer is not None:
+            tid, psid = trace_ctx
+            ctx.trace_ctx = (tid, self._tracer.host_span(
+                tid, psid, gid, aid, self.steps_run))
         st = self._host_state.get(aid, {})
         args = _host_unpack_args(bdef.arg_specs, payload)
         if self._heap is not None:
@@ -719,6 +814,8 @@ class Runtime:
             st2 = st
         self._host_state[aid] = st2 if st2 is not None else st
         self.totals["host_processed"] += 1
+        if self.opts.analysis >= 1:
+            self._beh_host_runs[int(gid)] += 1
         if ctx.exit_flag:
             self._exit_code = ctx.exit_code
             self._exit_requested = True
@@ -736,16 +833,17 @@ class Runtime:
         yielded = set()      # actors that yielded: their batch stops
         held = []            # their remaining messages, in order
         while q and n < budget:
-            aid, w = q.popleft()
+            aid, w, tctx = q.popleft()
             if aid in yielded:
-                held.append((aid, w))
+                held.append((aid, w, tctx))
                 continue
             n += 1
             if aid not in self._host_state:
                 self.totals["deadletter_host"] += 1
                 continue
-            ctx = self._dispatch_host_msg(aid, self.program.cohort_of(aid),
-                                          int(w[0]), w[1:])
+            ctx = self._dispatch_host_msg(
+                aid, self.program.cohort_of(aid), int(w[0]),
+                w[1:1 + self.opts.msg_words], trace_ctx=tctx)
             if ctx is not None and ctx.yield_flag:
                 # ≙ the device drain honouring yield mid-batch
                 # (actor.c:675-679); the actor's queue keeps its order.
@@ -756,10 +854,15 @@ class Runtime:
         return True
 
     # ---- the run loop ----
-    def _dispatch_window(self, budget: int, force: bool,
-                         prev_aux) -> Dict[str, Any]:
+    def _dispatch_window(self, budget: int, force: bool, prev_aux,
+                         pipelined: bool = False) -> Dict[str, Any]:
         """Enqueue one gated window and start the non-blocking copy of
-        its control scalars; returns the in-flight record."""
+        its control scalars; returns the in-flight record. A window
+        enqueued behind an unretired one (`pipelined`) leaves the device
+        no gap; any other is charged the host's time since the last
+        retire (the analysis CSV's host_gap_us)."""
+        gap_ns = 0 if pipelined or self._last_retire_t is None else \
+            max(0, int((time.perf_counter() - self._last_retire_t) * 1e9))
         inj_t, inj_w, consumed = self._drain_inject_tracked()
         st2, aux, kdev = self._multi_g(
             self.state, inj_t, inj_w, max(1, budget), force, prev_aux,
@@ -777,7 +880,7 @@ class Runtime:
             vec = host
         return {"aux": aux, "vec": vec, "event": event,
                 "budget": int(budget), "consumed": consumed,
-                "epoch": epoch}
+                "epoch": epoch, "gap_ns": gap_ns}
 
     def _retire_window(self, win: Dict[str, Any]):
         """Wait for an in-flight window's scalars and fold them into host
@@ -786,6 +889,7 @@ class Runtime:
         if win["event"] is not None:
             win["event"].synchronize()
         k, a = engine.aux_from_vector(win["vec"].tolist())
+        self._last_retire_t = time.perf_counter()
         if k == 0:
             if win["consumed"]:
                 self._inject_q.extendleft(reversed(win["consumed"]))
@@ -795,11 +899,20 @@ class Runtime:
         self.steps_run += k
         if self.opts.debug_checks:
             self.check_invariants()
+        # The aux counters are cumulative int32: accumulate their mod 2^32
+        # deltas, so the fetch cadence does not matter.
+        for key, cur in (("processed", a.n_processed & 0xFFFFFFFF),
+                         ("delivered", a.n_delivered & 0xFFFFFFFF)):
+            last = self._last_counters.get(key, 0)
+            self.totals[key] += (cur - last) & 0xFFFFFFFF
+            self._last_counters[key] = cur
         self._rl_windows += 1
         attention = (a.host_pending or a.exit_flag or a.spill_overflow
                      or a.spawn_fail or a.blob_fail or a.blob_budget_fail)
         self._controller.observe(k, win["budget"], attention,
                                  qw_p99=a.qw_p99)
+        if self._analysis is not None:
+            self._analysis.window(a, ticks=k, gap_us=win["gap_ns"] / 1e3)
         return k, a
 
     def _fatal_checks(self, a) -> None:
@@ -836,6 +949,9 @@ class Runtime:
         (≙ pony_start). Returns the exit code."""
         if self.state is None:
             raise RuntimeError("call start() first")
+        if self.opts.analysis >= 1 and self._analysis is None:
+            from .. import analysis as _analysis_mod
+            _analysis_mod.attach(self)
         max_steps = max_steps or self.opts.max_steps
         ctrl = self._controller
         pipelining = bool(self.opts.pipeline)
@@ -876,7 +992,8 @@ class Runtime:
                                          - skipped - win["budget"])
                         if budget >= 1:
                             spec = self._dispatch_window(
-                                budget, force=False, prev_aux=win["aux"])
+                                budget, force=False, prev_aux=win["aux"],
+                                pipelined=True)
                     k, a = self._retire_window(win)
                     steps_this_run += k
                     win = spec
@@ -947,6 +1064,98 @@ class Runtime:
                                           ctrl.window, self.device)
             self._qi_loaded = ctrl.window
         return self._exit_code
+
+    def stop(self) -> int:
+        """Tear down the auxiliaries (≙ pony_stop, start.c:332-351): emit
+        the analysis summary and stop its writer thread. (The flight
+        recorder, the bridge, checkpoints and the watchdog come with
+        their own port slices.) Returns the exit code."""
+        a = self._analysis
+        if a is not None:
+            a.summary()
+            a.close()
+            self._analysis = None
+        return self._exit_code
+
+    def profile(self) -> Dict[str, Any]:
+        """The per-behaviour and per-cohort telemetry report, the host
+        face of the device profiler lanes (engine.profile_lanes; the JAX
+        package's Runtime.profile): cumulative runs, deliveries and
+        rejections per behaviour (host behaviours report their host
+        dispatches), queue-wait histograms, p50/p99 and mute-ticks per
+        device cohort, work units by phase, the totals and the GC's
+        window stats. Needs opts.analysis >= 1; one small device read,
+        for window boundaries."""
+        if self.opts.analysis < 1:
+            raise RuntimeError(
+                "Runtime.profile() needs RuntimeOptions.analysis >= 1 "
+                "(the telemetry lanes do not exist at level 0)")
+        if self.state is None:
+            raise RuntimeError("call start() first")
+        from ..analysis import hist_percentile
+        from .state import PHASE_NAMES, QW_BUCKETS
+        nd = len(self.program.device_cohorts)
+        st = self.state
+        runs, deliv, rej, mt, hist, ph = (
+            getattr(st, f).cpu().numpy().astype(np.int64) for f in (
+                "beh_runs", "beh_delivered", "beh_rejected",
+                "coh_mute_ticks", "qwait_hist", "phase_cost"))
+        hist = hist.reshape(nd, QW_BUCKETS)
+        behaviours = {}
+        for g, bdef in enumerate(self.program.behaviour_table):
+            behaviours[f"{bdef.actor_type.__name__}.{bdef.name}"] = {
+                "runs": int(runs[g]) + self._beh_host_runs.get(g, 0),
+                "delivered": int(deliv[g]),
+                "rejected": int(rej[g]),
+            }
+        cohorts = {}
+        for di, ch in enumerate(self.program.device_cohorts):
+            h = [int(x) for x in hist[di]]
+            cohorts[ch.atype.__name__] = {
+                "queue_wait_hist": h,
+                "queue_wait_p50": hist_percentile(h, 0.50),
+                "queue_wait_p99": hist_percentile(h, 0.99),
+                "mute_ticks": int(mt[di]),
+            }
+        return {
+            "steps": self.steps_run,
+            "behaviours": behaviours,
+            "cohorts": cohorts,
+            "phases": {n: int(ph[i]) for i, n in enumerate(PHASE_NAMES)},
+            "totals": {
+                "processed": self.counter("n_processed"),
+                "delivered": self.counter("n_delivered"),
+                "rejected": self.counter("n_rejected"),
+                "badmsg": self.counter("n_badmsg"),
+                "deadletter": self.counter("n_deadletter"),
+                "mutes": self.counter("n_mutes"),
+                "host_processed": self.totals.get("host_processed", 0),
+            },
+            "gc": {
+                "passes": self.totals.get("gc_runs", 0),
+                "collected": self.counter("n_collected"),
+                "blob_slots_reclaimed": self.totals.get(
+                    "gc_swept_blobs", 0),
+                "trace_iters": self.totals.get("gc_iters", 0),
+                "aborted": self.totals.get("gc_aborted", 0),
+            },
+        }
+
+    def traces(self) -> Dict[int, Dict[str, Any]]:
+        """The reassembled causal traces: drains the device span ring,
+        merges the host spans (injection roots, host-cohort dispatches)
+        and returns one causal tree per trace id, {trace_id: {"roots",
+        "spans", "n_spans", "latency", "critical_path"}}, latency in
+        device ticks (tracing.reassemble). Needs tracing on (analysis >= 3
+        and trace_sample > 0)."""
+        if self._tracer is None:
+            raise RuntimeError(
+                "Runtime.traces() needs causal tracing on: "
+                "RuntimeOptions(analysis=3, trace_sample=N) (the trace "
+                "lanes do not exist otherwise)")
+        from ..tracing import reassemble
+        self._tracer.drain(self)
+        return reassemble(self._tracer.spans)
 
     def _maybe_gc(self) -> None:
         """The run loop's periodic collection (≙ the cycle detector run
@@ -1022,7 +1231,7 @@ class Runtime:
             slot = pack.blob_slot(int(h))
             if h >= 0 and 0 <= slot < n_blob:
                 blob_roots[slot] = True
-        for t, w in list(self._inject_q) + list(self._host_fast_q):
+        for t, w, *_ in list(self._inject_q) + list(self._host_fast_q):
             if 0 <= t < total:
                 extra[t] = True
             gid = int(w[0])

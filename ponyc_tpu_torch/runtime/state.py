@@ -16,11 +16,12 @@ threads of a warp handle neighbouring actors and touch neighbouring
 addresses.
 
 Field names, shapes and dtypes match the JAX package's RtState one for
-one, so a world can be carried across (interop.py). The analysis and
-tracing fields exist with the zero length the reference gives them when
-those features are off; this slice of the port serves neither
-(config.check_supported). The blob pool is sized by
-RuntimeOptions.blob_slots and blob_words (zero-size when off).
+one, so a world can be carried across (interop.py). The telemetry leaves
+(analysis >= 1: the profiler lanes, the phase costs; analysis >= 3: the
+event ring; tracing: the trace side lanes and the span ring) take the
+reference's sizes, and the zero length it gives them when off. The blob
+pool is sized by RuntimeOptions.blob_slots and blob_words (zero-size when
+off).
 """
 
 from __future__ import annotations
@@ -34,8 +35,17 @@ from ..config import RuntimeOptions
 from ..ops.pack import F32, null_word
 from ..program import Program
 
-# Span-ring record rows of causal tracing (ponyc_tpu/tracing.py).
-SPAN_ROWS = 8
+from ..tracing import SPAN_ROWS   # span-ring record rows (tracing.py)
+
+# Queue-wait histogram geometry (engine.profile_lanes): bucket k counts
+# dispatched messages that waited [2^k, 2^(k+1)) ticks between delivery
+# (the enqueue stamp) and dispatch; the last bucket is open-ended.
+QW_BUCKETS = 16
+
+# Per-phase window telemetry (engine.phase_cost_lanes): one work-unit
+# counter per phase of a tick, deterministic tallies, not wall time.
+PHASE_NAMES = ("delivery", "drain", "dispatch", "gc_mark")
+N_PHASES = len(PHASE_NAMES)
 
 
 def layout_sizes(program: Program, opts: RuntimeOptions):
@@ -100,21 +110,24 @@ class RtState:
     last_error: torch.Tensor    # [N] int32 — latest ctx.error_int code
     last_error_loc: torch.Tensor  # [N] int32 — its trace-site id
     n_errors: torch.Tensor      # [P] int32
-    ev_data: torch.Tensor       # [3, 0] (analysis off)
-    ev_count: torch.Tensor
-    ev_dropped: torch.Tensor
-    beh_runs: torch.Tensor      # [0] (analysis off)
-    beh_delivered: torch.Tensor
-    beh_rejected: torch.Tensor
-    coh_mute_ticks: torch.Tensor
-    qwait_hist: torch.Tensor
-    qwait_enq: Dict[str, torch.Tensor]   # {} (analysis off)
-    phase_cost: torch.Tensor
-    trace_buf: Dict[str, torch.Tensor]   # {} (tracing off)
-    span_data: torch.Tensor     # [SPAN_ROWS, 0]
-    span_count: torch.Tensor
-    span_dropped: torch.Tensor
-    span_next: torch.Tensor
+    # Telemetry (zero-length where the level is off).
+    ev_data: torch.Tensor       # [3, P*EV] (code, actor, step), level 3
+    ev_count: torch.Tensor      # [P] int32 entries held
+    ev_dropped: torch.Tensor    # [P] int32 events lost to a full ring
+    beh_runs: torch.Tensor      # [P*NB] int32 dispatched, by behaviour
+    beh_delivered: torch.Tensor  # [P*NB] accepted into mailboxes
+    beh_rejected: torch.Tensor  # [P*NB] capacity rejections
+    coh_mute_ticks: torch.Tensor  # [P*ND] actor-ticks muted, by cohort
+    qwait_hist: torch.Tensor    # [P*ND*QW_BUCKETS] queue-wait histograms
+    qwait_enq: Dict[str, torch.Tensor]   # {device type: [cap, rows]}
+    #                              enqueue tick of each ring slot
+    phase_cost: torch.Tensor    # [P*N_PHASES] work units by phase
+    trace_buf: Dict[str, torch.Tensor]   # {type: [cap, 2, rows]} the
+    #                              ring slots' (trace id, parent span)
+    span_data: torch.Tensor     # [SPAN_ROWS, P*TS] the span ring
+    span_count: torch.Tensor    # [P] int32 spans held
+    span_dropped: torch.Tensor  # [P] int32 spans lost to a full ring
+    span_next: torch.Tensor     # [P] int32 spans allocated (ids)
     plan_key: torch.Tensor      # [P*E] int32 — last tick's sort key
     plan_perm: torch.Tensor     # [P*E] int32 — its stable-sort permutation
     plan_bounds: torch.Tensor   # [P*(n_local+1)] int32 segment bounds
@@ -141,7 +154,7 @@ class RtState:
 
 
 def init_state(program: Program, opts: RuntimeOptions,
-               device="cpu") -> RtState:
+               device) -> RtState:
     """Allocate the zeroed actor world for a finalized program."""
     if not program.frozen:
         raise RuntimeError("finalize() the Program first")
@@ -152,6 +165,9 @@ def init_state(program: Program, opts: RuntimeOptions,
     s = opts.spill_cap * p
     _, _, n_entries = layout_sizes(program, opts)
     i32, b = torch.int32, torch.bool
+    # Profiler sizes: zero below analysis 1 (the lanes do not exist).
+    nb = len(program.behaviour_table) if opts.analysis >= 1 else 0
+    nd = len(program.device_cohorts) if opts.analysis >= 1 else 0
 
     def z(shape, dtype=i32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -185,12 +201,21 @@ def init_state(program: Program, opts: RuntimeOptions,
         n_spawned=z((p,)), n_destroyed=z((p,)), spawn_fail=z((p,), b),
         n_collected=z((p,)),
         last_error=z((n,)), last_error_loc=z((n,)), n_errors=z((p,)),
-        ev_data=z((3, 0)), ev_count=z((p,)), ev_dropped=z((p,)),
-        beh_runs=z((0,)), beh_delivered=z((0,)), beh_rejected=z((0,)),
-        coh_mute_ticks=z((0,)), qwait_hist=z((0,)), qwait_enq={},
-        phase_cost=z((0,)),
-        trace_buf={},
-        span_data=z((SPAN_ROWS, 0)), span_count=z((p,)),
+        ev_data=z((3, p * (opts.analysis_events
+                           if opts.analysis >= 3 else 0))),
+        ev_count=z((p,)), ev_dropped=z((p,)),
+        beh_runs=z((p * nb,)), beh_delivered=z((p * nb,)),
+        beh_rejected=z((p * nb,)), coh_mute_ticks=z((p * nd,)),
+        qwait_hist=z((p * nd * QW_BUCKETS,)),
+        qwait_enq=({ch.atype.__name__: z((c, ch.capacity))
+                    for ch in program.device_cohorts}
+                   if opts.analysis >= 1 else {}),
+        phase_cost=z((p * (N_PHASES if opts.analysis >= 1 else 0),)),
+        trace_buf=({ch.atype.__name__: full((c, 2, ch.capacity), -1)
+                    for ch in program.cohorts} if opts.tracing else {}),
+        span_data=z((SPAN_ROWS, p * (opts.trace_slots
+                                     if opts.tracing else 0))),
+        span_count=z((p,)),
         span_dropped=z((p,)), span_next=z((p,)),
         plan_key=full((p * n_entries,), -1),
         plan_perm=z((p * n_entries,)),

@@ -17,7 +17,10 @@ at depth 20, 2^22 rows; only where the package has models/spawn_tree.py).
 `--root DIR` imports ponyc_tpu_torch from another checkout (for example
 the parent commit unpacked with `git archive`), so two versions of the
 kernel can be compared in one call on one card: run parent, change,
-change, parent. Needs a CUDA device.
+change, parent. `--sass` prints, after the builds, the sha256 of each
+world's kernel as `cuobjdump -sass` disassembles it (equal hashes in two
+checkouts: the same machine code) and measures nothing. Needs a CUDA
+device.
 """
 
 import argparse
@@ -93,6 +96,7 @@ def main():
                                           .parent.parent))
     ap.add_argument("--worlds", default="ubench,mixed,ring,nbody,spawn")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -122,13 +126,26 @@ def main():
         prog.finalize()
         jobs.append(engine.build_multi_step_gated(prog, o).job())
     logs = []
-    _build.build(jobs, log=logs.append)
+    libs = _build.build(jobs, log=logs.append)
     for text in logs:
         head, _, body = text.partition("\n")
         print(head, flush=True)
         for line in body.splitlines():
             if re.search(r"registers|spill|stack", line):
                 print("   ", line.strip(), flush=True)
+    if args.sass:
+        import hashlib
+        import shutil
+        tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+        for n, lib in zip(specs, libs):
+            sass = subprocess.run([tool, "-sass", lib._name],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+            code = [ln for ln in sass.splitlines() if "/*" in ln]
+            print(f"sass {n}: sha256 "
+                  f"{hashlib.sha256(chr(10).join(code).encode()).hexdigest()}"
+                  f" ({len(code)} instruction lines)", flush=True)
+        return 0
     out = {}
     zero = engine.zero_aux("cuda")
     for n in names:

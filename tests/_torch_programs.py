@@ -1147,3 +1147,181 @@ def run_blob_pipeline(pkg, T, device="cpu", **okw):
     before = rt.blobs_in_use
     rt.gc()
     return rt, (r1, r2), before
+
+
+def define_telemetry(pkg):
+    """Actor types of the analysis and tracing tests
+    (tests/test_analysis.py, test_profiler.py, test_tracing.py), built
+    with `pkg`."""
+    I32, Ref = pkg.I32, pkg.Ref
+
+    @pkg.actor
+    class Worker:
+        done: I32
+
+        @pkg.behaviour
+        def work(self, st, v: I32):
+            return {**st, "done": st["done"] + v}
+
+        @pkg.behaviour
+        def reset(self, st, v: I32):
+            return {**st, "done": v}
+
+    @pkg.actor
+    class Driver:
+        out: Ref["Worker"]
+        left: I32
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def tick(self, st, _: I32):
+            self.send(st["out"], Worker.work, 1, when=st["left"] > 0)
+            self.send(self.actor_id, Driver.tick, 0, when=st["left"] > 1)
+            return {**st, "left": st["left"] - 1}
+
+    @pkg.actor
+    class SlowP:
+        n: I32
+        BATCH = 1
+
+        @pkg.behaviour
+        def eat(self, st, v: I32):
+            return {**st, "n": st["n"] + 1}
+
+    @pkg.actor
+    class FastP:
+        out: Ref["SlowP"]
+        left: I32
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def go(self, st, _: I32):
+            self.send(st["out"], SlowP.eat, 1, when=st["left"] > 0)
+            self.send(self.actor_id, FastP.go, 0, when=st["left"] > 1)
+            return {**st, "left": st["left"] - 1}
+
+    @pkg.actor
+    class Child:
+        x: I32
+
+        @pkg.behaviour
+        def init(self, st, v: I32):
+            self.error_int(7, when=v == 1)
+            self.destroy(when=v == 1)
+            return {**st, "x": v}
+
+    @pkg.actor
+    class Boss:
+        SPAWNS = {"Child": 1}
+        made: I32
+
+        @pkg.behaviour
+        def make(self, st, v: I32):
+            self.spawn(Child.init, v)
+            return {**st, "made": st["made"] + 1}
+
+    @pkg.actor
+    class DevSrc:
+        out: Ref
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def emit(self, st, v: I32):
+            self.send(st["out"], HostSink.take, v)
+            return st
+
+    @pkg.actor
+    class HostSink:
+        HOST = True
+        seen: I32
+
+        @pkg.behaviour
+        def take(self, st, v: I32):
+            return {**st, "seen": st["seen"] + v}
+
+    @pkg.actor
+    class Sink:
+        n: I32
+
+        @pkg.behaviour
+        def take(self, st, v: I32):
+            return {**st, "n": st["n"] + v}
+
+    @pkg.actor
+    class Mid:
+        out: Ref["Sink"]
+
+        @pkg.behaviour
+        def relay(self, st, v: I32):
+            self.send(st["out"], Sink.take, v)
+            return st
+
+    @pkg.actor
+    class Src:
+        out: Ref["Mid"]
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Mid.relay, v)
+            return st
+
+    @pkg.actor
+    class Fan:
+        a: Ref["Sink"]
+        b: Ref["Sink"]
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["a"], Sink.take, v)
+            self.send(st["b"], Sink.take, v)
+            return st
+
+    @pkg.actor
+    class HostRelay:
+        HOST = True
+        out: Ref["Sink"]
+
+        @pkg.behaviour
+        def relay(self, st, v: I32):
+            self.send(st["out"], Sink.take, v)
+            return st
+
+    return types.SimpleNamespace(
+        Worker=Worker, Driver=Driver, SlowP=SlowP, FastP=FastP,
+        Child=Child, Boss=Boss, DevSrc=DevSrc, HostSink=HostSink,
+        Sink=Sink, Mid=Mid, Src=Src, Fan=Fan, HostRelay=HostRelay)
+
+
+def telemetry_of(rt):
+    """What the telemetry of a finished run must agree on across the
+    packages and paths: the profile (analysis >= 1), the event ring's
+    leaves and the recorded spans (tracing), ticks and counters."""
+    out = {"steps": rt.steps_run, "counters": counters(rt)}
+    if rt.opts.analysis >= 1:
+        out["profile"] = rt.profile()
+    st = rt.state
+    if rt.opts.analysis >= 3:
+        out["events"] = {f: _host(getattr(st, f)).tolist()
+                         for f in ("ev_data", "ev_count", "ev_dropped")}
+    if rt.opts.tracing:
+        trees = rt.traces()
+        out["spans"] = sorted(rt._tracer.spans)
+        out["span_dropped"] = rt._tracer.dropped
+        out["traces"] = {t: (v["n_spans"], v["latency"],
+                             tuple(v["critical_path"]))
+                         for t, v in trees.items()}
+    return out
+
+
+# Columns of the analysis CSV that hold wall-clock or host-process
+# readings (everything else is a function of the program and its seed).
+WALL_COLUMNS = ("time_ms", "rss_kb", "cpu_ms", "host_gap_us")
+
+
+def csv_rows(path, skip=WALL_COLUMNS):
+    """The deterministic columns of an analysis CSV, row by row."""
+    import csv
+    with open(path) as f:
+        return [{k: v for k, v in r.items() if k not in skip}
+                for r in csv.DictReader(f)]

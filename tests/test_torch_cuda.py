@@ -430,3 +430,64 @@ def test_blob_worlds_card_match_cpu(world, path):
             assert moved[k] > 0, moved
     assert out[0] == out[1]
     assert out[0]["counters"]["n_blob_alloc"] > 0
+
+
+def _telemetry_world(world, path, device, csv):
+    """A telemetry world of tests/test_torch_telemetry_kernel.py on
+    `device`: the walkers at analysis 1, and traced with both rings too
+    small; the spawn/destroy churn traced; errors beside a host relay,
+    traced."""
+    from _torch_programs import churn, define_telemetry, new_runtime
+    tl = define_telemetry(ponyc_tpu_torch)
+    traced = dict(analysis=3, trace_sample=1, analysis_path=csv)
+    if world.startswith("walkers"):
+        kw = dict(analysis=1) if world == "walkers-a1" else dict(
+            traced, analysis_events=16, trace_slots=16)
+        rt = build_walkers(ponyc_tpu_torch, TT, 7, n_seeds=30, mailbox_cap=2,
+                           batch=1, msg_words=1, max_sends=2, spill_cap=512,
+                           inject_slots=16, quiesce_interval=8,
+                           device=device, **PATHS[path], **kw)
+        rt.run(max_steps=120)
+        return rt, (TT.Walker, TT.Splitter)
+    if world == "churn":
+        rt = churn(ponyc_tpu_torch, TT, 5, device=device,
+                   quiesce_interval=4, **PATHS[path], **traced)[0]
+        rt.run(max_steps=400)
+        return rt, (TT.Relay,)
+    rt = new_runtime(ponyc_tpu_torch, dict(
+        mailbox_cap=4, batch=2, max_sends=2, msg_words=2, spill_cap=64,
+        inject_slots=16, quiesce_interval=4, **PATHS[path], **traced),
+        device)
+    rt.declare(tl.Boss, 1).declare(tl.Child, 4).declare(tl.Sink, 1) \
+      .declare(tl.HostRelay, 1).start()
+    boss = rt.spawn(tl.Boss)
+    hr = rt.spawn(tl.HostRelay, out=rt.spawn(tl.Sink))
+    rt.send(boss, tl.Boss.make, 1)
+    rt.send(hr, tl.HostRelay.relay, 5)
+    rt.run(max_steps=200)
+    return rt, (tl.Child, tl.Sink)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("world", ["walkers-a1", "walkers-overflow", "churn",
+                                   "errors-host"])
+def test_telemetry_worlds_card_match_cpu(world, path, tmp_path):
+    """Analysis and tracing on the card against the CPU, on each path:
+    profile(), the event ring, spans and traces (their drops), counters,
+    ticks and fields equal; the path's kernel launched."""
+    _need_cuda()
+    from _torch_programs import telemetry_of
+    out = []
+    for device in ("cuda", "cpu"):
+        before = _launched()
+        rt, types = _telemetry_world(world, path, device,
+                                     str(tmp_path / f"{device}.csv"))
+        moved = [b - a for a, b in zip(before, _launched())]
+        out.append((telemetry_of(rt), {
+            t.__name__: {k: v.tolist() for k, v in rt.cohort_state(t).items()}
+            for t in types}))
+        rt.stop()
+        if device == "cuda":
+            assert moved[list(PATHS).index(path)] > 0, moved
+    assert out[0] == out[1]
