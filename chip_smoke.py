@@ -15,10 +15,16 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
   2. kernels  — each kernel against its plain PyTorch version on the
                 card, at the shapes the main paths give it and at edge
                 shapes: the drain bit for bit; the fused kernel on a
-                seeded input at ubench's, mixed's and nbody's shapes and
-                on the small-world corpus at 1, 257 and 1000 lanes with
-                heads wrapping past 2**31-1, every output bit for bit
-                (floats compared as bits). Times of each kernel, its
+                seeded input at ubench's, mixed's (all-hot and one-hot)
+                and nbody's shapes and on the small-world corpus at 1,
+                257 and 1000 lanes with heads wrapping past 2**31-1, some
+                cohorts also built regrouped (REGROUPED), and mixed's
+                regrouped kernel on id layouts that stress the regroup
+                (fused_dispatch.ID_PATTERNS), every output bit for bit
+                (floats compared as bits). Times of each kernel (the
+                fused kernel also at mixed's shape one-hot, with one
+                thread a lane as before the regroup, and at the spawn
+                tree's regrouped), its
                 plain version and (for the drain) one library call
                 computing the same function (a yardstick the port never
                 calls): the device time a call (torch.profiler; for the
@@ -531,11 +537,13 @@ def reach_oracle(nxt, roots):
         live = new
 
 
-def mixed_type():
-    if "mixed" not in _CACHE:
+def mixed_type(hot=None):
+    """The mixed model's worker type; hot=1: every message names step0."""
+    if ("mixed", hot) not in _CACHE:
         from ponyc_tpu_torch.models import mixed
-        _CACHE["mixed"] = mixed.make_worker_type(MIXED_B, work=MIXED_WORK)
-    return _CACHE["mixed"]
+        _CACHE["mixed", hot] = mixed.make_worker_type(MIXED_B, hot=hot,
+                                                      work=MIXED_WORK)
+    return _CACHE["mixed", hot]
 
 
 # The small worlds of the agree phase (tests/_torch_programs.py).
@@ -546,14 +554,16 @@ MIXERS_KW = dict(msg_words=2)
 
 def fused_cases():
     """(label, actor types, options, lanes) of every fused kernel the run
-    builds and checks: the main shapes, the corpus at ragged widths, and
-    the cohorts of the agree phase's small worlds."""
+    builds and checks: the main shapes (mixed also one-hot), the corpus at
+    ragged widths, and the cohorts of the agree phase's small worlds."""
     import ponyc_tpu_torch
     from ponyc_tpu_torch import RuntimeOptions
     from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
     tp, _T = programs()
     cases = [("ubench", [ubench.Pinger], ubench_opts(True), 1 << 20),
              ("mixed", [mixed_type()], mixed_opts(True), 1 << 20),
+             ("mixed one-hot", [mixed_type(hot=1)], mixed_opts(True),
+              1 << 20),
              ("nbody", [nbody.Body], nbody_opts(True), 1024),
              ("ring", [ring.RingNode], ring_opts(True), 1024),
              ("spawn_tree", [spawn_tree.Node], spawn_opts(True),
@@ -591,10 +601,18 @@ def fused_cases():
     return cases
 
 
-def fused_dispatches(types, opts, lanes):
+# Fused cases also built with their lanes regrouped by message id
+# whatever the compile-time rule chooses (it regroups mixed alone), so that
+# the regroup is checked on the card with yields, exits, destroys, errors
+# and spawn planes, at ragged widths and at the spawn tree's 2^22 lanes.
+REGROUPED = ("corpus N=1000", "spawn corpus N=257", "spawn_tree")
+
+
+def fused_dispatches(types, opts, lanes, regroup=None):
     """The fused dispatch of every eligible device cohort of a program
     declaring `types` at `lanes` rows each (a cohort that sync-constructs
-    has none: it takes the plain dispatch)."""
+    has none: it takes the plain dispatch); `regroup` as for
+    build_fused_dispatch."""
     from ponyc_tpu_torch.ops import fused_dispatch as fdm
     from ponyc_tpu_torch.program import Program
     from ponyc_tpu_torch.runtime.engine import spawn_meta_of
@@ -610,7 +628,8 @@ def fused_dispatches(types, opts, lanes):
         meta = spawn_meta_of(prog, ch)
         progs = fdm.trace_cohort(ch, opts, meta)
         if fdm.eligible(ch, progs):
-            out.append(fdm.build_fused_dispatch(ch, opts, meta, progs))
+            out.append(fdm.build_fused_dispatch(ch, opts, meta, progs,
+                                                regroup))
     return out
 
 
@@ -636,6 +655,13 @@ def build_kernels():
     fused = _CACHE["fused"] = {}
     for label, types, opts, lanes in fused_cases():
         fused[label] = fused_dispatches(types, opts, lanes)
+        if label in REGROUPED:
+            fused[f"{label} regrouped"] = fused_dispatches(
+                types, opts, lanes, regroup=True)
+    # Mixed with one thread a lane: the parent commit's kernel, timed
+    # beside the regrouped one.
+    fused["mixed one thread a lane"] = fused_dispatches(
+        [mixed_type()], mixed_opts(True), 1 << 20, regroup=False)
     every = [fd for fds in fused.values() for fd in fds]
     unique = list({fd.header: fd for fd in every}.values())
     print(f"traced and emitted {len(every)} cohorts' bodies "
@@ -928,6 +954,7 @@ def check_kernels(rec, frec):
                bound_ms=bound_ms, bound_by="bytes", **t)
 
     # The fused kernel: every output against its plain version.
+    from ponyc_tpu_torch.ops import fused_dispatch as fdm
     checked, f_err, f_ulp = [], 0.0, 0
     for label, fds in _CACHE["fused"].items():
         for fd in fds:
@@ -945,40 +972,70 @@ def check_kernels(rec, frec):
                           f"claims, spawn fail {bool(want[11])}")
             print(f"fused {label} {fd.name} ({fd.rows} lanes, cap "
                   f"{fd.cap}, w1_in {fd.w1_in}, w1 {fd.w1}, batch "
-                  f"{fd.batch}, ms {fd.ms}, {len(fd.progs)} behaviours): "
-                  f"{nout} outputs bit-equal (nproc {int(want[5])}, nbad "
+                  f"{fd.batch}, ms {fd.ms}, {len(fd.progs)} behaviours, "
+                  f"{'regrouped' if fd.regroup else 'one thread a lane'}):"
+                  f" {nout} outputs bit-equal (nproc {int(want[5])}, nbad "
                   f"{int(want[6])}, exit {bool(want[3])}{spawns})",
                   flush=True)
-    times = {}
-    for label in ("ubench", "mixed", "spawn_tree"):
+    # The regroup on id layouts that stress it, at mixed's shape.
+    for label, pattern in ([("mixed", p) for p in fdm.ID_PATTERNS]
+                           + [("mixed one-hot", "same")]):
         fd = _CACHE["fused"][label][0]
-        sets = [fd.sample_inputs(seed=100 + s, device="cuda", steady=True)
-                for s in range(3)]
-        reps = 10 if label == "ubench" else 3
+        inputs = fd.sample_inputs(seed=len(checked) + 1, device="cuda",
+                                  pattern=pattern)
+        got = fd(*inputs)
+        torch.cuda.synchronize()
+        want = fd.plain(*inputs)
+        err, ulp, nout = compare_fused(got, want, f"{label} {pattern}")
+        f_err, f_ulp = max(f_err, err), max(f_ulp, ulp)
+        checked.append(f"{label}:{fd.name}:{pattern}")
+        design = "regrouped" if fd.regroup else "one thread a lane"
+        print(f"fused {label} {fd.name} ({fd.rows} lanes, ids "
+              f"{pattern!r}, {design}): {nout} outputs bit-equal (nproc "
+              f"{int(want[5])}, nbad {int(want[6])}, exit "
+              f"{bool(want[3])})", flush=True)
+    times = {}
+    for label in ("ubench", "mixed", "mixed one-hot",
+                  "mixed one thread a lane", "spawn_tree",
+                  "spawn_tree regrouped"):
+        fd = _CACHE["fused"][label][0]
+        pattern = "same" if label == "mixed one-hot" else None
+        sets = [fd.sample_inputs(seed=100 + s, device="cuda", steady=True,
+                                 pattern=pattern) for s in range(3)]
         t = dict(ms=device_ms(fd, 20, sets, "pony_fused_kernel"),
-                 plain_ms=device_ms(fd.plain, reps, sets),
-                 call_ms=cuda_ms(fd, 20, sets),
-                 plain_call_ms=cuda_ms(fd.plain, reps, sets))
+                 call_ms=cuda_ms(fd, 20, sets))
+        if label in ("ubench", "mixed", "spawn_tree"):
+            reps = 10 if label == "ubench" else 3
+            t.update(plain_ms=device_ms(fd.plain, reps, sets),
+                     plain_call_ms=cuda_ms(fd.plain, reps, sets))
         out = fd(*sets[0])
         compare_fused(out, fd.plain(*sets[0]), f"{label} steady")
         b_ms, b_by, nbytes, ops, t_b, t_o = fused_bound(fd, sets[0], out)
         times[label] = dict(bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                            ops=ops, bytes_ms=t_b, ops_ms=t_o, **t)
+                            ops=ops, bytes_ms=t_b, ops_ms=t_o,
+                            regrouped=fd.regroup, **t)
+        plain = (f", plain {t['plain_ms']:.4f} ms; wall a call (host "
+                 f"enqueue included): {t['call_ms']:.4f}, "
+                 f"{t['plain_call_ms']:.4f} ms" if "plain_ms" in t else
+                 f"; wall a call {t['call_ms']:.4f} ms")
         print(f"fused at {label}'s shape ({fd.rows} lanes, every lane "
-              f"full), device time a call: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms; wall a call (host enqueue "
-              f"included): {t['call_ms']:.4f}, {t['plain_call_ms']:.4f} "
-              f"ms; bound {b_ms:.4f} ms by {b_by} (bytes "
-              f"{nbytes / 1e6:.1f} MB -> {t_b:.4f} ms at 3.35 TB/s; "
-              f"{ops:.4g} ATen ops -> {t_o:.4f} ms at 67 TFLOP/s); kernel "
-              f"at {100 * b_ms / t['ms']:.1f}% of the bound", flush=True)
+              f"full{', every id step0' if pattern else ''}, "
+              f"{'regrouped' if fd.regroup else 'one thread a lane'}), "
+              f"device time a call: kernel {t['ms']:.4f} ms{plain}; bound "
+              f"{b_ms:.4f} ms by {b_by} (bytes {nbytes / 1e6:.1f} MB -> "
+              f"{t_b:.4f} ms at 3.35 TB/s; {ops:.4g} ATen ops -> "
+              f"{t_o:.4f} ms at 67 TFLOP/s); kernel at "
+              f"{100 * b_ms / t['ms']:.1f}% of the bound", flush=True)
     frec.update(name="fused_dispatch", route="cuda",
                 source="ponyc_tpu_torch/csrc/fused_dispatch.cu",
                 replaces="ponyc_tpu/ops/fused_dispatch.py:97",
                 max_abs_err=f_err, max_ulp=f_ulp, bit_equal=f_ulp == 0
                 and f_err == 0, shapes=checked, library_ms=None,
                 **times["ubench"], mixed=times["mixed"],
-                spawn_tree=times["spawn_tree"])
+                mixed_onehot=times["mixed one-hot"],
+                mixed_before_ms=times["mixed one thread a lane"]["ms"],
+                spawn_tree=times["spawn_tree"],
+                spawn_tree_regrouped_ms=times["spawn_tree regrouped"]["ms"])
     return True
 
 
@@ -2945,7 +3002,8 @@ def main():
              "launches_spawn", "launches_host", "launches_blobs",
              "launches_telemetry", "launches_telemetry_spawn",
              "launches_telemetry_host",
-             "spawn_tree",
+             "spawn_tree", "mixed_onehot", "mixed_before_ms",
+             "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",
              "ms_tick", "plain_ms_tick", "bound_ms_tick", "design_bytes",
              "design_ms", "info")

@@ -30,6 +30,16 @@ and the engine's `not use_blob`, ponyc_tpu/runtime/engine.py:684): a
 cohort with at least one behaviour, none of which sync-constructs
 (ctx.spawn_sync), that does not use the blob pool; any other cohort takes
 the plain loop under `pallas_fused` too.
+
+Regrouping. A warp's 32 threads run one body at a time, so where a
+warp's lanes name several behaviours it runs each named body in turn;
+and the bodies' machine code is shared by the multiprocessor's warps.
+For a cohort whose bodies are costly enough (`regroup_rule`, decided when
+the kernel is built, never a runtime option) the kernel orders each
+tile's lanes by message id before the bodies run, so that most warps
+run one body; a tile whose messages all name one behaviour runs in place
+(csrc/fused_dispatch.cu, "The regroup"). The results are the same either
+way.
 """
 
 from __future__ import annotations
@@ -42,6 +52,68 @@ import numpy as np
 import torch
 
 from . import _build, lanecode, pack
+
+# The regroup's tile: TILE lanes a block of TILE_THREADS threads,
+# BLOCKS_PER_SM blocks a multiprocessor (csrc/fused_dispatch.cu,
+# PONY_TILE, PONY_RT and PONY_BPS; chosen by measurement, PERF.md
+# section 6).
+TILE, TILE_THREADS, BLOCKS_PER_SM = 2048, 1024, 2
+# A cohort is regrouped where a warp holding every behaviour id would run
+# at least REGROUP_OPS more ATen ops a lane than one holding the costliest
+# alone. At mixed's shape the regroup costs 0.017–0.023 ms more than one
+# thread a lane whatever the bodies (0.048 against 0.031 ms with empty
+# bodies); it paid from between 364 such ops (8 bodies of 52) and 700 (of
+# 100), about 420 by interpolation (PERF.md section 6).
+REGROUP_OPS = 448
+SMEM_BYTES = 227 * 1024      # shared memory a block may take (H100)
+
+
+def stage_bytes(fd) -> int:
+    """Shared memory of the regroup's tile for the fused dispatch `fd`
+    (csrc/fused_dispatch.cu, PonyStage): per lane the state struct (C
+    layout), the exit code, error code and site, place, bucket, flags and
+    spawn count; and the block's bucket counts."""
+    off = align = 1 if not fd.field_names else 0
+    for f in fd.field_names:
+        n = torch.empty((), dtype=fd.field_dtypes[f]).element_size()
+        off = -(-off // n) * n + n           # each field at its alignment
+        align = max(align, n)
+    lane = (-(-off // align) * align + 4 + 8 * fd.error + 2 + 1 + 1
+            + (fd.ns > 0))
+    return (TILE * lane + 2 * (len(fd.progs) + 1) * TILE_THREADS
+            + 4 * (TILE_THREADS // 32) + 64)
+
+
+def regroup_rule(fd) -> bool:
+    """Whether the fused dispatch `fd` regroups its lanes by message id:
+    more than one behaviour, bodies whose ops a warp holding every id
+    would run beyond the costliest's reach REGROUP_OPS, and the stages
+    of BLOCKS_PER_SM tiles within a multiprocessor's shared memory."""
+    if not 1 < len(fd.progs) < 255:
+        return False
+    ops = sorted(lanecode.op_count(p) for p in fd.progs)
+    return (sum(ops) - ops[-1] >= REGROUP_OPS
+            and stage_bytes(fd) <= SMEM_BYTES // BLOCKS_PER_SM)
+
+
+ID_PATTERNS = ("same", "alternate", "odd_one", "descending")
+
+
+def id_pattern(name: str, nb: int, cap: int, rows: int) -> np.ndarray:
+    """Behaviour ids [cap, rows] (local, 0..nb-1) that stress the regroup:
+    "same" every message names behaviour 0; "alternate" neighbours
+    name 0 and 1; "odd_one" 0 but for one lane a tile; "descending" the
+    ids fall along the lanes, nb-1 down to 0, over and over."""
+    lane = np.broadcast_to(np.arange(rows), (cap, rows))
+    if name == "same":
+        return np.zeros((cap, rows), np.int64)
+    if name == "alternate":
+        return lane % min(2, nb)
+    if name == "odd_one":
+        return np.where(lane % TILE == TILE // 2 + 1, nb - 1, 0)
+    if name == "descending":
+        return nb - 1 - lane % nb
+    raise ValueError(f"unknown id pattern {name!r}")
 
 
 def trace_cohort(cohort, opts, spawn_meta=None) -> List:
@@ -76,7 +148,8 @@ class FusedDispatch:
 
     launches = 0          # kernel launches, all cohorts
 
-    def __init__(self, cohort, opts, spawn_meta=None, progs=None):
+    def __init__(self, cohort, opts, spawn_meta=None, progs=None,
+                 regroup=None):
         from ..runtime.engine import _dtype_of, spawn_sites_of
         self.cohort = cohort
         self.name = cohort.atype.__name__
@@ -103,6 +176,14 @@ class FusedDispatch:
         self.sd = cohort.spawn_dispatches
         self.destroy = any(p.destroy_called for p in self.progs)
         self.error = any(p.error_called for p in self.progs)
+        # `regroup`: None = the rule; True/False to build one design or
+        # the other (the tests and the profiling scripts).
+        self.regroup = regroup_rule(self) if regroup is None \
+            else bool(regroup)
+        if self.regroup and stage_bytes(self) > SMEM_BYTES:
+            raise ValueError(f"cohort {self.name}: the regroup's tile "
+                             f"needs {stage_bytes(self)} bytes of shared "
+                             f"memory, more than a block's {SMEM_BYTES}")
         self.entry = "pony_fused_" + re.sub(r"\W", "_", self.name)
         self.header = self.source("cuda")      # refusals surface here
         self.plain = fused_dispatch_plain(cohort, opts, spawn_meta)
@@ -117,7 +198,10 @@ class FusedDispatch:
             w1_in=self.w1_in, noyield=self.noyield, destroy=self.destroy,
             error=self.error, target=target, spawn_sites=self.sites,
             sd=self.sd)
-            + f"#define PONY_ENTRY {self.entry}\n")
+            + f"#define PONY_ENTRY {self.entry}\n"
+            + f"#define PONY_REGROUP {int(self.regroup)}\n"
+            + f"#define PONY_TILE {TILE}\n#define PONY_RT {TILE_THREADS}\n"
+            + f"#define PONY_BPS {BLOCKS_PER_SM}\n")
 
     def job(self, host: bool = False) -> _build.Job:
         return _build.Job("fused_dispatch",
@@ -144,13 +228,15 @@ class FusedDispatch:
 
     def run_host(self, fields, buf, head, n_run, ids, resv=()):
         """The kernel's source built for the host CPU and run on CPU
-        tensors (the lanes in order). For tests: it holds the generated
-        bodies against the plain version where there is no card."""
+        tensors (the lanes in order, or regrouped tile by tile as the
+        kernel runs them). For tests: it holds the generated bodies and
+        the regroup against the plain version where there is no card."""
         fn = self.bind(_build.build([self.job(host=True)])[0])
         return self._launch(fn, fields, buf, head, n_run, ids, resv,
                             host=True)
 
-    def sample_inputs(self, seed: int, device="cpu", steady=False):
+    def sample_inputs(self, seed: int, device="cpu", steady=False,
+                      pattern=None):
         """A seeded input (fields, buf, head, n_run, ids, resv) for
         holding the kernel against its plain version: every behaviour id
         plus ids just out of range, argument words typed by the behaviour
@@ -158,7 +244,8 @@ class FusedDispatch:
         heads next to the int32 wrap, any n_run up to `batch`, and for a
         spawning cohort reservation planes with about one ref in five -1
         (no free slot). `steady`: every lane has `batch` messages, all
-        with valid ids (a busy main path)."""
+        with valid ids (a busy main path). `pattern` (ID_PATTERNS): the
+        messages' behaviour ids laid out by `id_pattern` instead."""
         rng = np.random.default_rng(seed)
         rows, nb = self.rows, len(self.progs)
         fields = {}
@@ -169,6 +256,8 @@ class FusedDispatch:
                 fields[f] = rng.integers(-40, 41, rows).astype(np.int32)
         local = rng.integers(0, nb, (self.cap, rows)) if steady else \
             rng.integers(-1, nb + 1, (self.cap, rows))
+        if pattern is not None:
+            local = id_pattern(pattern, nb, self.cap, rows)
         buf = rng.integers(-40, 41, (self.cap, self.w1_in, rows)).astype(
             np.int32)
         buf[:, 0, :] = self.base + local
@@ -290,17 +379,18 @@ class FusedDispatch:
                 bytes_[28].view(torch.bool) if self.sites else None)
 
 
-def build_fused_dispatch(cohort, opts, spawn_meta=None,
-                         progs=None) -> FusedDispatch:
+def build_fused_dispatch(cohort, opts, spawn_meta=None, progs=None,
+                         regroup=None) -> FusedDispatch:
     """The fused dispatch of one eligible cohort: fn(fields, buf, head,
     n_run, ids, resv) with the plain loop's results. Traces and emits
     every behaviour now (raising NotImplementedError for a body the
     kernel cannot run; `progs` from `trace_cohort` saves the trace); the
-    kernel itself builds at `compile_all` or first use."""
+    kernel itself builds at `compile_all` or first use. `regroup`: None
+    for `regroup_rule`'s choice, True or False to force one design."""
     if not cohort.behaviours:
         raise ValueError(f"cohort {cohort.atype.__name__} has no "
                          "behaviour to fuse")
-    return FusedDispatch(cohort, opts, spawn_meta, progs)
+    return FusedDispatch(cohort, opts, spawn_meta, progs, regroup)
 
 
 def compile_all(fds: List[FusedDispatch], log=None) -> None:

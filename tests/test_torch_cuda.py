@@ -108,23 +108,37 @@ def test_card_matches_cpu():
             np.testing.assert_array_equal(a[f], b[f])
 
 
-FUSED = [  # (actor types, options, lanes): the main shapes, then edges
+MIXED_OPTS = dict(mailbox_cap=4, batch=1, max_sends=1, msg_words=1)
+# (actor types, options, lanes, build_fused_dispatch/sample_inputs
+# keywords): the main shapes (mixed at its full width, all-hot and
+# one-hot, where its lanes are regrouped by message id), then edges, and
+# cohorts built regrouped whatever the compile-time rule chooses.
+FUSED = [
     ((TT.Pinger,), dict(mailbox_cap=4, batch=4, max_sends=1, msg_words=1),
-     1 << 20),
-    ((mixed.make_worker_type(8, work=64),),
-     dict(mailbox_cap=4, batch=1, max_sends=1, msg_words=1), 1 << 16),
+     1 << 20, {}),
+    ((mixed.make_worker_type(8, work=64),), MIXED_OPTS, 1 << 16, {}),
+    ((mixed.make_worker_type(8, work=64),), MIXED_OPTS, 1 << 20, {}),
+    ((mixed.make_worker_type(8, hot=1, work=64),), MIXED_OPTS, 1 << 20,
+     dict(pattern="same")),
     ((nbody.Body,), dict(mailbox_cap=16, batch=4, max_sends=1,
-                         msg_words=4), 1024),
+                         msg_words=4), 1024, {}),
     ((TT.Mixer, TT.TriF, TT.Yielder, TT.Exiter, TT.Ephemeral, TT.Errs,
       TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2, msg_words=2),
-     257),
+     257, {}),
     ((TT.Mixer, TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2,
-                                msg_words=2), 1),
+                                msg_words=2), 1, {}),
     # Spawning cohorts: reservation planes in, claim planes out.
     ((TT.Node,), dict(mailbox_cap=8, batch=4, max_sends=3, msg_words=2),
-     1 << 16),
+     1 << 16, {}),
     ((TT.Boss, TT.Worker), dict(mailbox_cap=8, batch=2, max_sends=2,
-                                msg_words=2), 257),
+                                msg_words=2), 257, {}),
+    ((TT.Mixer, TT.TriF, TT.Yielder, TT.Exiter, TT.Ephemeral, TT.Errs,
+      TT.Arith), dict(mailbox_cap=8, batch=4, max_sends=2, msg_words=2),
+     5000, dict(regroup=True)),
+    ((TT.Node,), dict(mailbox_cap=8, batch=4, max_sends=3, msg_words=2),
+     1 << 16, dict(regroup=True)),
+    ((TT.Boss, TT.Worker), dict(mailbox_cap=8, batch=2, max_sends=2,
+                                msg_words=2), 257, dict(regroup=True)),
 ]
 
 
@@ -144,10 +158,12 @@ def _flat(x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("types,okw,lanes", FUSED,
-                         ids=["ubench", "mixed", "nbody", "corpus", "one",
-                              "spawn_tree", "boss"])
-def test_fused_kernel_matches_plain(types, okw, lanes):
+@pytest.mark.parametrize("types,okw,lanes,kw", FUSED,
+                         ids=["ubench", "mixed", "mixed_full",
+                              "mixed_onehot", "nbody", "corpus", "one",
+                              "spawn_tree", "boss", "corpus_regrouped",
+                              "spawn_tree_regrouped", "boss_regrouped"])
+def test_fused_kernel_matches_plain(types, okw, lanes, kw):
     _need_cuda()
     from ponyc_tpu_torch.runtime.engine import spawn_meta_of
     opts = RuntimeOptions(tuning_cache="off", pallas_fused=True, **okw)
@@ -157,8 +173,10 @@ def test_fused_kernel_matches_plain(types, okw, lanes):
     prog.finalize()
     for t in types:
         ch = prog.by_type[t]
-        fd = fdm.build_fused_dispatch(ch, opts, spawn_meta_of(prog, ch))
-        inputs = fd.sample_inputs(seed=lanes % 97, device="cuda")
+        fd = fdm.build_fused_dispatch(ch, opts, spawn_meta_of(prog, ch),
+                                      regroup=kw.get("regroup"))
+        inputs = fd.sample_inputs(seed=lanes % 97, device="cuda",
+                                  pattern=kw.get("pattern"))
         before = fdm.FusedDispatch.launches
         got = fd(*inputs)
         torch.cuda.synchronize()
@@ -170,6 +188,30 @@ def test_fused_kernel_matches_plain(types, okw, lanes):
                 continue
             assert x.dtype == y.dtype and x.shape == y.shape
             assert torch.equal(_bits(x), _bits(y)), t.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", fdm.ID_PATTERNS)
+def test_fused_regroup_id_patterns_match_plain(pattern):
+    """Mixed's regrouped kernel at its full width on id layouts that
+    stress the regroup, against the plain version bit for bit."""
+    _need_cuda()
+    opts = RuntimeOptions(tuning_cache="off", pallas_fused=True,
+                          **MIXED_OPTS)
+    wt = mixed.make_worker_type(8, work=64)
+    prog = Program(opts)
+    prog.declare(wt, 1 << 20)
+    prog.finalize()
+    fd = fdm.build_fused_dispatch(prog.by_type[wt], opts)
+    assert fd.regroup
+    inputs = fd.sample_inputs(seed=5, device="cuda", pattern=pattern)
+    got = fd(*inputs)
+    torch.cuda.synchronize()
+    for x, y in zip(_flat(got), _flat(fd.plain(*inputs))):
+        if y is None:
+            assert x is None
+            continue
+        assert torch.equal(_bits(x), _bits(y)), pattern
 
 
 @pytest.mark.cuda
