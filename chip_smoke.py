@@ -53,11 +53,16 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 world (device us a tick of each phase). `--only
                 kernels-mega` runs this phase alone;
   3. agree    — small worlds run on the card and on the CPU give equal
-                fields and counters on all three paths (the CPU path is
-                the one the test suite holds against the JAX package);
+                fields and counters on all three paths, and five of them
+                (COSORT_AGREE) under delivery="cosort" on the plain and
+                fused paths (there the carried plan state too; the CPU
+                path is the one the test suite holds against the JAX
+                package);
   4. ubench   — message-ubench through Runtime at 2**20 pingers,
                 pings=4 (bench.py's defaults): three timed windows of a
-                fixed number of ticks after warm-up, on each path; every
+                fixed number of ticks after warm-up, on each path, and
+                under delivery="cosort" on the plain and fused paths
+                (whose final world must equal plan's); every
                 pinger processes `pings` messages a tick and the path's
                 kernel launches once a tick (once a window for the
                 window kernel);
@@ -94,8 +99,8 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 paths; one launch of the path's kernel per tick enqueued
                 (a window kernel per window), the windows the device
                 ended for the host (host_pending), wall a run (the plain
-                and fused paths at 2**17 walkers and 2**12 chains of
-                1..256 hops, held against the window kernel there; the window
+                and fused paths at 2**15 walkers and 2**10 chains of
+                1..64 hops, held against the window kernel there; the window
                 kernel at full width too); under
                 pallas_mega a second run whose first windows and every
                 128th run the host C++ build of the window kernel on the
@@ -113,7 +118,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 words (cap 2, batch 1, 3 words, 1 send, inject 16; the
                 spill raised to 2**14, one a chain),
                 through Runtime.run() on each path (the plain and fused
-                paths at 2**17 walkers and 2**12 chains of 1..256 hops,
+                paths at 2**17 walkers and 2**11 chains of 1..128 hops,
                 held against the
                 window kernel there; the window kernel at full width
                 too): every walker's acc
@@ -143,12 +148,32 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 across the paths); the hostlog world at analysis=3 with
                 every chain traced (bulk_send(..., trace=)): acc equal
                 to the oracle, Runtime.traces() one consistent tree of
-                2**12 branches, each its chain's dispatches then one odd
-                host span (HostLog.done), no span dropped; the spans,
+                one branch a chain, each its chain's dispatches then one
+                odd host span (HostLog.done), no span dropped; the spans,
                 events, the level-2 CSV's deterministic columns, ticks
-                and windows equal across the paths, ticks and windows
-                equal to the untraced run's;
- 12. profile  — kernels launched a tick and the device's busy share
+                and windows equal across the paths at HOST_CUT, and the
+                window kernel's at 2**20 walkers equal to the untraced
+                run's;
+ 12. tune     — the formulation tuner (delivery="auto",
+                pallas_fused="auto", the tuning cache in a fresh
+                temporary directory) on ubench 2**20 x 4, GUPS at full
+                width, the spawn tree at TUNE_SPAWN_DEPTH and the blob
+                chain at 2**17 walkers: every variant timed (ms a tick)
+                with no error, the winner equal to `decide`'s, the
+                runtime's state untouched by calibration, a second start
+                read from the cache with no kernel launched, and the
+                auto run equal to a run fixed to the winner;
+ 13. gups     — GUPS (models/gups.py): 2**22 table cells (cap 16, batch
+                2: 512 MiB of rings) and 2**20 updaters x 16 updates on
+                each path: the xor of the table equal to the NumPy replay
+                of the updaters' PRNG, fields, counters and ticks equal
+                across the paths, updates a second;
+ 14. fanin    — fan-in (models/fanin.py): 2**12 producers x 1 item into
+                one aggregator under the window kernel (the aggregator's
+                total n*items, mutes and rejections, and the radix sort
+                taken unforced on the first ticks, one a window), then
+                2**8 x 4 on each path, fields, counters and ticks equal;
+ 15. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -173,7 +198,8 @@ are checked in `kernels-mega` on the hostlog world at full width (the
 gated windows, which stop for the host, and a forced window, timed), and
 `agree` runs a small host reporting world on the card and the CPU.
 `--only host` runs the build and the host phase; `--only telemetry` the
-build and the telemetry phase (its analysis=0 references then run too).
+build and the telemetry phase (its analysis=0 references then run too);
+`--only tune,gups,fanin` the build and this slice's phases.
 The analysis CSVs go to _chipwork/smoke_analysis/ (git-ignored, removed
 after the phase).
 
@@ -323,14 +349,31 @@ def blob_programs():
 def _mode_kw(mode):
     """Options of a path: False = the plain tick (drain kernel), True =
     the fused dispatch kernel (pallas_fused), "mega" = the window kernel
-    (delivery="pallas_mega")."""
+    (delivery="pallas_mega"); "cosort" and "cosort+fused" = the plain
+    tick and the fused kernel under delivery="cosort"; "auto" = the
+    tuner's choice (delivery="auto", pallas_fused="auto")."""
     if mode == "mega":
         return dict(pallas_fused=False, delivery="pallas_mega")
+    if mode == "auto":
+        return dict(pallas_fused="auto", delivery="auto")
+    if mode in ("cosort", "cosort+fused"):
+        return dict(pallas_fused=mode == "cosort+fused", delivery="cosort")
     return dict(pallas_fused=bool(mode), delivery="plan")
 
 
 def _mode_name(mode):
-    return "pallas_mega" if mode == "mega" else f"pallas_fused={mode}"
+    if mode == "mega":
+        return "pallas_mega"
+    if mode == "auto":
+        return "delivery=auto pallas_fused=auto"
+    if mode in ("cosort", "cosort+fused"):
+        return f"cosort pallas_fused={mode == 'cosort+fused'}"
+    return f"pallas_fused={mode}"
+
+
+def _fused(mode):
+    """Whether the path's cohorts run the fused dispatch kernel."""
+    return mode is True or mode == "cosort+fused"
 
 
 def ubench_opts(fused, ticks=64, **kw):
@@ -383,9 +426,10 @@ def corpus_opts():
 HOST_WALKERS = 1 << 20    # the hostlog world on the card
 HOST_CHAINS = 1 << 12
 HOST_SEED = 2026
-HOST_CUT = (1 << 17, 1 << 12, 256)  # walkers, chains, longest chain of its
-#   untraced plain and fused runs (their ticks take tens of ms on the host's
-#   clock, and the host actor's ring of 4 takes a window a tick)
+HOST_CUT = (1 << 15, 1 << 10, 64)  # walkers, chains, longest chain of its
+#   plain and fused runs, untraced and traced (their ticks take tens of ms
+#   on the host's clock, and the host actor's ring of 4 takes a window a
+#   tick)
 SPREAD_DEPTH = 10         # examples/spreader.py's program on the card
 #   (cut from 12: a window a tick on the plain and fused paths)
 
@@ -456,7 +500,7 @@ def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
 BLOB_WALKERS = 1 << 19    # the blob chain on the card
 BLOB_CHAINS = 1 << 14
 BLOB_SEED = 2026
-BLOB_CUT = (1 << 17, 1 << 12, 256)  # walkers, chains, longest chain of its
+BLOB_CUT = (1 << 17, 1 << 11, 128)  # walkers, chains, longest chain of its
 #   plain and fused runs (their ticks take tens of ms on the host's clock)
 BLOB_SLOTS = (1 << 20) - 1    # the most one shard addresses (ops/pack.py)
 BLOB_SPILL = 1 << 14          # one a chain: a chain has one token in
@@ -558,7 +602,8 @@ def fused_cases():
     ragged widths, and the cohorts of the agree phase's small worlds."""
     import ponyc_tpu_torch
     from ponyc_tpu_torch import RuntimeOptions
-    from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
+    from ponyc_tpu_torch.models import (fanin, gups, nbody, ring,
+                                        spawn_tree, ubench)
     tp, _T = programs()
     cases = [("ubench", [ubench.Pinger], ubench_opts(True), 1 << 20),
              ("mixed", [mixed_type()], mixed_opts(True), 1 << 20),
@@ -590,6 +635,12 @@ def fused_cases():
     cases.append(("spawn corpus N=257", [T.Boss, T.Worker, T.Spawner,
                                          T.SpawnChild, T.Relay, T.Temp,
                                          T.Collector], corpus_opts(), 257))
+    # The GUPS and fan-in cohorts (a fused kernel's source does not
+    # depend on the cohort's rows).
+    cases.append(("gups", [gups.TableCell, gups.Updater],
+                  RuntimeOptions(**gups_kw(True)), 1024))
+    cases.append(("fanin", [fanin.Producer, fanin.Aggregator],
+                  RuntimeOptions(**fanin_kw(True, *FANIN_SMALL)), 256))
     worlds = [("walkers", ("Walker", "Splitter"), WALKERS_KW),
               ("mixers", ("Mixer",), MIXERS_KW)]
     worlds += [(n, names, kw) for n, (names, kw) in tp.CORPUS_WORLDS.items()]
@@ -709,7 +760,8 @@ def mega_windows():
     building)."""
     import ponyc_tpu_torch
     from ponyc_tpu_torch import RuntimeOptions
-    from ponyc_tpu_torch.models import nbody, ring, spawn_tree, ubench
+    from ponyc_tpu_torch.models import (fanin, gups, nbody, ring,
+                                        spawn_tree, ubench)
     from ponyc_tpu_torch.program import Program
     from ponyc_tpu_torch.runtime import engine
     tp, _T = programs()
@@ -770,6 +822,26 @@ def mega_windows():
                 [(host_t.HostLog, 1)])
     for name, build, _finish in agree_worlds():
         out[f"agree {name}"] = build("cpu", "mega")._multi_g
+    # The cut plain-and-fused worlds' window kernel counterparts, and the
+    # tune, gups and fanin phases' worlds.
+    out["hostlog cut"] = window(host_t.WalkerH, HOST_CUT[0], RuntimeOptions(
+        tuning_cache="off", **hostlog_kw("mega")), [(host_t.HostLog, 1)])
+    out["hostlog cut traced"] = window(
+        host_t.WalkerH, HOST_CUT[0], RuntimeOptions(
+            tuning_cache="off", **hostlog_kw(
+                "mega", analysis=3, trace_sample=1,
+                trace_slots=TEL_TRACE_SLOTS)), [(host_t.HostLog, 1)])
+    out["blob chain cut"] = window(blob_t.BlobWalker, BLOB_CUT[0],
+                                   RuntimeOptions(tuning_cache="off",
+                                                  **blob_kw("mega")))
+    out["tune spawn tree"] = window(spawn_tree.Node,
+                                    4 << TUNE_SPAWN_DEPTH, spawn_opts("mega"))
+    out["gups"] = window(gups.TableCell, GUPS[0],
+                         RuntimeOptions(**gups_kw("mega")),
+                         [(gups.Updater, GUPS[1])])
+    for n, items in (FANIN_BIG, FANIN_SMALL):
+        out[f"fanin {n}"] = window(fanin.Producer, n, RuntimeOptions(
+            **fanin_kw("mega", n, items)), [(fanin.Aggregator, 1)])
     return out
 
 
@@ -1650,13 +1722,31 @@ def agree_worlds():
     return worlds
 
 
+def plan_state(rt):
+    """The carried delivery state (under cosort: the placeholders)."""
+    return [getattr(rt.state, f).tolist()
+            for f in ("plan_key", "plan_perm", "plan_bounds")]
+
+
+# The agree worlds also run under cosort: those whose delivery sees
+# spill, mutes, spawns, host rows or blobs (the corpus adds nothing there).
+COSORT_AGREE = ("walkers (spill/mute)", "ubench", "spawn tree depth 8",
+                "host reporting", "blob chain")
+
+
 @phase("agree")
 def agree_small_worlds():
-    for mode in (False, True, "mega"):
+    for mode in (False, True, "mega", "cosort", "cosort+fused"):
         for name, build, finish in agree_worlds():
+            if mode in ("cosort", "cosort+fused") and \
+                    name not in COSORT_AGREE:
+                continue
             rt = build("cuda", mode)
             paths = dispatch_paths(rt)
-            g, c = finish(rt), finish(build("cpu", mode))
+            cpu = build("cpu", mode)
+            g, c = finish(rt), finish(cpu)
+            if mode in ("cosort", "cosort+fused"):
+                g, c = (g, plan_state(rt)), (c, plan_state(cpu))
             if g != c:
                 raise AssertionError(f"{name} ({_mode_name(mode)}): the "
                                      f"card and the CPU disagree: {g} vs "
@@ -1696,12 +1786,13 @@ def launches():
             MegaWindow.launches)
 
 
-def expected_launches(mode, ticks, windows):
-    """What one cohort's path launches: a drain or a fused kernel a tick
-    enqueued, or one window kernel a window dispatched."""
+def expected_launches(mode, ticks, windows, cohorts=1):
+    """What a path launches: a drain or a fused kernel a cohort and a
+    tick enqueued, or one window kernel a window dispatched."""
     if mode == "mega":
         return (0, 0, windows)
-    return (0, ticks, 0) if mode else (ticks, 0, 0)
+    k = cohorts * ticks
+    return (0, k, 0) if _fused(mode) else (k, 0, 0)
 
 
 # The telemetry leaves a run's paths must agree on (each where its level
@@ -1805,6 +1896,22 @@ def run_ubench(rec, frec, mrec):
                          ("mega", mrec, "mega")):
         r["launches"], out[key], final = ubench_windows(mode, *UBENCH)
         finals[mode] = (out[key], final)
+    # Cosort delivery on the plain tick and the fused kernel, beside plan:
+    # the same ticks from the same seeds end in the same world.
+    for mode, r, key, plan in (("cosort", rec, "cosort", False),
+                               ("cosort+fused", frec, "cosort fused", True)):
+        r["launches_cosort"], out[key], final = ubench_windows(mode, *UBENCH)
+        base = finals[plan][1]
+        if not same_arrays(final["fields"], base["fields"]) or \
+                final["counters"] != base["counters"] or \
+                final["steps"] != base["steps"]:
+            raise AssertionError(f"ubench {_mode_name(mode)}: fields, "
+                                 "counters or ticks differ from plan's")
+        print(f"ubench {_mode_name(mode)}: fields, counters and ticks equal "
+              f"plan's; {1e3 * out[key]['s_per_tick']:.3f} ms/tick against "
+              f"plan's {1e3 * finals[plan][0]['s_per_tick']:.3f} "
+              f"({100 * (out[key]['s_per_tick'] / finals[plan][0]['s_per_tick'] - 1):+.1f} %) "
+              f"[{_CACHE['card']}]", flush=True)
     return out
 
 
@@ -2510,11 +2617,11 @@ def tel_csv(path, skip=("time_ms", "rss_kb", "cpu_ms", "host_gap_us",
                 for r in csv.DictReader(f)]
 
 
-def tel_run(label, mode, rt, windows, run):
+def tel_run(label, mode, rt, windows, run, cohorts=1):
     """Run `rt` as the main path (launch counts reset just before and
-    read just after; one kernel of the path per tick enqueued, or one
-    window kernel per window), stop it, and return (exit code, seconds,
-    launches)."""
+    read just after; one kernel of the path a cohort and a tick
+    enqueued, or one window kernel per window), stop it, and return
+    (exit code, seconds, launches)."""
     import torch
     torch.cuda.synchronize()
     q0 = rt.ticks_enqueued
@@ -2525,7 +2632,7 @@ def tel_run(label, mode, rt, windows, run):
     elapsed = time.perf_counter() - t0
     got = launches()                # ... and ends here
     enqueued = rt.ticks_enqueued - q0
-    want = expected_launches(mode, enqueued, windows[0])
+    want = expected_launches(mode, enqueued, windows[0], cohorts)
     if got != want or rt.steps_run > enqueued:
         raise AssertionError(f"{label} {_mode_name(mode)}: launches (drain, "
                              f"fused, window) {got} for {enqueued} ticks "
@@ -2643,12 +2750,19 @@ def run_telemetry(rec, frec, mrec):
     print("spawn tree analysis=3: ev_count, ev_dropped, ev_data, every "
           "telemetry leaf, the events CSV, fields and counters equal across "
           "the three paths", flush=True)
-    # -- the hostlog world at analysis 3, every chain traced.
-    plan = hostlog_plan()
-    nxt, starts, lens, acc = plan
+    # -- the hostlog world at analysis 3, every chain traced: the three
+    # paths at HOST_CUT (their spans, events, CSV and leaves compared),
+    # the window kernel at full width too (its ticks and windows equal
+    # the untraced run's).
+    plans = {"cut": hostlog_plan(*HOST_CUT[:2], max_len=HOST_CUT[2]),
+             "full": hostlog_plan()}
     runs = {}
-    for mode in (False, True, "mega"):
-        path = os.path.join(TEL_DIR, f"hostlog-{_mode_name(mode)}.csv")
+    for mode, size in ((False, "cut"), (True, "cut"), ("mega", "cut"),
+                       ("mega", "full")):
+        plan = plans[size]
+        nxt, starts, lens, acc = plan
+        chains = len(starts)
+        path = os.path.join(TEL_DIR, f"hostlog-{_mode_name(mode)}-{size}.csv")
         rt, log = hostlog_build(mode, plan, trace=TEL_TRACE_ID, analysis=3,
                                 trace_sample=1, trace_slots=TEL_TRACE_SLOTS,
                                 analysis_path=path)
@@ -2658,7 +2772,7 @@ def run_telemetry(rec, frec, mrec):
         nums = world_numbers(rt, programs()[1].WalkerH)
         host = rt.state_of(log)
         walk = nums["fields"]["acc"].astype(np.int64)
-        if code != 0 or host["ends"] != HOST_CHAINS or \
+        if code != 0 or host["ends"] != chains or \
                 not np.array_equal(walk, acc):
             raise AssertionError(f"hostlog traced {_mode_name(mode)}: exit "
                                  f"code {code}, host {host}, acc equal to the "
@@ -2668,7 +2782,8 @@ def run_telemetry(rec, frec, mrec):
         spans = sorted(rt._tracer.spans)
         digest = hashlib.sha256(repr(spans).encode()).hexdigest()
         ok = True
-        if mode is False:     # the tree once; the other paths' spans equal
+        tree_checked = mode is False or size == "full"
+        if tree_checked:      # the other paths' spans equal the plain's
             trees = tracing.reassemble(spans)
             if set(trees) != {TEL_TRACE_ID}:
                 raise AssertionError(f"hostlog traced: traces "
@@ -2676,8 +2791,7 @@ def run_telemetry(rec, frec, mrec):
             tree = trees[TEL_TRACE_ID]
             (root,) = tree["roots"]
             want_len = dict(zip(starts.tolist(), (lens + 1).tolist()))
-            ok = tracing.consistent(tree) and \
-                len(root.children) == HOST_CHAINS
+            ok = tracing.consistent(tree) and len(root.children) == chains
             for first in root.children:
                 s, n_dev = first, 0
                 while s.actor >= 0 and s.span_id % 2 == 0:
@@ -2691,26 +2805,26 @@ def run_telemetry(rec, frec, mrec):
         if not ok or rt._tracer.dropped:
             raise AssertionError(f"hostlog traced {_mode_name(mode)}: the "
                                  f"trace is not one consistent tree of "
-                                 f"{HOST_CHAINS} chains, each its oracle's "
+                                 f"{chains} chains, each its oracle's "
                                  f"dispatches then one host span (dropped "
                                  f"{rt._tracer.dropped})")
         check_s = time.perf_counter() - t0
         rt.stop()
-        runs[mode] = dict(nums=nums, host=host, digest=digest,
-                          n_spans=len(spans), windows=windows[0],
-                          csv=tel_csv(path),
-                          events=tel_csv(path + ".events.csv",
-                                         skip=("time_ms",)))
+        runs[(mode, size)] = dict(
+            nums=nums, host=host, digest=digest, n_spans=len(spans),
+            windows=windows[0], csv=tel_csv(path),
+            events=tel_csv(path + ".events.csv", skip=("time_ms",)))
         recs[mode]["launches_telemetry_host"] = max(got)
-        out[f"hostlog traced {_mode_name(mode)}"] = dict(
+        out[f"hostlog traced {_mode_name(mode)} {len(nxt)} walkers"] = dict(
             seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
             spans=len(spans), launches=got, ms_per_tick=1e3 * elapsed /
             rt.steps_run, trace_check_s=check_s)
         what = ("one consistent trace of {} spans, {} branches each of "
                 "its chain's dispatches then one host span".format(
-                    len(spans), HOST_CHAINS) if mode is False else
+                    len(spans), chains) if tree_checked else
                 f"{len(spans)} spans")
-        print(f"hostlog {HOST_WALKERS} walkers traced (analysis=3, "
+        print(f"hostlog {len(nxt)} walkers, {chains} chains of "
+              f"1..{int(lens.max())} hops, traced (analysis=3, "
               f"trace_sample=1, trace_slots {TEL_TRACE_SLOTS}) "
               f"{_mode_name(mode)} [{card}]: acc equal to the oracle, ends "
               f"{host['ends']}; {what}, none dropped (checked in "
@@ -2721,7 +2835,7 @@ def run_telemetry(rec, frec, mrec):
         del rt
         torch.cuda.empty_cache()
     for mode in (True, "mega"):
-        a, b = runs[mode], runs[False]
+        a, b = runs[(mode, "cut")], runs[(False, "cut")]
         same = dict(spans=a["digest"] == b["digest"],
                     events=a["events"] == b["events"],
                     csv=a["csv"] == b["csv"], host=a["host"] == b["host"],
@@ -2734,21 +2848,23 @@ def run_telemetry(rec, frec, mrec):
                                  f"from the plain tick: {same}")
     untraced = _CACHE.get("hostlog_untraced")
     if untraced is None:              # the host phase did not run
-        rt, _log = hostlog_build("mega", plan)
+        rt, _log = hostlog_build("mega", plans["full"])
         windows = count_windows(rt)
         rt.run()
         untraced = dict(ticks=rt.steps_run, windows=windows[0])
         del rt
-    b = runs[False]
+    b = runs[("mega", "full")]
     if (b["nums"]["steps"], b["windows"]) != (untraced["ticks"],
                                              untraced["windows"]):
         raise AssertionError(f"hostlog traced: {b['nums']['steps']} ticks, "
                              f"{b['windows']} windows; untraced "
                              f"{untraced}")
-    print(f"hostlog traced: spans (sha256 {runs[False]['digest'][:16]}), "
+    print(f"hostlog traced at {HOST_CUT} (walkers, chains, longest chain): "
+          f"spans (sha256 {runs[(False, 'cut')]['digest'][:16]}), "
           f"events, the level-2 CSV's deterministic columns, every "
           f"telemetry leaf, counters, ticks and windows equal across the "
-          f"three paths; ticks and windows equal the untraced run's "
+          f"three paths; at {HOST_WALKERS} walkers the window kernel's ticks "
+          f"and windows equal the untraced run's "
           f"({untraced['ticks']}, {untraced['windows']})", flush=True)
     shutil.rmtree(TEL_DIR, ignore_errors=True)
     return out
@@ -2892,6 +3008,454 @@ def profile_ticks(label, rt, ticks, attempts=2):
     return out
 
 
+# ---- the tuner, GUPS and fan-in -----------------------------------------
+
+GUPS = (1 << 22, 1 << 20, 16)     # table cells, updaters, updates each
+FANIN_BIG = (1 << 16, 1)          # producers, items each (window kernel)
+FANIN_SMALL = (1 << 8, 4)         # producers, items each (every path)
+FANIN_PROBED = 16                 # first ticks of the big run, one a window
+TUNE_SPAWN_DEPTH = 16             # the spawn tree of the tune phase
+TUNE_BLOB = BLOB_CUT              # the blob chain of the tune phase
+TUNE_TICKS = 32                   # ticks of the auto run against the fixed
+TUNE_SLACK = 2.0                  # the auto run's tick against pallas_mega's
+
+
+def gups_kw(mode):
+    # models/gups.py's build options: cap 16, batch 2, one word a message
+    return dict(mailbox_cap=16, batch=2, msg_words=1, spill_cap=1024,
+                tuning_cache="off", **_mode_kw(mode))
+
+
+def gups_declare(rt, cells=GUPS[0], n_upd=GUPS[1]):
+    from ponyc_tpu_torch.models import gups
+    rt.declare(gups.TableCell, cells).declare(gups.Updater, n_upd)
+
+
+def gups_seed(rt, each=GUPS[2]):
+    """models/gups.py's build and run, on a started runtime: the cells,
+    the updaters with their PRNG seeds (numpy seed 7), and every
+    updater's `tick(each)`."""
+    import numpy as np
+    from ponyc_tpu_torch.models import gups
+    cells = rt.program.by_type[gups.TableCell]
+    n_upd = rt.program.by_type[gups.Updater].capacity
+    rt.spawn_many(gups.TableCell, cells.capacity)
+    rng = np.random.default_rng(7)
+    upd = rt.spawn_many(
+        gups.Updater, n_upd, rng=rng.integers(1, 2**31 - 1, n_upd),
+        cell_start=cells.local_start, n_shards=rt.program.shards,
+        n_local=rt.program.n_local, table_size=cells.capacity)
+    rt.bulk_send(upd, gups.Updater.tick, np.full(n_upd, each, np.int32))
+
+
+def gups_oracle(n_upd=GUPS[1], each=GUPS[2], seed=7):
+    """The xor of every value the updaters send: a replay of their
+    xorshift32 streams in NumPy (tests/test_models.py)."""
+    import numpy as np
+    x = np.asarray(np.random.default_rng(seed).integers(1, 2**31 - 1,
+                                                        n_upd), np.int32)
+    expect = np.int32(0)
+    for _ in range(each):
+        x = (x ^ (x << 13)).astype(np.int32)
+        x = (x ^ ((x >> 17) & 0x7FFF)).astype(np.int32)
+        x = (x ^ (x << 5)).astype(np.int32)
+        expect ^= np.bitwise_xor.reduce(x)
+    return int(expect)
+
+
+def fanin_kw(mode, n, items):
+    # models/fanin.py's options (cap 8, batch 2, one word), two sends,
+    # the spill raised to hold every item in flight
+    return dict(mailbox_cap=8, batch=2, msg_words=1, max_sends=2,
+                spill_cap=max(512, 2 * n * items), inject_slots=16,
+                tuning_cache="off", **_mode_kw(mode))
+
+
+def tune_worlds():
+    """(label, options(mode) → RuntimeOptions, declare(rt), seed(rt),
+    finish(rt) → numbers) of the tune phase's worlds."""
+    import numpy as np
+    from ponyc_tpu_torch import RuntimeOptions
+    from ponyc_tpu_torch.models import gups, spawn_tree, ubench
+    _tb, TB = blob_programs()
+    n_ub, pings = UBENCH[0], UBENCH[1]
+
+    def ub_seed(rt):
+        ids = rt.spawn_many(ubench.Pinger, n_ub)
+        order = np.random.default_rng(0).permutation(n_ub)
+        nxt = np.empty(n_ub, np.int64)
+        nxt[order] = ids[np.roll(order, -1)]
+        rt.set_fields(ubench.Pinger, ids, next_ref=nxt)
+        ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
+
+    def tree_seed(rt):
+        root = rt.spawn(spawn_tree.Node)
+        rt.send(root, spawn_tree.Node.grow, TUNE_SPAWN_DEPTH, -1)
+
+    blob = blob_plan(*TUNE_BLOB[:2], max_len=TUNE_BLOB[2])
+
+    def blob_seed(rt):
+        nxt, starts, lens, words, _acc = blob
+        ids = rt.spawn_many(TB.BlobWalker, len(nxt), acc=0)
+        rt.set_fields(TB.BlobWalker, ids, nxt=ids[nxt])
+        hs = np.array([rt.blob_store([int(w)]) for w in words], np.int32)
+        rt.bulk_send(ids[starts], TB.BlobWalker.step, lens.astype(np.int32),
+                     hs)
+
+    def done(types, steps):
+        def finish(rt):
+            import torch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            code = rt.run(max_steps=steps)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            return dict(code=code, run_s=run_s,
+                        **{t.__name__: world_numbers(rt, t) for t in types})
+        return finish
+
+    return [
+        (f"ubench 2^20 x {pings}",
+         lambda m: ubench_opts(m, TUNE_TICKS),
+         lambda rt: rt.declare(ubench.Pinger, n_ub), ub_seed,
+         done([ubench.Pinger], TUNE_TICKS)),
+        ("gups 2^22 cells, 2^20 updaters",
+         lambda m: RuntimeOptions(**gups_kw(m)), gups_declare, gups_seed,
+         done([gups.TableCell, gups.Updater], GUPS[2] * 4 + 200)),
+        (f"spawn tree depth {TUNE_SPAWN_DEPTH}",
+         lambda m: spawn_opts(m),
+         lambda rt: rt.declare(spawn_tree.Node, 4 << TUNE_SPAWN_DEPTH),
+         tree_seed, done([spawn_tree.Node], 10_000)),
+        ("blob chain 2^17 walkers, 2^11 chains",
+         lambda m: RuntimeOptions(tuning_cache="off", **blob_kw(m)),
+         lambda rt: rt.declare(TB.BlobWalker, TUNE_BLOB[0]), blob_seed,
+         done([TB.BlobWalker], 256)),
+    ]
+
+
+@phase("tune")
+def run_tune(rec, frec, mrec):
+    """delivery="auto", pallas_fused="auto" on each tune world (see the
+    module docstring)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from ponyc_tpu_torch import Runtime, tuning
+    card = _CACHE["card"]
+    out = {}
+    for label, options, declare, seed, finish in tune_worlds():
+        cdir = tempfile.mkdtemp(prefix="pony_tune_")
+        try:
+            auto = dataclasses.replace(options("auto"), tuning_cache=cdir)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            rt = Runtime(auto)
+            declare(rt)
+            rt.start()
+            torch.cuda.synchronize()
+            start_s = time.perf_counter() - t0
+            calib = launches()
+            rec_ = rt.tuning_record
+            table, detail = rec_["table"], rec_["detail"]
+            if rec_["source"] != "calibrated" or \
+                    set(table) != set(rec_["variants"]) or \
+                    any(not isinstance(table[v], float)
+                        for v in rec_["variants"]) or detail["errors"]:
+                raise AssertionError(f"tune {label}: {rec_}")
+            if rec_["winner"] != tuning.decide(table,
+                                               order=rec_["variants"]):
+                raise AssertionError(f"tune {label}: winner "
+                                     f"{rec_['winner']} is not decide's")
+            st = rt.state
+            untouched = (not bool(st.alive.any())
+                         and not bool(st.tail.any())
+                         and not bool(st.head.any())
+                         and not bool(st.dspill_count.any())
+                         and rt.counter("n_processed") == 0
+                         and rt.counter("n_delivered") == 0
+                         and not any(bool(b.any())
+                                     for b in st.buf.values()))
+            if not untouched:
+                raise AssertionError(f"tune {label}: calibration wrote the "
+                                     "runtime's state")
+            # A second runtime on the same layout: the cached winner,
+            # with no kernel launched during its start.
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            rt2 = Runtime(auto)
+            declare(rt2)
+            rt2.start()
+            torch.cuda.synchronize()
+            cached_s = time.perf_counter() - t0
+            got2 = launches()
+            if rt2.tuning_record["source"] != "cache" or got2 != (0, 0, 0) \
+                    or rt2.opts.delivery != rt.opts.delivery \
+                    or rt2.opts.pallas_fused != rt.opts.pallas_fused:
+                raise AssertionError(f"tune {label}: the second start read "
+                                     f"{rt2.tuning_record['source']}, "
+                                     f"launched {got2}")
+            del rt2
+            # The auto run (its launches are the winner's kernels'),
+            # against a run fixed to the winner.
+            mode = _chosen_mode(rec_["chosen"])
+            got_auto, auto_ms, got = tune_run(rt, seed, finish, mode,
+                                              label)
+            del rt
+            torch.cuda.empty_cache()
+            fixed = dataclasses.replace(options(False), **rec_["chosen"])
+            got_fixed, fixed_ms, _ = tune_run(
+                _started(Runtime(fixed), declare), seed, finish, mode,
+                label)
+            torch.cuda.empty_cache()
+            if not same_numbers(got_auto, got_fixed):
+                raise AssertionError(f"tune {label}: the auto run differs "
+                                     f"from the run fixed to "
+                                     f"{rec_['winner']}")
+            # The winner's tick is not far above the window kernel's.
+            mega_ms = fixed_ms if mode == "mega" else None
+            if mode != "mega" and "pallas_mega" in rec_["variants"]:
+                _g, mega_ms, _l = tune_run(
+                    _started(Runtime(options("mega")), declare), seed,
+                    finish, "mega", label)
+                torch.cuda.empty_cache()
+            if mega_ms is not None and auto_ms > TUNE_SLACK * mega_ms:
+                raise AssertionError(
+                    f"tune {label}: the winner {rec_['winner']} runs "
+                    f"{auto_ms:.4f} ms a tick, pallas_mega {mega_ms:.4f}")
+        finally:
+            shutil.rmtree(cdir, ignore_errors=True)
+        code = got_auto.pop("code")
+        nums = next(iter(got_auto.values()))
+        out[label] = dict(table=table, compile_s=detail["compile_s"],
+                          winner=rec_["winner"], chosen=rec_["chosen"],
+                          ticks_per_window=detail["ticks_per_window"],
+                          repeats=detail["repeats"], start_s=start_s,
+                          cached_start_s=cached_s,
+                          calibration_launches=calib, launches=got,
+                          ms_per_tick=auto_ms, fixed_ms_per_tick=fixed_ms,
+                          mega_ms_per_tick=mega_ms, ticks=nums["steps"])
+        cells = ", ".join(f"{v} {table[v]:.4f}" for v in rec_["variants"])
+        comp = ", ".join(f"{v} {t:.2f}" for v, t in
+                         detail["compile_s"].items())
+        print(f"tune {label} [{card}]: ms a tick ({detail['ticks_per_window']}"
+              f"-tick forced windows, median of {detail['repeats']}): "
+              f"{cells}; compile_s (build + first window): {comp}; winner "
+              f"{rec_['winner']} (decide's); source calibrated, start "
+              f"{start_s:.2f} s, launches during it (drain, fused, window) "
+              f"{calib}; state untouched; second start: source cache in "
+              f"{cached_s:.2f} s, no launch; auto run = run fixed to the "
+              f"winner ({nums['steps']} ticks, exit code {code}), "
+              f"{auto_ms:.4f} ms a tick (fixed {fixed_ms:.4f}, pallas_mega "
+              f"{'-' if mega_ms is None else f'{mega_ms:.4f}'}), launches "
+              f"(drain, fused, window) {got}", flush=True)
+        for i, r in enumerate((rec, frec, mrec)):
+            r.setdefault("launches_tune", {})[label] = got[i]
+            r.setdefault("launches_tune_calibration", {})[label] = calib[i]
+    return out
+
+
+def _chosen_mode(chosen):
+    """The smoke's path name (False, True or "mega") of a tuner's
+    chosen options."""
+    if chosen["delivery"] == "pallas_mega":
+        return "mega"
+    return bool(chosen["pallas_fused"])
+
+
+def _started(rt, declare):
+    declare(rt)
+    rt.start()
+    return rt
+
+
+def tune_run(rt, seed, finish, mode, label):
+    """Seed and finish a started runtime of the tune phase, its launch
+    counts reset just before the run and held against what `mode`
+    launches. Returns (numbers, ms a tick of the run, launches)."""
+    import torch
+    seed(rt)
+    windows = count_windows(rt)
+    q0 = rt.ticks_enqueued
+    torch.cuda.synchronize()
+    reset_launches()                    # the main path's run starts here
+    got_nums = finish(rt)
+    got = launches()                    # ... and ends here
+    elapsed = got_nums.pop("run_s")     # the run, not the read-back
+    enqueued = rt.ticks_enqueued - q0
+    want = expected_launches(mode, enqueued, windows[0],
+                             cohorts=len(rt.program.device_cohorts))
+    if got != want or rt.steps_run > enqueued:
+        raise AssertionError(f"tune {label} {_mode_name(mode)}: launches "
+                             f"(drain, fused, window) {got} for {enqueued} "
+                             f"ticks enqueued, {windows[0]} windows "
+                             f"(expected {want})")
+    return got_nums, 1e3 * elapsed / max(1, rt.steps_run), got
+
+
+@phase("gups")
+def run_gups(rec, frec, mrec):
+    """GUPS at 2^22 cells and 2^20 updaters x 16 updates on each path:
+    the xor of the table equals the oracle, fields, counters and ticks
+    equal across the paths, updates a second."""
+    import numpy as np
+    import torch
+    from ponyc_tpu_torch import Runtime, RuntimeOptions
+    from ponyc_tpu_torch.models import gups
+    card = _CACHE["card"]
+    cells, n_upd, each = GUPS
+    want = gups_oracle()
+    res, out = {}, {}
+    for mode in (False, True, "mega"):
+        t0 = time.perf_counter()
+        rt = Runtime(RuntimeOptions(**gups_kw(mode)))
+        gups_declare(rt)
+        rt.start()
+        gups_seed(rt)
+        windows = count_windows(rt)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        q0 = rt.ticks_enqueued
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        code = rt.run(max_steps=each * 4 + 200)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        enqueued = rt.ticks_enqueued - q0
+        table = rt.cohort_state(gups.TableCell)["value"]
+        xor = int(np.bitwise_xor.reduce(table.astype(np.int32)))
+        done = rt.cohort_state(gups.Updater)["done"]
+        if code != 0 or xor != want or not (done == each).all():
+            raise AssertionError(f"gups {_mode_name(mode)}: exit code {code},"
+                                 f" xor {xor} (oracle {want}), done "
+                                 f"{np.unique(done)}")
+        want_l = expected_launches(mode, enqueued, windows[0], cohorts=2)
+        if got != want_l or rt.steps_run > enqueued:
+            raise AssertionError(f"gups {_mode_name(mode)}: launches (drain, "
+                                 f"fused, window) {got} for {enqueued} ticks "
+                                 f"enqueued, {windows[0]} windows (expected "
+                                 f"{want_l})")
+        res[mode] = {t.__name__: world_numbers(rt, t)
+                     for t in (gups.TableCell, gups.Updater)}
+        ups = n_upd * each / elapsed
+        {False: rec, True: frec, "mega": mrec}[mode]["launches_gups"] = \
+            max(got)
+        out[_mode_name(mode)] = dict(
+            seconds=elapsed, setup_s=setup, ticks=rt.steps_run,
+            enqueued=enqueued, windows=windows[0], updates_per_s=ups,
+            ms_per_tick=1e3 * elapsed / rt.steps_run, launches=got,
+            **{c: rt.counter(c) for c in ("n_processed", "n_delivered",
+                                          "n_rejected", "n_mutes")})
+        print(f"gups {cells} cells, {n_upd} updaters x {each} "
+              f"{_mode_name(mode)} [{card}]: xor {xor} = the oracle's, every "
+              f"updater done; {rt.steps_run} ticks in {elapsed:.3f} s = "
+              f"{1e3 * elapsed / rt.steps_run:.3f} ms/tick, {ups:.4g} "
+              f"updates/s ({ups / 1e9:.4f} GUPS); setup {setup:.1f} s, "
+              f"{windows[0]} windows; launches (drain, fused, window) {got};"
+              f" counters {out[_mode_name(mode)]}", flush=True)
+        del rt
+        torch.cuda.empty_cache()
+    for mode in (True, "mega"):
+        if not same_numbers(res[mode], res[False]):
+            raise AssertionError(f"gups: {_mode_name(mode)} differs from the "
+                                 "plain tick")
+    print("gups: the table, the updaters' fields, counters and ticks equal "
+          "across the three paths", flush=True)
+    return out
+
+
+@phase("fanin")
+def run_fanin(rec, frec, mrec):
+    """Fan-in: FANIN_BIG producers x items into one aggregator under the
+    window kernel (the radix sort taken unforced), then FANIN_SMALL on
+    each path."""
+    import torch
+    from ponyc_tpu_torch import RuntimeOptions
+    from ponyc_tpu_torch.models import fanin
+    from ponyc_tpu_torch.ops.megakernel import tick_sort
+    card = _CACHE["card"]
+    out = {}
+    n, items = FANIN_BIG
+    rt = fanin.build(n, items, RuntimeOptions(**fanin_kw("mega", n, items)))
+    mw = rt._multi_g
+    windows = count_windows(rt)
+    torch.cuda.synchronize()
+    reset_launches()                    # the main path's run starts here
+    t0 = time.perf_counter()
+    sorts = []
+    for _ in range(FANIN_PROBED):       # one tick a window: each tick's sort
+        rt.run(max_steps=1)
+        sorts.append(tick_sort(mw.world, rt.state.plan_key))
+    code = rt.run(max_steps=n * items * 4 + 100)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    got = launches()                    # ... and ends here
+    total = int(rt.cohort_state(fanin.Aggregator)["total"].sum())
+    radix = sorts.count("radix")
+    if code != 0 or total != n * items or not rt.counter("n_mutes") or \
+            not rt.counter("n_rejected") or not radix or \
+            got != (0, 0, windows[0]):
+        raise AssertionError(f"fanin {n} x {items}: exit code {code}, total "
+                             f"{total} (want {n * items}), mutes "
+                             f"{rt.counter('n_mutes')}, rejected "
+                             f"{rt.counter('n_rejected')}, sorts {sorts}, "
+                             f"launches {got}, windows {windows[0]}")
+    mrec["launches_fanin"] = got[2]
+    out[f"{n} x {items} pallas_mega"] = dict(
+        seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
+        radix_ticks_probed=radix, probed=FANIN_PROBED,
+        us_per_tick=1e6 * elapsed / rt.steps_run, launches=got,
+        **{c: rt.counter(c) for c in ("n_processed", "n_rejected",
+                                      "n_mutes")})
+    out[f"{n} x {items} pallas_mega"]["us_per_rejected"] = \
+        1e6 * elapsed / rt.counter("n_rejected")
+    print(f"fanin {n} producers x {items} pallas_mega [{card}]: total "
+          f"{total} = n*items, {rt.counter('n_mutes')} mutes, "
+          f"{rt.counter('n_rejected')} rejected "
+          f"({1e6 * elapsed / rt.counter('n_rejected'):.4f} us of wall a "
+          f"rejection); of the first "
+          f"{FANIN_PROBED} ticks {radix} took the radix sort unforced "
+          f"({sorts[:4]}...); {rt.steps_run} ticks in {elapsed:.3f} s = "
+          f"{1e6 * elapsed / rt.steps_run:.1f} us/tick, {windows[0]} windows;"
+          f" launches (drain, fused, window) {got}", flush=True)
+    del rt, mw
+    torch.cuda.empty_cache()
+    n, items = FANIN_SMALL
+    res = {}
+    for mode in (False, True, "mega"):
+        rt = fanin.build(n, items,
+                         RuntimeOptions(**fanin_kw(mode, n, items)))
+        windows = count_windows(rt)
+        code, elapsed, got = tel_run(f"fanin {n} x {items}", mode, rt,
+                                     windows, lambda: rt.run(
+                                         max_steps=n * items * 4 + 100),
+                                     cohorts=2)
+        total = int(rt.cohort_state(fanin.Aggregator)["total"].sum())
+        if code != 0 or total != n * items or not rt.counter("n_mutes"):
+            raise AssertionError(f"fanin {n} x {items} {_mode_name(mode)}: "
+                                 f"exit code {code}, total {total}")
+        res[mode] = {t.__name__: world_numbers(rt, t)
+                     for t in (fanin.Producer, fanin.Aggregator)}
+        out[f"{n} x {items} {_mode_name(mode)}"] = dict(
+            seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
+            ms_per_tick=1e3 * elapsed / rt.steps_run, launches=got)
+        print(f"fanin {n} producers x {items} {_mode_name(mode)} [{card}]: "
+              f"total {total}; {rt.steps_run} ticks in {elapsed:.3f} s = "
+              f"{1e3 * elapsed / rt.steps_run:.3f} ms/tick, {windows[0]} "
+              f"windows; launches (drain, fused, window) {got}", flush=True)
+        del rt
+    for mode in (True, "mega"):
+        if not same_numbers(res[mode], res[False]):
+            raise AssertionError(f"fanin {n} x {items}: {_mode_name(mode)} "
+                                 "differs from the plain tick")
+    print(f"fanin {n} x {items}: fields, counters and ticks equal across the "
+          "three paths", flush=True)
+    return out
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -2986,6 +3550,12 @@ def main():
             summary["blobs"] = run_blobs(rec, frec, mrec)
         if want("telemetry"):
             summary["telemetry"] = run_telemetry(rec, frec, mrec)
+        if want("tune"):
+            summary["tune"] = run_tune(rec, frec, mrec)
+        if want("gups"):
+            summary["gups"] = run_gups(rec, frec, mrec)
+        if want("fanin"):
+            summary["fanin"] = run_fanin(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -3001,7 +3571,8 @@ def main():
              "launches_ring", "launches_mixed", "launches_nbody",
              "launches_spawn", "launches_host", "launches_blobs",
              "launches_telemetry", "launches_telemetry_spawn",
-             "launches_telemetry_host",
+             "launches_telemetry_host", "launches_cosort", "launches_tune",
+             "launches_tune_calibration", "launches_gups", "launches_fanin",
              "spawn_tree", "mixed_onehot", "mixed_before_ms",
              "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",

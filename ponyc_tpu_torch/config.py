@@ -159,17 +159,17 @@ class RuntimeOptions:
     #   overflow between two drains drops spans and counts them
     #   (state.span_dropped) — raise for deep fan-outs
     trace_seed: int = 0            # sampling-hash seed (determinism knob)
-    pallas: Union[bool, str] = False   # route the dispatch mailbox drain
-    #   through the Pallas kernel (ops/mailbox_kernel.py) instead of the
-    #   XLA select-chain; interpret-mode on CPU. "auto" adds the kernel
-    #   as a calibrated variant (tuning.py) where the program's cohorts
-    #   are block-aligned; the measured winner is used.
+    pallas: Union[bool, str] = False   # the mailbox drain's kernel. The
+    #   port has one drain: on CUDA the plain dispatch always launches
+    #   csrc/drain.cu, on the CPU its plain version, whatever this says.
+    #   True makes the window kernel ineligible, as in the JAX package;
+    #   "auto" resolves to False at start() without being measured
+    #   (tuning.py).
     pallas_fused: Union[bool, str] = False  # fuse drain + behaviour +
-    #   outbox into ONE Pallas kernel per eligible cohort
-    #   (ops/fused_dispatch.py: no sync-construction/blob pool; others
-    #   fall back to the XLA path). The north-star dispatch kernel;
-    #   "auto" = calibrate it against the XLA path at start() and keep
-    #   the winner (tuning.py).
+    #   outbox into ONE kernel per eligible cohort (ops/fused_dispatch.py,
+    #   csrc/fused_dispatch.cu; a cohort that sync-constructs or uses the
+    #   blob pool takes the plain dispatch). "auto" = time it against
+    #   the plain dispatch at start() and keep the faster (tuning.py).
     host_fastpath: bool = True     # host-sender → host-target messages
     #   bypass the device mailbox table: they queue host-side and
     #   dispatch at host boundaries (≙ the main-thread scheduler's
@@ -192,29 +192,29 @@ class RuntimeOptions:
     #   (profiling/_hetero.py measures; the reference's switch is O(1),
     #   genfun.c). Off by default until measured on the real chip.
     delivery: str = "plan"         # delivery formulation (delivery.py):
-    #   "plan"   — cached stable-sort plan + permutation gathers (skips
-    #              the sort when traffic shape repeats);
-    #   "cosort" — one stable multi-operand lax.sort per tick that moves
-    #              the payload with the key (no plan, no gathers; wins
-    #              where arbitrary lane gathers lower poorly);
-    #   "pallas_mega" — the persistent fused window megakernel
-    #              (ops/megakernel.py, PROFILE.md §14): the WHOLE gated
-    #              window — delivery gather, mailbox drain, dispatch,
-    #              profiler lanes — runs as one Pallas kernel with the
-    #              in-window while as a kernel-internal loop, and ring
-    #              records cross the kernel boundary packed into int16
-    #              lanes + an int32 escape plane (the mailbox bandwidth
-    #              diet). Plan-formulation delivery semantics,
-    #              bit-equivalent by construction; ineligible programs
-    #              (mesh shards > 1, pallas/pallas_fused forced on)
-    #              fall back to the XLA spelling.
-    #   "auto"   — calibrate the formulations at Runtime.start() by
-    #              timing a short in-executable fused window per
-    #              formulation on the program's real cohort shapes and
-    #              keep the faster one (tuning.py; the decision
-    #              persists in the tuning cache so steady-state starts
-    #              skip calibration; pallas_mega joins the candidates
-    #              on TPU, or under PONY_TPU_MEGA_AUTO=1 elsewhere).
+    #   "plan"   — one stable sort of the key a tick, then permutation
+    #              gathers of the payload (the JAX package also caches
+    #              the plan and skips the sort when the key repeats; the
+    #              port sorts every tick);
+    #   "cosort" — the same stable sort, with the payload gathered in
+    #              the sorted order and no plan kept (the JAX package
+    #              moves the payload inside one multi-operand sort);
+    #   "pallas_mega" — the window kernel (ops/megakernel.py,
+    #              csrc/mega_window.cu): the WHOLE gated window —
+    #              delivery, mailbox drain, dispatch, profiler lanes —
+    #              as one cooperative CUDA launch on the card (the plain
+    #              window on the CPU). Plan-formulation delivery
+    #              semantics, bit-equivalent; an ineligible program
+    #              (pallas or pallas_fused forced on) runs the plain
+    #              window;
+    #   "auto"   — time the formulations at Runtime.start() on the
+    #              program's real cohort shapes (a short forced window
+    #              each, on a synthetic busy state) and keep the faster
+    #              (tuning.py; the decision persists in the tuning
+    #              cache, so a later start on the same layout skips
+    #              calibration). pallas_mega joins the candidates on
+    #              CUDA, or under PONY_TPU_MEGA_AUTO=1 on the CPU, where
+    #              it is the plain window again.
     debug_checks: bool = False     # run Runtime.check_invariants() at
     #   every aux fetch (≙ the reference's debug-build queue checkers,
     #   actor.c:57-92; costly — test/debug only)
@@ -281,18 +281,19 @@ class RuntimeOptions:
     # so the runtime measures instead of a human with a scratch script:
     # PROFILE.md §6) ---
     tuning_cache: str = "auto"     # on-disk decision cache for "auto"
-    #   option values, keyed by (platform, jax version, cohort layout,
-    #   geometry). "auto" = $PONY_TPU_TUNING_CACHE or
-    #   ~/.cache/ponyc_tpu/tuning; "off" disables (recalibrate every
-    #   start); any other value = explicit directory.
+    #   option values, keyed by (platform, device and its compute
+    #   capability, torch and CUDA versions, the kernels' sources, cohort
+    #   layout, geometry). "auto" = $PONY_TPU_TUNING_CACHE or
+    #   ~/.cache/ponyc_tpu_torch/tuning; "off" disables (recalibrate
+    #   every start); any other value = explicit directory.
     compile_cache: str = "auto"    # jax persistent compilation cache
     #   (attacks the measured 11.8 s warmup, PROFILE.md §4b). Same
     #   spelling: "auto" = $PONY_TPU_COMPILE_CACHE or
     #   ~/.cache/ponyc_tpu/xla; "off" leaves jax.config untouched.
-    tuning_ticks: int = 0          # in-executable ticks per calibration
-    #   window (lax.fori_loop trip count — the only methodology
-    #   PROFILE.md §4b trusts; per-call timings carry an ~11 ms launch
-    #   floor). 0 = auto-size from the synthetic workload's sustain.
+    tuning_ticks: int = 0          # ticks per calibration window (a
+    #   forced window, engine.build_forced_window, timed between two
+    #   device synchronisations). 0 = auto-size from the synthetic
+    #   workload's sustain.
     tuning_repeats: int = 3        # timed windows per variant (the
     #   median is kept; the first, compile-bearing window never counts)
 
@@ -497,9 +498,6 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "cosort": ("cosort delivery (delivery='cosort')", 6),
-    "tuner": ("the formulation tuner (delivery='auto', "
-              "pallas_fused='auto')", 6),
     "observability": ("the flight recorder, watchdog, metrics, cost "
                       "capture and pin", 11),
     "durability": ("durable checkpoints (checkpoint_every_s)", 9),
@@ -520,14 +518,10 @@ def check_supported(opts: RuntimeOptions) -> None:
     is accepted in every spelling: on CUDA the mailbox drain always
     runs as the hand-written kernel, on the CPU as its plain version.
     `pallas_fused=True` runs the fused dispatch kernel on CUDA (its
-    plain version on the CPU); "auto" needs the tuner.
-    `delivery="pallas_mega"` runs the window kernel on CUDA where
-    ops/megakernel.py's `eligible` holds (the plain window elsewhere)."""
-    if opts.pallas_fused == "auto":
-        raise unported("tuner")
-    if opts.delivery not in ("plan", "pallas_mega"):
-        raise unported({"cosort": "cosort",
-                        "auto": "tuner"}[opts.delivery])
+    plain version on the CPU). `delivery="pallas_mega"` runs the window
+    kernel on CUDA where ops/megakernel.py's `eligible` holds (the plain
+    window elsewhere). "auto" values are resolved by the tuner at
+    Runtime.start() (tuning.py)."""
     if opts.mesh_shards > 1:
         raise unported("mesh")
     if (opts.watchdog_s is not None or opts.metrics_port is not None

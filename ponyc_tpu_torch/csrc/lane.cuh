@@ -47,9 +47,12 @@ PONY_FN To pony_bitcast(From x) {
 PONY_FN float pony_f32(uint32_t bits) { return pony_bitcast<float>(bits); }
 PONY_FN double pony_f64(uint64_t bits) { return pony_bitcast<double>(bits); }
 
-// Integer floor division (c10 div_floor_integer).
+// Integer floor division (c10 div_floor_integer). A zero divisor gives
+// -1 for a zero dividend and -2 otherwise, as the plain path does
+// (runtime/engine.py's _IntDivision, the JAX package's CPU results).
 template <typename T>
 PONY_FN T pony_floordiv(T a, T b) {
+  if (b == 0) return a == 0 ? (T)-1 : (T)-2;
   if ((a < 0) != (b < 0)) {
     const T q = a / b;
     const T r = a % b;
@@ -58,7 +61,8 @@ PONY_FN T pony_floordiv(T a, T b) {
   return a / b;
 }
 
-// Remainder with the divisor's sign (torch.remainder).
+// Remainder with the divisor's sign (torch.remainder); an integer zero
+// divisor gives 0, as the plain path does (see pony_floordiv).
 template <typename T>
 PONY_FN T pony_rem(T a, T b) {
   if constexpr (std::is_floating_point<T>::value) {
@@ -66,6 +70,7 @@ PONY_FN T pony_rem(T a, T b) {
     if ((r != 0) && ((b < 0) != (r < 0))) r += b;
     return r;
   } else {
+    if (b == 0) return 0;
     T r = a % b;
     if (r != 0 && ((r < 0) != (b < 0))) r = (T)(r + b);
     return r;

@@ -1768,6 +1768,16 @@ PONY_FN void ring_fill(const PonyMegaArgs& a, const int32_t* ws, int64_t t,
   }
 }
 
+// Entry e, rejected by target t, into slot q of the new spill.
+PONY_FN void spill_put(const PonyMegaArgs& a, int32_t* ws, int32_t t,
+                       int64_t e, int64_t q, bool inject) {
+  ws[pws::NSP_TGT + q] = t;
+  ws[pws::NSP_SND + q] = entry_sender(a, e);
+  for (int k = 0; k < W::W1; ++k)
+    ws[pws::NSP_W + (int64_t)k * W::SPILL + q] =
+        entry_word(a, ws, e, k, inject);
+}
+
 // Mute trigger (≙ actor.c:898-921): a valid send whose receiver rejected
 // it, is overloaded or pressured mutes its sender, unless the sender is
 // itself overloaded or pressured. kt is the receiver, e the entry.
@@ -1822,33 +1832,36 @@ PONY_FN void ph_deliver(const PonyMegaArgs& a, const Grid& g, int32_t* ws,
     }
     // The rejected entries, in sorted order, after those of lower targets;
     // how many of them the new spill keeps is the next tick's
-    // spill-pending count of t.
+    // spill-pending count of t. A segment tick's thread copies its own (at
+    // most SEG); a radix tick copies one entry a thread, below.
     const int32_t nrej = bounds[t + 1] - b - acc;
     const int32_t ro = ws[pws::ROFF + t];
-    int32_t kept = 0;
-    for (; kept < nrej && (int64_t)ro + kept < W::SPILL; ++kept) {
-      const int64_t e = perm[(int64_t)b + acc + kept];
-      const int64_t q = (int64_t)ro + kept;
-      ws[pws::NSP_TGT + q] = (int32_t)t;
-      ws[pws::NSP_SND + q] = entry_sender(a, e);
-      for (int k = 0; k < W::W1; ++k)
-        ws[pws::NSP_W + (int64_t)k * W::SPILL + q] =
-            entry_word(a, ws, e, k, inject);
-    }
+    const int64_t room = W::SPILL - (int64_t)ro;
+    const int32_t kept = room <= 0 ? 0 : (nrej < room ? nrej : (int32_t)room);
+    if (seg)
+      for (int32_t j = 0; j < kept; ++j)
+        spill_put(a, ws, (int32_t)t, perm[(int64_t)b + acc + j],
+                  (int64_t)ro + j, inject);
     ws[pws::DSP_CNT + t] = kept;
   }
 #if PONY_PROF
   tel_flush(g, tel_smem() + TS_DELIV, W::NB, PI32(W::PTEL + T_DELIV));
 #endif
   if (seg) return;
-  // The radix sort's mute triggers, per sorted live entry (valid entries
-  // sort first); the sender is read only for an entry that can trigger.
+  // The radix sort's spill and mute triggers, per sorted live entry
+  // (valid entries sort first): rejected entry j of target kt goes to
+  // spill slot ROFF[kt] + j while the spill has room; the sender is read
+  // only for an entry that can trigger.
   const int32_t* skey = ws + pws::SKEY;
   PONY_FOR(p, bounds[W::NL]) {
     const int32_t kt = skey[p] / (int32_t)W::NLEV;
     const int32_t e = perm[p];                 // loaded beside the key
-    const bool rej = p - bounds[kt] >= ws[pws::ACCW + kt];
-    if (rej || ws[pws::HOT + kt]) mute_trigger(a, ws, kt, e);
+    const int32_t j = p - bounds[kt] - ws[pws::ACCW + kt];
+    if (j >= 0) {
+      const int64_t q = (int64_t)ws[pws::ROFF + kt] + j;
+      if (q < W::SPILL) spill_put(a, ws, kt, e, q, inject);
+    }
+    if (j >= 0 || ws[pws::HOT + kt]) mute_trigger(a, ws, kt, e);
   }
 }
 

@@ -187,6 +187,17 @@ def eligible(program, opts) -> bool:
     return any(ch.behaviours for ch in program.device_cohorts)
 
 
+def auto_enumerable(program, opts, device) -> bool:
+    """Whether delivery="auto" times the window kernel as a variant on
+    `device`: on CUDA whenever `eligible` holds; on the CPU the variant
+    is the plain window again, so only under PONY_TPU_MEGA_AUTO=1."""
+    if not eligible(program, opts):
+        return False
+    if torch.device(device).type == "cuda":
+        return True
+    return os.environ.get("PONY_TPU_MEGA_AUTO", "0") == "1"
+
+
 # ---------------------------------------------------------------------------
 # the window kernel
 

@@ -1,6 +1,6 @@
 """Batched message delivery of the PyTorch port: the vectorised send path
-on one device (the counterpart of ``ponyc_tpu/runtime/delivery.py``,
-plan formulation).
+on one device (the counterpart of ``ponyc_tpu/runtime/delivery.py``, both
+of its formulations).
 
 ≙ the reference's pony_sendv → ponyint_maybe_mute → messageq_push chain
 (src/libponyrt/actor/actor.c:773-968, actor/messageq.c:102-160) for
@@ -28,7 +28,19 @@ sort of an unchanged key gives the cached permutation, a tick with no
 valid entry accepts nothing and rewrites no slot, and a tick without
 rejections or hot receivers compacts an empty spill and triggers no
 mute. So results match the reference bit for bit, at the cost of always
-paying for the sort and the pressure pass.
+paying for the sort and the pressure pass. The reference's plan cache
+(skip the sort when the key vector repeats) is not kept for the same
+reason: the skip is a branch on device data.
+
+Two formulations, as in the JAX package (`cosort`, opts.delivery). The
+reference's plan gathers the payload through the stable-sort permutation
+and returns it with the segment bounds as the tick's plan (`plan_perm`,
+`plan_bounds`); its cosort sorts (key, tgt, sender, *words) with one
+stable multi-operand ``lax.sort`` and returns a placeholder plan
+(``arange(E)``, zeros). PyTorch has no multi-operand sort, and with no
+plan cache the two are one computation here: a stable ``torch.sort`` of
+the key, then gathers of tgt, sender and the words by its order. Only the
+returned plan differs.
 """
 
 from __future__ import annotations
@@ -37,7 +49,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.segment import DUMP_SLOTS, compact_mask, dump_index, stable_sort_by
+from ..ops.segment import DUMP_SLOTS, compact_mask, dump_index
 
 
 class Entries(NamedTuple):
@@ -101,7 +113,8 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
             mailbox_cap: int, spill_cap: int, overload_occ: int,
             shard_base: int, cohort_layout, mute_slots: int = 4,
             level=None, n_levels: int = 1,
-            pressured=None, trace_buf=None) -> DeliveryResult:
+            pressured=None, cosort: bool = False,
+            trace_buf=None) -> DeliveryResult:
     """`buf` is the per-cohort mailbox dict {type: [cap, 1+W_c, rows_c]};
     `cohort_layout` = [(type, s0, s1, w1_c)] tiles the local rows
     [0, n_local) in cohort order. `level` ([E] int32, 0 = most urgent)
@@ -127,13 +140,14 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
     key = torch.where(valid, tgt * n_levels + level,
                       n * n_levels).to(i32)
 
-    # --- the plan: stable-sort permutation + per-target segment bounds.
-    perm = stable_sort_by(key)
+    # --- one stable sort of the key: its permutation orders the payload,
+    # and the per-target segment bounds come from the sorted key.
+    key_s, perm = torch.sort(key, stable=True)
     bounds = torch.searchsorted(
-        key[perm], torch.arange(n + 1, dtype=i32, device=dev) * n_levels,
+        key_s, torch.arange(n + 1, dtype=i32, device=dev) * n_levels,
         side="left").to(i32)
-
-    kt = torch.where(valid, tgt, n).to(i32)[perm]
+    kt = torch.where(key_s < n * n_levels, tgt[perm], n).to(i32)
+    snd = sender[perm]
     wds = words[:, perm]                         # [w1, E] sorted
     ktc = kt.clamp(max=n - 1).long()
     seg_start = bounds[:-1]                      # [n]
@@ -183,7 +197,6 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
     ok = kt < n
     rej = ok & (rank >= acc.index_select(0, ktc))
     perm2, vspill, _ = compact_mask(rej, spill_cap)
-    snd = sender[perm]
     spill = Entries(
         tgt=torch.where(vspill, kt[perm2], -1),
         sender=torch.where(vspill, snd[perm2], -1),
@@ -217,5 +230,15 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
         newly_muted=newly[:n] > 0, new_mute_refs=refs, new_mute_ovf=ovf,
         n_delivered=n_delivered, n_rejected=nrej,
         n_deadletter=_isum(to_dead),
-        plan_key=key, plan_perm=perm.to(i32), plan_bounds=bounds,
+        plan_key=key, **_plan(cosort, perm, bounds),
     )
+
+
+def _plan(cosort: bool, perm, bounds):
+    """The tick's carried plan: the permutation and bounds (plan), or
+    the reference's placeholder under cosort, which nothing reads."""
+    if cosort:
+        return dict(plan_perm=torch.arange(perm.shape[0], dtype=torch.int32,
+                                           device=perm.device),
+                    plan_bounds=torch.zeros_like(bounds))
+    return dict(plan_perm=perm.to(torch.int32), plan_bounds=bounds)

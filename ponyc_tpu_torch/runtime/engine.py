@@ -53,9 +53,11 @@ import dataclasses
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from ..api import BlobPoolView, Context
-from ..config import RuntimeOptions, check_supported, unported
+from ..config import (RuntimeOptions, auto_fields, check_supported,
+                      unported)
 from ..ops import fused_dispatch, megakernel, pack
 from ..ops.mailbox_kernel import drain_msgs
 from ..ops.segment import counts_by_key
@@ -151,6 +153,53 @@ def _dtype_of(spec):
     return torch.float32 if spec is pack.F32 else torch.int32
 
 
+class _IntDivision(TorchFunctionMode):
+    """Integer `%` and `//` (remainder, floor_divide, div with
+    rounding_mode="floor") by a zero tensor divisor give the JAX package's
+    results on the CPU: remainder 0, quotient -1 for a zero dividend and
+    -2 otherwise. torch's CPU kernels raise there and its CUDA kernels
+    leave the result undefined. The lane programs record the guarded form,
+    so both kernels agree; csrc/lane.cuh's pony_rem and pony_floordiv give
+    the same results for a zero divisor of their own."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        op = _INT_DIV.get(func)
+        if op is not None and len(args) == 2 and (
+                func not in (torch.div, torch.Tensor.div)
+                or kwargs.get("rounding_mode") == "floor"):
+            kind, reflected = op
+            a, b = args[::-1] if reflected else args
+            if (isinstance(b, torch.Tensor) and _is_int(a) and _is_int(b)):
+                zero = b == 0
+                b1 = torch.where(zero, 1, b)
+                if kind == "rem":
+                    return torch.where(zero, 0, torch.remainder(a, b1))
+                q = torch.where(zero, -2, torch.floor_divide(a, b1))
+                return torch.where(zero & (a == 0), -1, q)
+        return func(*args, **kwargs)
+
+
+def _is_int(v) -> bool:
+    if isinstance(v, torch.Tensor):
+        return not (v.dtype.is_floating_point or v.dtype.is_complex
+                    or v.dtype == torch.bool)
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+# func -> (remainder or floor quotient, operands reflected)
+_INT_DIV = {
+    torch.remainder: ("rem", False), torch.Tensor.remainder: ("rem", False),
+    torch.Tensor.__mod__: ("rem", False),
+    torch.Tensor.__rmod__: ("rem", True),
+    torch.floor_divide: ("floor", False),
+    torch.Tensor.floor_divide: ("floor", False),
+    torch.Tensor.__floordiv__: ("floor", False),
+    torch.Tensor.__rfloordiv__: ("floor", True),
+    torch.div: ("floor", False), torch.Tensor.div: ("floor", False),
+}
+
+
 def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
                    field_specs, field_dtypes, lanes: int, max_sends: int,
                    spawn_resv=None, spawn_meta=None, blob=None):
@@ -191,7 +240,8 @@ def eval_behaviour(bdef, st, payload, ids_vec, *, msg_words: int,
     inputs = [v for v in list(st.values()) + list(args)
               if isinstance(v, torch.Tensor)]
     versions = [v._version for v in inputs]
-    st2 = bdef.fn(ctx, dict(st), *args)
+    with _IntDivision():
+        st2 = bdef.fn(ctx, dict(st), *args)
     if any(v._version != ver for v, ver in zip(inputs, versions)):
         # Tensors are shared across lanes and behaviours; an in-place
         # update (`st["x"] += 1`) would leak into lanes this behaviour
@@ -1000,6 +1050,9 @@ def build_step(program: Program, opts: RuntimeOptions):
     if not program.frozen:
         raise RuntimeError("finalize() the Program first")
     check_supported(opts)
+    if auto_fields(opts):
+        raise ValueError(f"build_step: {auto_fields(opts)} still 'auto'; "
+                         "Runtime.start() resolves them (tuning.resolve)")
     if program.shards > 1:
         raise unported("mesh")
     nl = program.n_local
@@ -1238,6 +1291,7 @@ def build_step(program: Program, opts: RuntimeOptions):
                       mute_slots=opts.mute_slots,
                       level=lvl_all, n_levels=n_levels,
                       pressured=st.pressured,
+                      cosort=opts.delivery == "cosort",
                       trace_buf=st.trace_buf if tracing else None)
 
         # --- 4b. destroys (≙ ponyint_actor_destroy, actor.c:570-664):
@@ -1555,6 +1609,7 @@ def _plain_forced(step):
             st, aux = step(st, inject_tgt, inject_words)
         return st, aux, torch.full((), int(limit), dtype=torch.int32,
                                    device=st.head.device)
+    forced.fused = step.fused     # the cohorts' fused kernels, to build
     return forced
 
 

@@ -47,7 +47,8 @@ import numpy as np
 import torch
 
 from ..api import ActorTypeMeta, BehaviourDef
-from ..config import RuntimeOptions, check_supported, unported
+from ..config import (RuntimeOptions, auto_fields, check_supported,
+                      unported)
 from ..errors import ERROR_CODES, PonyError
 from ..ops import fused_dispatch, megakernel, pack
 from ..program import Program
@@ -221,6 +222,10 @@ class Runtime:
         self._controller: Optional[WindowController] = None
         self._qi_auto = False
         self._qi_loaded = 0
+        self.tuning_record: Optional[Dict[str, Any]] = None   # set by
+        #   start() when delivery, pallas or pallas_fused is "auto"
+        #   (tuning.resolve): source, variants, table, winner, chosen,
+        #   detail, cache_path
         self._state_epoch = 0
         self._rl_windows = 0          # retired windows (cache write-back)
         # The collector and the blob pool (host side).
@@ -281,11 +286,21 @@ class Runtime:
         if self.opts.pin >= 0:
             raise unported("observability")     # pin: slice 11
         self.program.finalize()
-        # Building the window validates the program first (meshes raise
-        # before anything is allocated;
-        # under pallas_fused or delivery="pallas_mega" every body is
-        # traced for the kernel, and one the kernel cannot run raises
-        # here).
+        self.state = init_state(self.program, self.opts, self.device)
+        from .. import tuning
+        if auto_fields(self.opts):
+            # Resolve "auto" formulation choices to measured winners
+            # before the window is built: the engine only ever sees
+            # concrete options. Calibration runs on throwaway clones of
+            # the fresh state; only delivery, pallas and pallas_fused may
+            # change, none of which changes the layout or the state.
+            self.opts, self.tuning_record = tuning.resolve(
+                self.program, self.opts, self.state)
+            self.program.opts = self.opts
+        # Building the window validates the program (under pallas_fused
+        # or delivery="pallas_mega" every body is traced for the kernel,
+        # and one the kernel cannot run raises here). A kernel that
+        # calibration built is loaded from ops/_build.py's cache.
         self._multi_g = engine.build_multi_step_gated(self.program,
                                                       self.opts)
         if self.device.type == "cuda" and self._multi_g.fused:
@@ -293,8 +308,6 @@ class Runtime:
         if self.device.type == "cuda" and isinstance(
                 self._multi_g, megakernel.MegaWindow):
             self._multi_g.build()
-        self.state = init_state(self.program, self.opts, self.device)
-        from .. import tuning
         qi = self.opts.quiesce_interval
         self._qi_auto = qi == "auto"
         if self._qi_auto:

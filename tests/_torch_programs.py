@@ -120,6 +120,32 @@ def define(pkg):
             return {**st, "seq": st["seq"] + (n > 0) * np.int32(1)}
 
     @pkg.actor
+    class Tri:
+        """Three behaviours over a random functional graph
+        (tests/test_differential.py's cosort oracle world)."""
+        acc: I32
+        count: I32
+        nxt: Ref["Tri"]
+
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def add(self, st, v: I32):
+            self.send(st["nxt"], Tri.add, v - 2, when=v > 2)
+            return {**st, "acc": st["acc"] + v,
+                    "count": st["count"] + 1}
+
+        @pkg.behaviour
+        def mul2_then_ping(self, st, v: I32, flag: I32):
+            self.send(st["nxt"], Tri.ping, when=flag > 0)
+            return {**st, "acc": st["acc"] * 2 + v,
+                    "count": st["count"] + 1}
+
+        @pkg.behaviour
+        def ping(self, st):
+            return {**st, "count": st["count"] + 1}
+
+    @pkg.actor
     class Mixer:
         """Two behaviours of different arities exercising every effect
         plane: sends, yield, int-coded errors, destroy and exit."""
@@ -243,6 +269,19 @@ def define(pkg):
                     "f": (f / 3.0 + 1.0 / (h * h + 1.0) + abs(f) ** 0.5
                           + f ** 2 + f ** 3),
                     "g": st["g"] * 0.5 - h / (f * f + 0.25) + (h > f) * 1.0}
+
+    @pkg.actor
+    class Div:
+        """Integer `//` and `%` by a divisor that may be zero, both ways
+        round (the reflected forms too): the JAX package's results on the
+        CPU are the ones the port gives."""
+        q: I32
+        r: I32
+        s: I32
+
+        @pkg.behaviour
+        def go(self, st, x: I32, y: I32):
+            return {**st, "q": x // y, "r": x % y, "s": 5 // y + 3 % y}
 
     # Device spawns: the spawn tree of examples/spawn_tree.py (its
     # `jnp.where(done, 0, acc)` spelt `acc * ~done`, which both packages
@@ -643,7 +682,8 @@ def define(pkg):
         Reporter=Reporter, Collect=Collect, Spread=Spread,
         HiSender=HiSender, LoSender=LoSender, Rx=Rx,
         Pinger=Pinger, RingNode=RingNode, Walker=Walker,
-        Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer,
+        Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer, Tri=Tri,
+        Div=Div,
         Yielder=Yielder, Exiter=Exiter, Ephemeral=Ephemeral, Errs=Errs,
         TriF=TriF, Arith=Arith, Node=Node, Worker=Worker, Boss=Boss,
         Kid=Kid, Maker=Maker, Relay=Relay, Temp=Temp,
@@ -1066,7 +1106,58 @@ def define_blobs(pkg):
         def poke(self, st):
             return {**st, "hits": st["hits"] + 1}
 
+    @pkg.actor
+    class BlobProd:
+        """tests/test_fifo.py's blob producer: every message carries its
+        stamp in a payload word and inside its blob."""
+        c1: Ref["BlobCons"]
+        slot1: I32
+        seq: I32
+
+        MAX_SENDS = 2
+        MAX_BLOBS = 1
+        BLOB_DISPATCHES = 1
+        BATCH = 1
+
+        @pkg.behaviour
+        def produce(self, st, n: I32):
+            go = n > 0
+            h = self.blob_alloc(length=2, when=go)
+            self.blob_set(h, 0, st["seq"], when=go)
+            self.blob_set(h, 1, self.actor_id, when=go)
+            self.send(st["c1"], BlobCons.consume, st["slot1"], st["seq"], h,
+                      when=go)
+            self.send(self.actor_id, BlobProd.produce, n - 1, when=n > 1)
+            return {**st, "seq": st["seq"] + (n > 0) * np.int32(1)}
+
+    @pkg.actor
+    class BlobCons:
+        """Counts per-edge FIFO violations (`bad`) and payload/message
+        binding violations (`badbind`)."""
+        last0: I32
+        last1: I32
+        got: I32
+        bad: I32
+        badbind: I32
+
+        @pkg.behaviour
+        def consume(self, st, slot: I32, seq: I32, h: Blob):
+            bseq = self.blob_get(h, 0)
+            self.blob_free(h)
+            upd = dict(st)
+            upd["badbind"] = st["badbind"] + (bseq != seq)
+            for s in range(2):
+                is_s = slot == s
+                last = st[f"last{s}"]
+                upd[f"last{s}"] = last + (seq - last) * is_s
+            viol = sum((slot == s) & (seq != st[f"last{s}"] + 1)
+                       for s in range(2))
+            upd["bad"] = st["bad"] + viol
+            upd["got"] = st["got"] + 1
+            return upd
+
     return types.SimpleNamespace(
+        BlobProd=BlobProd, BlobCons=BlobCons,
         Producer=Producer, Consumer=Consumer, Leaker=Leaker, Hungry=Hungry,
         Summer=Summer, Reader=Reader, Holder=Holder, Lean=Lean,
         Caster=Caster, ValReader=ValReader, Fwd=Fwd, Keeper=Keeper,
@@ -1127,6 +1218,35 @@ def run_blob_chain(pkg, T, seed, opts_kw, n=None, n_starts=6, vmax=10,
     assert (st["acc"][:n].astype(np.int64) == want).all()
     assert rt.blobs_in_use == 0
     assert rt.counter("n_blob_remote") == 0
+    return rt
+
+
+def run_blob_fifo(pkg, T, seed, okw, n_cons=4, items=30, device="cpu"):
+    """tests/test_fifo.py's run_blob_fifo: two edges per consumer, every
+    stamp in a word and in its blob; checks FIFO, binding and that every
+    blob was freed. Returns the runtime."""
+    rng = np.random.default_rng(seed)
+    n_prod = 2 * n_cons
+    perm = rng.permutation(n_prod)
+    cons_of = np.repeat(np.arange(n_cons), 2)[perm]
+    slot_of = np.tile(np.arange(2), n_cons)[perm]
+    rt = new_runtime(pkg, dict(msg_words=3, blob_slots=max(256, n_prod *
+                                                            items),
+                               blob_words=2, **okw), device)
+    rt.declare(T.BlobProd, n_prod).declare(T.BlobCons, n_cons).start()
+    cids = rt.spawn_many(T.BlobCons, n_cons,
+                         last0=np.full(n_cons, -1, np.int32),
+                         last1=np.full(n_cons, -1, np.int32))
+    pids = rt.spawn_many(T.BlobProd, n_prod, c1=cids[cons_of],
+                         slot1=slot_of.astype(np.int32))
+    rt.bulk_send(pids, T.BlobProd.produce, np.full(n_prod, items, np.int32))
+    assert rt.run(max_steps=500_000) == 0
+    st = rt.cohort_state(T.BlobCons)
+    assert not st["badbind"].any() and not st["bad"].any()
+    for s in range(2):
+        assert (st[f"last{s}"] == items - 1).all()
+    assert (st["got"] == 2 * items).all()
+    assert rt.blobs_in_use == 0
     return rt
 
 

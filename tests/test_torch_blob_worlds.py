@@ -15,7 +15,7 @@ import ponyc_tpu_torch
 from ponyc_tpu_torch.models import records
 
 from _torch_programs import (blob_world, define_blobs, run_blob_chain,
-                             run_blob_pipeline)
+                             run_blob_fifo, run_blob_pipeline)
 
 JB, TB = define_blobs(ponyc_tpu), define_blobs(ponyc_tpu_torch)
 PKGS = ((ponyc_tpu, JB), (ponyc_tpu_torch, TB))
@@ -38,6 +38,43 @@ def test_blob_chain_matches_oracle(seed):
             inject_slots=16), n=16)
         return blob_world(rt, T.BlobWalker)
     assert _both(go)["counters"]["n_blob_alloc"] > 0
+
+
+PLAN = ("plan_key", "plan_perm", "plan_bounds")
+
+
+def _cosort_world(rt, *atypes):
+    out = blob_world(rt, *atypes)
+    out["plan"] = {f: np.asarray(getattr(rt.state, f)).tolist()
+                   for f in PLAN}
+    return out
+
+
+@pytest.mark.parametrize("path", [{}, dict(pallas_fused=True)],
+                         ids=["plain", "fused"])
+@pytest.mark.parametrize("world", ["chain", "fifo"])
+def test_blob_worlds_under_cosort_match_jax(world, path):
+    """tests/test_differential.py's blob chain ("cosort", 1, 0) and
+    tests/test_fifo.py's blob payload binding ("cosort"): every hop's
+    blob and every stamp's binding, fields, counters, ticks, the pool
+    and the carried plan state (cosort's placeholders) equal to the JAX
+    package's cosort run, on the plain tick and under pallas_fused (a
+    blob cohort takes the plain dispatch there)."""
+    def go(pkg, T):
+        kw = path if pkg is ponyc_tpu_torch else {}
+        if world == "chain":
+            rt = run_blob_chain(pkg, T, 77, dict(
+                mailbox_cap=2, batch=1, max_sends=1, spill_cap=1024,
+                inject_slots=16, delivery="cosort", **kw), n=16)
+            return _cosort_world(rt, T.BlobWalker)
+        rt = run_blob_fifo(pkg, T, 11, dict(
+            mailbox_cap=4, batch=2, max_sends=2, spill_cap=2048,
+            inject_slots=16, delivery="cosort", **kw))
+        return _cosort_world(rt, T.BlobProd, T.BlobCons)
+    got = _both(go)
+    assert got["counters"]["n_blob_alloc"] > 0
+    assert got["plan"]["plan_perm"] == list(range(len(
+        got["plan"]["plan_perm"])))
 
 
 def test_records_model_oracle():

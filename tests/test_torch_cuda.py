@@ -533,3 +533,71 @@ def test_telemetry_worlds_card_match_cpu(world, path, tmp_path):
         if device == "cuda":
             assert moved[list(PATHS).index(path)] > 0, moved
     assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["plain", "fused"])
+def test_cosort_walkers_card_matches_cpu(path):
+    """delivery="cosort" on the card (the drain or the fused kernel) on
+    the spill/mute world against the CPU: fields, counters, ticks and the
+    carried plan state (cosort's placeholders) equal."""
+    _need_cuda()
+    kw = dict(mailbox_cap=4, batch=2, msg_words=1, max_sends=2,
+              spill_cap=512, inject_slots=16, delivery="cosort",
+              **PATHS[path])
+    out = []
+    for device in ("cuda", "cpu"):
+        rt = build_walkers(ponyc_tpu_torch, TT, 41, n_seeds=30,
+                           device=device, **kw)
+        rt.run(max_steps=2000)
+        out.append((counters(rt), rt.steps_run,
+                    {k: v.tolist() for k, v in
+                     rt.cohort_state(TT.Walker).items()},
+                    [getattr(rt.state, f).tolist() for f in (
+                        "plan_key", "plan_perm", "plan_bounds")]))
+    assert out[0] == out[1] and out[0][0]["n_rejected"] > 0
+
+
+@pytest.mark.cuda
+def test_tuner_calibrates_then_starts_from_cache(tmp_path):
+    """delivery="auto", pallas_fused="auto" on ubench at 2^14 pingers:
+    the first start races every variant on the card (the window kernel
+    among them), each with a number; the decision is `decide`'s; the
+    state is untouched; a second start on the same layout reads the
+    cache and launches no kernel; the run equals one fixed to the
+    winner."""
+    from ponyc_tpu_torch import tuning
+    from ponyc_tpu_torch.models import ubench
+    _need_cuda()
+    kw = dict(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
+              spill_cap=256, inject_slots=8, tuning_cache=str(tmp_path))
+    auto = RuntimeOptions(delivery="auto", pallas_fused="auto", **kw)
+    rt = ponyc_tpu_torch.Runtime(auto)
+    rt.declare(ubench.Pinger, 1 << 14).start()
+    assert not bool(rt.state.alive.any())
+    assert int(rt.state.tail.abs().sum()) == 0
+    assert int(rt.state.dspill_count.sum()) == 0
+    assert rt.counter("n_processed") == 0
+    assert not any(bool(b.any()) for b in rt.state.buf.values())
+    rec = rt.tuning_record
+    assert rec["source"] == "calibrated"
+    assert rec["variants"] == ["plan", "cosort", "pallas_mega",
+                               "plan+fused", "cosort+fused"]
+    assert all(isinstance(rec["table"][v], float) for v in rec["variants"])
+    assert rec["detail"]["errors"] == {}
+    assert rec["winner"] == tuning.decide(rec["table"],
+                                          order=rec["variants"])
+    before = _launched()
+    rt2, ids2 = ubench.build(1 << 14, auto, pings=4)
+    assert _launched() == before
+    assert rt2.tuning_record["source"] == "cache"
+    assert rt2.opts.delivery == rt.opts.delivery
+    fixed = RuntimeOptions(**{**kw, **rec["chosen"], "tuning_cache": "off"})
+    rt3, ids3 = ubench.build(1 << 14, fixed, pings=4)
+    nums = []
+    for r, i in ((rt2, ids2), (rt3, ids3)):
+        ubench.seed_all(r, i, hops=40, pings=4)
+        code = r.run(max_steps=64)
+        nums.append((code, r.steps_run, counters(r),
+                     r.cohort_state(ubench.Pinger)["pings"].tolist()))
+    assert nums[0] == nums[1]

@@ -57,9 +57,7 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(pallas_fused="auto"), 6),
-    (dict(checkpoint_every_s=1.0), 9), (dict(delivery="cosort"), 6),
-    (dict(delivery="auto"), 6), (dict(mesh_shards=2), 10),
+    (dict(checkpoint_every_s=1.0), 9), (dict(mesh_shards=2), 10),
     (dict(cost_capture=True), 11), (dict(watchdog_s=1.0), 11),
 ])
 def test_unported_options_raise(kw, slice_no):

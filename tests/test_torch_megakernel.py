@@ -194,12 +194,6 @@ def test_nested_kernel_options_take_the_plain_window(kw):
     assert rt.counter("n_processed") == 16 * 31
 
 
-@pytest.mark.parametrize("delivery", ["auto", "cosort"])
-def test_tuner_deliveries_still_raise(delivery):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Runtime(RuntimeOptions(delivery=delivery), device="cpu")
-
-
 def test_body_without_an_emitter_raises_at_start():
     @ponyc_tpu_torch.actor
     class Summer:

@@ -1,13 +1,16 @@
 """Actor priorities under delivery contention in the PyTorch port, held
-against the JAX package: the plan cases of tests/test_priority.py. When a
+against the JAX package: the cases of tests/test_priority.py. When a
 mailbox cannot take everything in a tick, higher-PRIORITY senders win the
 slots and lower-priority traffic spills behind them; senders of one
 priority keep their arrival order. The delivery levels (0 the receiver's
 spill, 1 host injections, 2 and up the sender cohorts by priority) are
 what host sends ride on. Each world runs once in the JAX package and on
-the port's three paths (the `path` fixture of test_torch_host.py); the
-comparison is exact.
+the port's three paths (the `path` fixture of test_torch_host.py), the
+cosort case on the plain and fused paths; the comparison is exact.
 """
+
+import numpy as np
+import pytest
 
 import ponyc_tpu_torch
 
@@ -22,8 +25,8 @@ def _jax(name):
     return _jax_of(name, module=__name__)
 
 
-def _contended(pkg, T, path):
-    rt = _runtime(pkg, path, OPTS)
+def _contended(pkg, T, path, delivery="plan"):
+    rt = _runtime(pkg, path, dict(OPTS, delivery=delivery))
     rt.declare(T.HiSender, 1).declare(T.LoSender, 1).declare(T.Rx, 1)
     rt.start()
     rx = rt.spawn(T.Rx)
@@ -33,7 +36,11 @@ def _contended(pkg, T, path):
     rt.send(lo, T.LoSender.burst, 100)     # enqueued first ...
     rt.send(hi, T.HiSender.burst, 1)       # ... but of higher priority
     rt.run(max_steps=50)
-    return _numbers(rt, [T.Rx, T.HiSender, T.LoSender])
+    out = _numbers(rt, [T.Rx, T.HiSender, T.LoSender])
+    if delivery != "plan":
+        out["plan"] = {f: np.asarray(getattr(rt.state, f)).tolist()
+                       for f in ("plan_key", "plan_perm", "plan_bounds")}
+    return out
 
 
 def test_higher_priority_wins_contended_slots(path):
@@ -66,3 +73,17 @@ def test_equal_priority_keeps_arrival_order(path):
     assert got == _jax("_equal")
     if path == "mega":
         assert sum(k for k, _ in path.seen) == got["steps"]
+
+
+@pytest.mark.parametrize("p", ["plain", "fused"])
+def test_higher_priority_wins_under_cosort(p):
+    """tests/test_priority.py's cosort case: the contended world under
+    delivery="cosort" on the plain tick and the fused kernel's plain
+    version, against the JAX package's cosort run, the carried plan
+    state (cosort's placeholders) included."""
+    got = _contended(ponyc_tpu_torch, TT, p, "cosort")
+    want = _jax_of("_contended", "cosort", module=__name__)
+    assert got == want
+    assert got["fields"]["Rx"]["first4"] == [4]
+    assert got["plan"]["plan_perm"] == list(range(len(
+        got["plan"]["plan_perm"])))

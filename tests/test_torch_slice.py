@@ -2,7 +2,8 @@
 one program definition (tests/_torch_programs.py): message-ubench, the
 token ring, the randomized Walker graph with a tiny mailbox that forces
 spill → mute → unmute, the Mixer program that uses every effect plane,
-and the per-edge FIFO stamps of tests/test_fifo.py. Each case compares
+and the per-edge FIFO stamps of tests/test_fifo.py (also under
+delivery="cosort"). Each case compares
 every cohort field, the runtime counters, the exit code and the ticks
 run. All compared values are integers: the tolerance is exact equality.
 The port runs on the CPU here (`device="cpu"`)."""
@@ -143,6 +144,51 @@ def test_fifo_stamps_match_jax(okw):
     assert (st["got"] == IN_SLOTS * items).all()
 
 
+
+
+@pytest.mark.parametrize("path", [{}, dict(pallas_fused=True)],
+                         ids=["plain", "fused"])
+def test_fifo_stamps_under_cosort_match_jax(path):
+    """tests/test_fifo.py's cosort configuration: per-edge FIFO stamps,
+    fields, counters, ticks and the carried plan state (cosort's
+    placeholders) equal to the JAX package's cosort run."""
+    okw = dict(mailbox_cap=4, batch=2, max_sends=3, spill_cap=2048,
+               inject_slots=16, delivery="cosort")
+    items, n_cons = 40, 6
+    jrt = build_fifo(ponyc_tpu, JT, 5, n_cons=n_cons, items=items, **okw)
+    trt = build_fifo(ponyc_tpu_torch, TT, 5, n_cons=n_cons, items=items,
+                     **okw, **path)
+    jc, tc = jrt.run(max_steps=100_000), trt.run(max_steps=100_000)
+    _same_world(jrt, trt, [(JT.Prod, TT.Prod), (JT.Cons, TT.Cons)], jc,
+                tc)
+    for f in ("plan_key", "plan_perm", "plan_bounds"):
+        np.testing.assert_array_equal(getattr(trt.state, f).numpy(),
+                                      np.asarray(getattr(jrt.state, f)))
+    st = trt.cohort_state(TT.Cons)
+    assert not st["bad"].any(), "FIFO violation"
+    for s in range(IN_SLOTS):
+        assert (st[f"last{s}"] == items - 1).all()
+    assert (st["got"] == IN_SLOTS * items).all()
+
+
+def test_fifo_stamps_under_auto_match_jax():
+    """Every "auto" field (delivery, pallas, pallas_fused) resolved by the
+    tuner at start(): per-edge FIFO stamps, fields, counters and ticks
+    equal the JAX package's plan run (whichever formulation won)."""
+    okw = dict(mailbox_cap=4, batch=2, max_sends=3, spill_cap=2048,
+               inject_slots=16, tuning_ticks=2, tuning_repeats=1)
+    items, n_cons = 40, 6
+    jrt = build_fifo(ponyc_tpu, JT, 5, n_cons=n_cons, items=items, **okw)
+    trt = build_fifo(ponyc_tpu_torch, TT, 5, n_cons=n_cons, items=items,
+                     delivery="auto", pallas="auto", pallas_fused="auto",
+                     **okw)
+    assert trt.tuning_record["source"] == "calibrated"
+    assert set(trt.tuning_record["variants"]) == {
+        "plan", "cosort", "plan+fused", "cosort+fused"}
+    jc, tc = jrt.run(max_steps=100_000), trt.run(max_steps=100_000)
+    _same_world(jrt, trt, [(JT.Prod, TT.Prod), (JT.Cons, TT.Cons)], jc,
+                tc)
+    assert not trt.cohort_state(TT.Cons)["bad"].any()
 
 
 def test_quiesce_window_cache_round_trip(tmp_path):

@@ -1,5 +1,6 @@
 """Causal tracing in the PyTorch port against the JAX package: the cases
-of tests/test_tracing.py on the plan delivery. The same program and seeds
+of tests/test_tracing.py on the plan delivery, and its chain under
+cosort. The same program and seeds
 run in both packages (the port on the CPU: its plain path, and the fused
 kernel's plain version where named), and the recorded spans (trace id,
 span id, parent, behaviour, actor, enqueue, dispatch and retire ticks),
@@ -126,6 +127,22 @@ def test_spans_equal_jax(jax_runs, torch_runs, kind, path):
     JAX package's; the fused path's outbox carries the trace words in
     the same rows-minor [batch, ms, rows] order as the plain path's."""
     assert torch_runs[(kind, path)] == jax_runs[kind]
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_chain_under_cosort_equals_jax(path, tmp_path):
+    """tests/test_tracing.py's three-deep chain under delivery="cosort":
+    the trace words travel with the payload through the sorted order;
+    spans, trees, ticks, counters and fields equal the JAX package's
+    cosort run, and its tree is the plan run's."""
+    got = _world("chain", ponyc_tpu_torch, TT, str(tmp_path / "t.csv"),
+                 delivery="cosort", **PATHS[path])
+    want = _world("chain", ponyc_tpu, JT, str(tmp_path / "j.csv"),
+                  delivery="cosort")
+    assert got == want
+    tree = next(iter(ttracing.reassemble(got[0]["spans"]).values()))
+    assert tree["critical_path"] == ["inject", "Src.go", "Mid.relay",
+                                     "Sink.take"]
 
 
 def _trees(torch_runs, kind):
