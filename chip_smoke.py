@@ -641,6 +641,12 @@ def fused_cases():
                   RuntimeOptions(**gups_kw(True)), 1024))
     cases.append(("fanin", [fanin.Producer, fanin.Aggregator],
                   RuntimeOptions(**fanin_kw(True, *FANIN_SMALL)), 256))
+    # The ops phase's live world at analysis 1 and its backpressure world.
+    cases.append(("ops ubench analysis=1", [ubench.Pinger],
+                  ubench_opts(True, **ops_kw(True)), 1 << 20))
+    O = tp.define_ops(ponyc_tpu_torch)
+    cases.append(("ops backpressure", [O.Producer, O.Sink],
+                  ops_bp_build_opts(True), 1))
     worlds = [("walkers", ("Walker", "Splitter"), WALKERS_KW),
               ("mixers", ("Mixer",), MIXERS_KW)]
     worlds += [(n, names, kw) for n, (names, kw) in tp.CORPUS_WORLDS.items()]
@@ -842,6 +848,11 @@ def mega_windows():
     for n, items in (FANIN_BIG, FANIN_SMALL):
         out[f"fanin {n}"] = window(fanin.Producer, n, RuntimeOptions(
             **fanin_kw("mega", n, items)), [(fanin.Aggregator, 1)])
+    out["ops ubench analysis=1"] = window(
+        ubench.Pinger, OPS_LIVE[0], ubench_opts("mega", **ops_kw("mega")))
+    O = tp.define_ops(ponyc_tpu_torch)
+    out["ops backpressure"] = window(O.Producer, 1, ops_bp_build_opts("mega"),
+                                     [(O.Sink, 1)])
     return out
 
 
@@ -3456,6 +3467,393 @@ def run_fanin(rec, frec, mrec):
     return out
 
 
+OPS_DIR = os.path.join(ROOT, "_chipwork", "smoke_ops")      # git-ignored
+OPS_LIVE = (1 << 20, 4, 16, 448)  # pingers, pings, window, ticks: the live
+#   world's run; 2^20 x 4 x 448 messages stay under 2^31, so the device's
+#   int32 counters do not wrap
+OPS_CUT = 32                      # ticks of the plain and fused live runs
+OPS_WEDGE_S = 15.0                # the wedged window's sleep on the card
+OPS_DEADLINE_S = 1.0              # the watchdog's deadline for (c), (d)
+
+
+def ops_kw(mode, **kw):
+    """The live world's options on a path (analysis 1, the watchdog at
+    5 s, the exporter on an ephemeral port), `kw` on top."""
+    return dict(analysis=1, watchdog_s=5.0, metrics_port=0,
+                analysis_path=os.path.join(OPS_DIR, f"live-{_mode_name(mode)}"
+                                           ".csv"), **kw)
+
+
+def ops_bp_kw(mode):
+    return dict(mailbox_cap=8, batch=2, msg_words=1, max_sends=2,
+                spill_cap=128, inject_slots=8, quiesce_interval=1,
+                **_mode_kw(mode))
+
+
+def ops_bp_build_opts(mode):
+    from ponyc_tpu_torch import RuntimeOptions
+    return RuntimeOptions(tuning_cache="off", **ops_bp_kw(mode))
+
+
+def ops_bp_build(mode, device="cuda"):
+    """tests/test_stdlib_extra.py's backpressure world (define_ops'
+    Producer and Sink), started, the producer's 64 items queued."""
+    import ponyc_tpu_torch
+    tp, _T = programs()
+    O = tp.define_ops(ponyc_tpu_torch)
+    rt = tp.new_runtime(ponyc_tpu_torch, ops_bp_kw(mode), device)
+    rt.declare(O.Producer, 1).declare(O.Sink, 1).start()
+    sink = rt.spawn(O.Sink)
+    prod = rt.spawn(O.Producer, sink=sink)
+    rt.send(prod, O.Producer.produce, 64)
+    return rt, O, prod, sink
+
+
+def _scrape(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=5.0) as r:
+        return r.read().decode()
+
+
+def ops_live(mode, ticks):
+    """(a) on one path: ubench 2^20 x 4 at analysis 1 with the watchdog
+    and the exporter on, scraped by a thread while run() is live. Returns
+    (launches, seconds a tick, the recorder's and the refresh's host µs,
+    the number of live scrapes)."""
+    import threading
+    import torch
+    from ponyc_tpu_torch import metrics
+    from ponyc_tpu_torch.models import ubench
+    from ponyc_tpu_torch.runtime import engine
+    n, pings, window, _ = OPS_LIVE
+    rt, ids = ubench.build(n, ubench_opts(mode, window, **ops_kw(mode)),
+                           pings=pings)
+    ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
+    rt.run(max_steps=2 * window)                     # warm
+    port = rt._metrics.port
+    fr = rt._flight
+    w0, p0, s0 = rt._rl_windows, rt.counter("n_processed"), rt.steps_run
+    last = fr.windows[-1]["processed"]
+    windows = count_windows(rt)
+    got, done = [], threading.Event()
+
+    def scraper():
+        while not done.is_set():
+            try:
+                hz = json.loads(_scrape(port, "/healthz"))
+                mx = metrics.parse_prometheus(_scrape(port, "/metrics"))
+            except OSError:
+                continue
+            got.append((hz["status"], hz["phase"],
+                        mx.get(("pony_tpu_processed_total", ()), 0)))
+            time.sleep(0.002)
+
+    th = threading.Thread(target=scraper, daemon=True)
+    th.start()
+    time.sleep(0.05)
+    torch.cuda.synchronize()
+    reset_launches()                    # the main path's run starts here
+    t0 = time.perf_counter()
+    rt.run(max_steps=ticks)
+    elapsed = time.perf_counter() - t0
+    launched = launches()               # ... and ends here
+    done.set()
+    th.join(timeout=10)
+    if th.is_alive():
+        raise AssertionError("ops: the scraper did not stop")
+    prof = rt.profile()
+    final = metrics.parse_prometheus(_scrape(port, "/metrics"))
+    hz = json.loads(_scrape(port, "/healthz"))
+    done_n = rt.counter("n_processed") - p0
+    wins = rt._rl_windows - w0
+    if done_n != n * pings * ticks or rt.steps_run - s0 != ticks:
+        raise AssertionError(f"ops {_mode_name(mode)}: processed {done_n} "
+                             f"in {rt.steps_run - s0} ticks, expected "
+                             f"{n * pings * ticks} in {ticks}")
+    for key in ("processed", "delivered", "rejected", "mutes"):
+        if final[(f"pony_tpu_{key}_total", ())] != prof["totals"][key]:
+            raise AssertionError(f"ops {_mode_name(mode)}: scraped {key} "
+                                 f"{final[(f'pony_tpu_{key}_total', ())]}"
+                                 f" != profile()'s {prof['totals'][key]}")
+    if final[("pony_tpu_behaviour_runs_total",
+              (("behaviour", "Pinger.ping"),))] \
+            != prof["behaviours"]["Pinger.ping"]["runs"]:
+        raise AssertionError("ops: scraped behaviour runs != profile()'s")
+    if final[("pony_tpu_windows_total", ())] != rt._rl_windows:
+        raise AssertionError("ops: scraped windows != run_loop_stats'")
+    if hz["status"] != "ok":
+        raise AssertionError(f"ops: /healthz says {hz}")
+    live = [g for g in got if g[1] != "idle"]
+    if not live or any(s != "ok" for s, _, _ in got) or \
+            [v for _, _, v in got] != sorted(v for _, _, v in got):
+        raise AssertionError(f"ops {_mode_name(mode)}: scrapes during the "
+                             f"run: {len(live)} live of {len(got)}, "
+                             f"statuses {set(s for s, _, _ in got)}")
+    recs = list(fr.windows)
+    if len(recs) != min(rt._rl_windows, fr.windows.maxlen):
+        raise AssertionError(f"ops: the recorder holds {len(recs)} windows "
+                             f"of {rt._rl_windows}")
+    mine = recs[-wins:] if wins <= len(recs) else None
+    if mine is not None:
+        deltas = sum((b["processed"] - a) & 0xFFFFFFFF for a, b in zip(
+            [last] + [w["processed"] for w in mine[:-1]], mine))
+        if deltas != done_n:
+            raise AssertionError(f"ops: the recorder's processed deltas "
+                                 f"add to {deltas}, the run to {done_n}")
+    want = expected_launches(mode, ticks, windows[0])
+    if mode == "mega" and launched != want or \
+            mode != "mega" and (launched[2] or not max(launched)):
+        raise AssertionError(f"ops {_mode_name(mode)}: launches (drain, "
+                             f"fused, window) {launched}, {windows[0]} "
+                             f"windows (expected {want})")
+    # The host cost of the recorder's record and of a metrics refresh.
+    a = engine.StepAux(*([0] * len(engine.StepAux._fields)))
+    reps = 20000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fr.window(rt.steps_run, window, window, 0.0, True, a)
+    rec_us = 1e6 * (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    for _ in range(20):
+        rt._metrics.update_now(rt)
+    ref_us = 1e6 * (time.perf_counter() - t0) / 20
+    print(f"ops live ubench 2^20x4 {_mode_name(mode)} analysis=1 "
+          f"watchdog 5 s + /metrics: {ticks} ticks in {wins} windows, "
+          f"{1e3 * elapsed / ticks:.3f} ms/tick; processed {done_n} = "
+          f"N*pings*ticks; scraped == profile(); {len(live)} of {len(got)} "
+          f"scrapes while run() was live; recorder {len(recs)} windows, "
+          f"deltas add up; /healthz ok; launches (drain, fused, window) "
+          f"{launched}; host us: recorder window() {rec_us:.2f}, metrics "
+          f"refresh {ref_us:.1f} (at most one a {metrics.REFRESH_S} s) "
+          f"[{_CACHE['card']}]", flush=True)
+    rt.stop()
+    del rt
+    torch.cuda.empty_cache()
+    return max(launched), elapsed / ticks, rec_us, ref_us, len(live)
+
+
+def sleep_cycles(seconds):
+    """torch.cuda._sleep's argument for about `seconds` on this card, from
+    its rate measured here."""
+    import torch
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)
+    t0.record()
+    torch.cuda._sleep(100_000_000)
+    t1.record()
+    torch.cuda.synchronize()
+    rate = 100_000_000 / (t0.elapsed_time(t1) / 1e3)
+    return int(rate * seconds), rate
+
+
+def stall_seconds(rt, raised_at):
+    """Seconds from the watchdog's trip (its event in the recorder) to the
+    PonyStallError reaching the caller."""
+    fr = rt._flight
+    trip = [e for e in fr.events if e["kind"] == "watchdog_trip"][-1]
+    return raised_at - (fr.t0 + trip["t_ms"] / 1e3)
+
+
+def doctor_says(path):
+    """(exit code, first line) of `python -m ponyc_tpu_torch doctor
+    --postmortem path`, run in this process."""
+    import contextlib
+    import io
+    from ponyc_tpu_torch.__main__ import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli(["doctor", "--postmortem", path])
+    return code, buf.getvalue().splitlines()[0]
+
+
+@phase("ops")
+def run_ops(rec, frec, mrec):
+    """The flight recorder, the watchdog, /metrics and the host API on the
+    card: (a) the live world on the three paths, (b) backpressure on the
+    three paths, (c) a window wedged behind a sleeping kernel, (d) a host
+    behaviour that sleeps, (e) SIGQUIT from host behaviours."""
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    import ponyc_tpu_torch
+    from ponyc_tpu_torch.errors import PonyStallError
+    from ponyc_tpu_torch.models import ubench
+    card = _CACHE["card"]
+    recs = {False: rec, True: frec, "mega": mrec}
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    os.makedirs(OPS_DIR)
+    out = {}
+    # (a) the live world: the window kernel at full length, the plain and
+    # fused ticks at a cut.
+    for mode, ticks in (("mega", OPS_LIVE[3]), (False, OPS_CUT),
+                        (True, OPS_CUT)):
+        got = ops_live(mode, ticks)
+        recs[mode]["launches_ops"] = got[0]
+        out[f"live {_mode_name(mode)}"] = {
+            "s_per_tick": got[1], "recorder_us": got[2],
+            "refresh_us": got[3], "live_scrapes": got[4]}
+    # (b) backpressure mutes the sender and release recovers, each path.
+    for mode in (False, True, "mega"):
+        rt, O, prod, sink = ops_bp_build(mode)
+        seen = []
+        reset_launches()
+        for action, steps in ((None, 4), ("apply", 3), ("release", 3)):
+            if action == "apply":
+                rt.apply_backpressure([sink])
+            elif action == "release":
+                rt.release_backpressure([sink])
+            rt.run(max_steps=steps)
+            seen.append((bool(rt.state.muted[prod]),
+                         rt.queue_depth(sink) <= rt.opts.overload_occ))
+        code = rt.run()
+        launched = launches()
+        total = rt.state_of(sink)["total"]
+        cpu, _O, cprod, csink = ops_bp_build(mode, "cpu")
+        cseen = []
+        for action, steps in ((None, 4), ("apply", 3), ("release", 3)):
+            if action == "apply":
+                cpu.apply_backpressure([csink])
+            elif action == "release":
+                cpu.release_backpressure([csink])
+            cpu.run(max_steps=steps)
+            cseen.append((bool(cpu.state.muted[cprod]),
+                          cpu.queue_depth(csink) <= cpu.opts.overload_occ))
+        cpu.run()
+        if seen != [(False, True), (True, True), (False, True)] or \
+                code != 0 or total != 64 or seen != cseen or \
+                rt.steps_run != cpu.steps_run or not max(launched):
+            raise AssertionError(f"ops backpressure {_mode_name(mode)}: "
+                                 f"muted/under-threshold {seen} (CPU "
+                                 f"{cseen}), total {total}, code {code}, "
+                                 f"ticks {rt.steps_run} (CPU "
+                                 f"{cpu.steps_run}), launches {launched}")
+        print(f"ops backpressure {_mode_name(mode)}: the sender mutes under "
+              f"pressure with the sink's mailbox under the threshold and "
+              f"releases after release_backpressure; total 64 in "
+              f"{rt.steps_run} ticks, as on the CPU; launches (drain, "
+              f"fused, window) {launched}", flush=True)
+        rt.stop()
+        cpu.stop()
+    # (c) a window wedged behind a kernel that sleeps about OPS_WEDGE_S.
+    n, pings, window, _ = OPS_LIVE
+    cycles, rate = sleep_cycles(OPS_WEDGE_S)
+    wedge_kw = {**ops_kw("mega"), "watchdog_s": OPS_DEADLINE_S,
+                "metrics_port": None,
+                "analysis_path": os.path.join(OPS_DIR, "wedge.csv")}
+    rt, ids = ubench.build(n, ubench_opts("mega", window, **wedge_kw),
+                           pings=pings)
+    ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
+    rt.run(max_steps=2 * window)                     # warm
+    torch.cuda.synchronize()
+    t_sleep = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    try:
+        rt.run(max_steps=window)
+        raise AssertionError("ops: the wedged window did not raise")
+    except PonyStallError as e:
+        raised = time.time()
+        t_raise = time.perf_counter() - t_sleep
+        stall = (e.code, e.phase, e.postmortem)
+    trip_to_raise = stall_seconds(rt, raised)
+    code, line = doctor_says(stall[2])
+    if stall[:2] != (7, "in-flight") or not os.path.exists(stall[2]) or \
+            code != 1 or not line.startswith("STALLED") or \
+            t_raise > OPS_WEDGE_S / 2:
+        raise AssertionError(f"ops wedge: {stall}, raised after {t_raise:.2f}"
+                             f" s of a {OPS_WEDGE_S} s sleep; doctor {code}: "
+                             f"{line}")
+    torch.cuda.synchronize()                         # wait out the sleep
+    t_left = time.perf_counter() - t_sleep
+    rt.stop()
+    del rt
+    torch.cuda.empty_cache()
+    print(f"ops wedge: a {OPS_WEDGE_S} s sleep ({cycles} cycles at "
+          f"{rate / 1e9:.3f} GHz) ahead of a window-kernel window, watchdog "
+          f"{OPS_DEADLINE_S} s: PonyStallError code 7 in phase in-flight "
+          f"{t_raise:.2f} s after the sleep was queued, {trip_to_raise:.3f} s"
+          f" after the trip; postmortem on disk, doctor: {line[:60]}...; "
+          f"the card was free again after {t_left:.1f} s [{card}]",
+          flush=True)
+    out["wedge"] = {"raise_s": t_raise, "trip_to_raise_s": trip_to_raise}
+    # (d) a host behaviour that sleeps (tests/test_flight.py's world).
+    @ponyc_tpu_torch.actor
+    class Wedge:
+        n: ponyc_tpu_torch.I32
+        HOST = True
+
+        @ponyc_tpu_torch.behaviour
+        def jam(self, st, v: ponyc_tpu_torch.I32):
+            time.sleep(600)            # the deliberate stall
+            return st
+
+    rt = ponyc_tpu_torch.Runtime(ponyc_tpu_torch.RuntimeOptions(
+        mailbox_cap=8, batch=1, max_sends=1, msg_words=1, tuning_cache="off",
+        watchdog_s=OPS_DEADLINE_S,
+        analysis_path=os.path.join(OPS_DIR, "host.csv")))
+    rt.declare(Wedge, 2).start()
+    rt.send(rt.spawn(Wedge), Wedge.jam, 1)
+    t0 = time.perf_counter()
+    try:
+        rt.run()
+        raise AssertionError("ops: the sleeping host behaviour did not "
+                             "raise")
+    except PonyStallError as e:
+        raised = time.time()
+        t_raise = time.perf_counter() - t0
+        stall = (e.code, e.phase, e.postmortem)
+    trip_to_raise = stall_seconds(rt, raised)
+    code, line = doctor_says(stall[2])
+    if stall[:2] != (7, "host-work") or code != 1 or \
+            "host behaviour" not in line or t_raise > 30:
+        raise AssertionError(f"ops host stall: {stall} after {t_raise:.2f} "
+                             f"s; doctor {code}: {line}")
+    rt.stop()
+    print(f"ops host stall: PonyStallError code 7 in phase host-work "
+          f"{t_raise:.2f} s into the run, {trip_to_raise:.3f} s after the "
+          f"trip; doctor: {line[:60]}... [{card}]", flush=True)
+    out["host stall"] = {"raise_s": t_raise,
+                         "trip_to_raise_s": trip_to_raise}
+    # (e) SIGQUIT from host behaviours under the window kernel: the run
+    # dumps and ends as an undisturbed one does.
+    plan = hostlog_plan(*HOST_CUT)
+    runs = []
+    for quit_ in (False, True):
+        rt, log = hostlog_build("mega", plan, analysis_path=os.path.join(
+            OPS_DIR, f"sigquit-{quit_}.csv"))
+        if quit_:
+            real = rt._dispatch_host_msg
+            sent = [0]
+
+            def quitting(*a, **k):
+                if sent[0] < 3:
+                    sent[0] += 1
+                    os.kill(os.getpid(), signal.SIGQUIT)
+                return real(*a, **k)
+            rt._dispatch_host_msg = quitting
+        reset_launches()
+        code = rt.run()
+        launched = launches()
+        runs.append((host_numbers(rt, log),
+                     {k: v.tolist() for k, v in
+                      rt.cohort_state(programs()[1].WalkerH).items()},
+                     rt._flight.dumps, launched))
+        rt.stop()
+    (num0, f0, d0, l0), (num1, f1, d1, l1) = runs
+    if num0 != num1 or f0 != f1 or d0 != 0 or d1 != 3 or not l1[2]:
+        raise AssertionError(f"ops SIGQUIT: dumps {d0}/{d1}, launches "
+                             f"{l0}/{l1}, numbers equal {num0 == num1}, "
+                             f"fields equal {f0 == f1}")
+    print(f"ops SIGQUIT: 3 dumps from host behaviours under the window "
+          f"kernel; fields, counters and ticks ({num1['steps']}) equal "
+          f"the undisturbed run's; launches (drain, fused, window) {l1}",
+          flush=True)
+    shutil.rmtree(OPS_DIR, ignore_errors=True)
+    return out
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -3556,6 +3954,8 @@ def main():
             summary["gups"] = run_gups(rec, frec, mrec)
         if want("fanin"):
             summary["fanin"] = run_fanin(rec, frec, mrec)
+        if want("ops"):
+            summary["ops"] = run_ops(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -3573,6 +3973,7 @@ def main():
              "launches_telemetry", "launches_telemetry_spawn",
              "launches_telemetry_host", "launches_cosort", "launches_tune",
              "launches_tune_calibration", "launches_gups", "launches_fanin",
+             "launches_ops",
              "spawn_tree", "mixed_onehot", "mixed_before_ms",
              "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",

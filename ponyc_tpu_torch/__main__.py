@@ -1,0 +1,276 @@
+"""Command line of the port — ``python -m ponyc_tpu_torch <command>``
+(the counterpart of ``ponyc_tpu/__main__.py``: same verbs, arguments and
+exit codes for the verbs the port serves).
+
+Commands:
+  trace <csv> [-o F]          analysis CSVs → Chrome-trace/Perfetto
+        [--spans F.jsonl]     JSON (counter tracks + causal-trace span
+  trace --tree <spans.jsonl>  slices with sender→receiver flow arrows);
+                              --tree prints reassembled causal trees
+                              with per-trace critical-path latency.
+                              Exit: 0 written, 2 usage or unreadable.
+  top [<analytics.csv>]       live terminal view of a running runtime's
+      [--interval S] [--once]  window stream (the level-2 CSV at
+                              RuntimeOptions.analysis_path): window
+                              throughput, queue pressure, GC stats,
+                              the per-behaviour run table and
+                              per-cohort queue-wait percentiles,
+                              refreshed every --interval seconds
+                              (--once renders a single frame).
+  doctor --postmortem FILE    render a flight-recorder postmortem
+  doctor <host:port|url>      (crash/SIGQUIT/watchdog dump) or a live
+                              /metrics+/healthz endpoint
+                              (RuntimeOptions.metrics_port) into a
+                              one-line verdict + diagnosis. Exit:
+                              0 ok/snapshot, 1 stalled/crashed/
+                              degraded, 2 usage or unreadable.
+  version                     print the version, the torch build and
+                              the card.
+
+The JAX package's other verbs (run, bench, test, doc, verify, lint,
+supervise, snapshot, restore, serve, perf) print which part of the port
+brings them and exit 2.
+"""
+
+from __future__ import annotations
+
+import sys
+
+
+def _usage(code: int = 2) -> int:
+    print(__doc__, file=sys.stderr)
+    return code
+
+
+def cmd_trace(argv) -> int:
+    """Convert analysis CSVs to a Chrome-trace/Perfetto JSON:
+
+        ponyc_tpu_torch trace <analytics.csv> [-o out.trace.json]
+                              [--spans <spans.jsonl>]
+        ponyc_tpu_torch trace --tree <spans.jsonl>
+
+    The first form merges the window/counter tracks with the causal-
+    trace span slices and sender→receiver flow arrows (`--spans`
+    overrides the `<csv>.spans.jsonl` default). The second prints the
+    reassembled causal trees — one indented tree per sampled trace with
+    its critical-path latency in device ticks."""
+    if "--tree" in argv:
+        argv = [a for a in argv if a != "--tree"]
+        if not argv:
+            print("ponyc_tpu_torch trace: --tree needs a <spans.jsonl> "
+                  "path", file=sys.stderr)
+            return 2
+        from .tracing import format_trace, load_spans, reassemble
+        try:
+            trees = reassemble(load_spans(argv[0]))
+        except OSError as e:
+            print(f"ponyc_tpu_torch trace: {e}", file=sys.stderr)
+            return 2
+        if not trees:
+            print("(no spans recorded — is tracing on? "
+                  "RuntimeOptions(analysis=3, trace_sample=N))")
+            return 0
+        for tid in sorted(trees):
+            print(format_trace(tid, trees[tid]))
+        return 0
+    out = "trace.json"
+    spans = None
+    if "--spans" in argv:
+        i = argv.index("--spans")
+        if i + 1 >= len(argv):
+            print("ponyc_tpu_torch trace: --spans needs a path",
+                  file=sys.stderr)
+            return 2
+        spans = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if "-o" in argv:
+        i = argv.index("-o")
+        if i + 1 >= len(argv):
+            print("ponyc_tpu_torch trace: -o needs a path",
+                  file=sys.stderr)
+            return 2
+        out = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if not argv:
+        print("ponyc_tpu_torch trace: missing <analytics.csv> "
+              "(RuntimeOptions.analysis_path)", file=sys.stderr)
+        return 2
+    from .analysis import chrome_trace
+    try:
+        print(chrome_trace(argv[0], out, spans_path=spans))
+    except OSError as e:
+        print(f"ponyc_tpu_torch trace: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_top(argv) -> int:
+    """Live profiler view: tails the level-2 window CSV a running
+    runtime's writer thread appends to and reprints one frame per
+    interval — throughput, queue pressure, GC, per-behaviour runs,
+    per-cohort queue-wait percentiles (analysis.top_frame).
+
+    ponyc_tpu_torch top [<analytics.csv>] [--interval S] [--once]"""
+    import time as _time
+    interval, once = 1.0, False
+    path = None
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--interval":
+            if i + 1 >= len(argv):
+                print("ponyc_tpu_torch top: --interval needs seconds",
+                      file=sys.stderr)
+                return 2
+            try:
+                interval = float(argv[i + 1])
+            except ValueError:
+                print(f"ponyc_tpu_torch top: bad interval "
+                      f"{argv[i + 1]!r}", file=sys.stderr)
+                return 2
+            i += 2
+            continue
+        if a == "--once":
+            once = True
+            i += 1
+            continue
+        if path is not None:
+            print("ponyc_tpu_torch top: one CSV path only",
+                  file=sys.stderr)
+            return 2
+        path = a
+        i += 1
+    if path is None:
+        from .config import RuntimeOptions
+        path = RuntimeOptions().analysis_path
+    from .analysis import top_frame
+    try:
+        while True:
+            try:
+                frame = top_frame(path)
+            except FileNotFoundError:
+                frame = (f"ponyc_tpu top — {path}\n(waiting for a "
+                         "runtime with analysis>=2 to write windows)")
+            if once:
+                print(frame)
+                return 0
+            # Clear + home, then the frame: a plain-ANSI live view.
+            print("\x1b[2J\x1b[H" + frame, flush=True)
+            _time.sleep(max(0.05, interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_doctor(argv) -> int:
+    """Operational diagnosis: read stall/crash evidence and lead with a
+    one-line verdict.
+
+        ponyc_tpu_torch doctor --postmortem <file.postmortem.json>
+        ponyc_tpu_torch doctor <host:port | http://host:port>
+
+    The first form renders a flight-recorder postmortem (also a JSON
+    file whose `postmortem` key holds one); the second GETs /healthz and
+    /metrics from a live runtime (RuntimeOptions.metrics_port). Exit
+    codes: 0 the world looks healthy (ok / plain snapshot), 1 stalled/
+    crashed/degraded, 2 usage error or unreadable target."""
+    from .flight import diagnose_postmortem, load_postmortem
+    if "--postmortem" in argv:
+        i = argv.index("--postmortem")
+        if i + 1 >= len(argv):
+            print("ponyc_tpu_torch doctor: --postmortem needs a file",
+                  file=sys.stderr)
+            return 2
+        path = argv[i + 1]
+        try:
+            pm = load_postmortem(path)
+        except (OSError, ValueError) as e:
+            # A wrapper JSON carries the postmortem nested under
+            # "postmortem": accept it directly.
+            import json
+            try:
+                with open(path) as f:
+                    obj = json.load(f)
+                pm = obj["postmortem"]
+                if not isinstance(pm, dict) or "reason" not in pm:
+                    raise KeyError("postmortem")
+            except (OSError, ValueError, KeyError, TypeError):
+                print(f"ponyc_tpu_torch doctor: {e}", file=sys.stderr)
+                return 2
+        line, detail = diagnose_postmortem(pm)
+        print(line)
+        print(detail)
+        return 0 if line.startswith(("OK", "SNAPSHOT")) else 1
+    if not argv or argv[0].startswith("-"):
+        print("ponyc_tpu_torch doctor: need --postmortem FILE or a live "
+              "host:port / URL (RuntimeOptions.metrics_port)",
+              file=sys.stderr)
+        return 2
+    from .metrics import diagnose_endpoint
+    try:
+        status, line, detail = diagnose_endpoint(argv[0])
+    except (OSError, ValueError) as e:
+        print(f"ponyc_tpu_torch doctor: endpoint {argv[0]} unreachable: "
+              f"{e}", file=sys.stderr)
+        return 2
+    print(line)
+    print(detail)
+    return 0 if status == "ok" else 1
+
+
+def cmd_version(_argv) -> int:
+    import torch
+
+    from . import __version__
+    print(f"ponyc_tpu_torch {__version__}")
+    print(f"torch {torch.__version__} (CUDA build {torch.version.cuda})")
+    if torch.cuda.is_available():
+        n = torch.cuda.device_count()
+        print(f"backend: cuda — {torch.cuda.get_device_name(0)}"
+              + (f" (+{n - 1} more)" if n > 1 else ""))
+    else:
+        print("backend: cpu (no CUDA device; Runtime(opts, "
+              "device='cpu') runs here)")
+    return 0
+
+
+COMMANDS = {"trace": cmd_trace, "top": cmd_top, "doctor": cmd_doctor,
+            "version": cmd_version}
+
+# The JAX package's other verbs, and what part of the port brings each
+# (ROADMAP.md, "Port slices" and Queue 1).
+NOT_SERVED = {
+    "run": "the port's bench (ROADMAP Queue 1 item 1)",
+    "bench": "the port's bench (ROADMAP Queue 1 item 1)",
+    "test": "the port's bench (ROADMAP Queue 1 item 1)",
+    "perf": "the port's bench and cost capture (port slice 11, "
+            "ROADMAP Queue 1 items 1 and 5)",
+    "doc": "the static checks (ROADMAP Queue 1 item 8)",
+    "verify": "the static checks (ROADMAP Queue 1 item 8)",
+    "lint": "the static checks (ROADMAP Queue 1 item 8)",
+    "supervise": "durability (port slice 9)",
+    "snapshot": "durability (port slice 9)",
+    "restore": "durability (port slice 9)",
+    "serve": "the host services (ROADMAP Queue 1 item 7)",
+}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        return _usage(0 if argv else 2)
+    cmd = COMMANDS.get(argv[0])
+    if cmd is None:
+        if argv[0] in NOT_SERVED:
+            print(f"ponyc_tpu_torch: {argv[0]!r} is not served by the "
+                  f"PyTorch port yet; {NOT_SERVED[argv[0]]} brings it",
+                  file=sys.stderr)
+        else:
+            print(f"ponyc_tpu_torch: unknown command {argv[0]!r} "
+                  f"(expected one of {', '.join(COMMANDS)})",
+                  file=sys.stderr)
+        return 2
+    return cmd(argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

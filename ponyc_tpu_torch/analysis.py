@@ -356,6 +356,18 @@ class Analysis:
                      f"fast_queue={len(rt._host_fast_q)}")
         rss_kb, cpu_ms = _host_usage()
         lines.append(f"host_rss_kb={rss_kb} host_cpu_ms={cpu_ms}")
+        # Adaptive run loop: live window length, controller state and
+        # cumulative host-gap exposure.
+        rl = rt.run_loop_stats()
+        if rl["controller"] is not None:
+            c = rl["controller"]
+            lines.append(
+                f"run_loop window={c['window']} ctrl={c['state']} "
+                f"[{c['lo']},{c['hi']}] grows={c['grows']} "
+                f"shrinks={c['shrinks']} windows={rl['windows']} "
+                f"pipelined={rl['pipelined_dispatches']}"
+                f"/{rl['pipelined_dispatches'] + rl['sync_dispatches']} "
+                f"host_gap_ms={rl['host_gap_us_total'] / 1e3:.2f}")
         if self.level >= 3 and rt.state is not None:
             lines.append(
                 f"events_pending={int(_host(rt.state.ev_count).sum())} "

@@ -220,10 +220,10 @@ class RuntimeOptions:
     #   actor.c:57-92; costly — test/debug only)
 
     # --- operational observability (flight recorder / stall watchdog /
-    # metrics export — PROFILE.md §11; ≙ the fork's always-on
-    # runtime-analysis posture). All three are HOST-side: none feeds the
-    # traced step, so with metrics_port=None and analysis=0 the step
-    # jaxpr is bit-identical to a build without them (tests assert). ---
+    # metrics export, flight.py and metrics.py; ≙ the fork's always-on
+    # runtime-analysis posture). All three are HOST-side: none feeds a
+    # window, so the kernels and the plain tick are built the same with
+    # them as without. ---
     flight_windows: int = 64       # flight-recorder ring: how many
     #   retired-window records (control scalars the run loop already
     #   fetched, controller decisions, GC stats, recent host mail) the
@@ -498,8 +498,8 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "observability": ("the flight recorder, watchdog, metrics, cost "
-                      "capture and pin", 11),
+    "observability": ("measured cost capture (cost_capture, "
+                      "measured_costs)", 11),
     "durability": ("durable checkpoints (checkpoint_every_s)", 9),
     "mesh": ("mesh sharding (mesh_shards > 1)", 10),
 }
@@ -524,8 +524,7 @@ def check_supported(opts: RuntimeOptions) -> None:
     Runtime.start() (tuning.py)."""
     if opts.mesh_shards > 1:
         raise unported("mesh")
-    if (opts.watchdog_s is not None or opts.metrics_port is not None
-            or opts.cost_capture):
+    if opts.cost_capture:
         raise unported("observability")
     if opts.checkpoint_every_s is not None:
         raise unported("durability")

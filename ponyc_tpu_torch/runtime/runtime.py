@@ -33,12 +33,22 @@ that window's aux, so it cancels itself when the host must act.
 `Runtime(opts, device=None)` runs on the card ("cuda") unless the
 caller asks for the CPU; with no CUDA device and no explicit
 ``device="cpu"`` it raises rather than running somewhere else.
+
+Operations (flight.py, metrics.py): every runtime keeps an always-on
+flight recorder of its retired windows, GC passes and host mail, dumped
+as a postmortem on a crash, on SIGQUIT and on `stop(postmortem=True)`;
+`watchdog_s` arms a stall watchdog on the run loop's phase stamps
+(`_stamp`), and `metrics_port` serves /metrics and /healthz. The run
+loop waits for the card by polling from Python (`_wait_event`), so the
+watchdog's interrupt lands while a window is still running.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import signal
 import sys
 import time
 from typing import Any, Dict, List, Optional
@@ -47,14 +57,48 @@ import numpy as np
 import torch
 
 from ..api import ActorTypeMeta, BehaviourDef
-from ..config import (RuntimeOptions, auto_fields, check_supported,
-                      unported)
-from ..errors import ERROR_CODES, PonyError
+from ..config import RuntimeOptions, auto_fields, check_supported
+from ..errors import ERROR_CODES, PonyError, PonyStallError, error_code
 from ..ops import fused_dispatch, megakernel, pack
 from ..program import Program
 from . import engine
 from .controller import WindowController
 from .state import RtState, init_state
+
+
+WIN_BUCKETS = 16     # run_loop_stats' window-length histogram (2^k ticks)
+
+# The run loop's wait for the card (`Runtime._wait_event`). A window of
+# the window kernel is one cooperative launch, and the plain window one
+# enqueue of eager kernels: either can wedge (a grid sync that never
+# completes, a body that spins, a card that stops answering).
+# torch.cuda.Event.synchronize() would then block inside libcuda,
+# where no Python signal handler runs, and run() would hang with
+# no evidence: the watchdog's SIGINT (flight.Watchdog.trip) could not
+# land. So the wait polls Event.query() from Python instead: a spin of
+# up to WAIT_SPIN_S, which a quiet world's windows end inside at the
+# cost of one query (synchronize() spins too, under CUDA's default
+# scheduling), then sleeps from WAIT_SLEEP_MIN_S doubling to
+# WAIT_SLEEP_MAX_S, which add at most that much to a longer window.
+# Every poll returns to the interpreter, where a pending SIGINT or
+# SIGTERM is raised, and yields the interpreter lock (synchronize()
+# released it for the whole wait), so the watchdog's and the exporter's
+# threads run meanwhile.
+WAIT_SPIN_S = 0.1
+WAIT_SLEEP_MIN_S = 50e-6
+WAIT_SLEEP_MAX_S = 1e-3
+
+
+def _state_tensors(x):
+    """Every tensor of a state (the leaves of RtState's dicts)."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _state_tensors(v)
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from _state_tensors(getattr(x, f.name))
 
 
 class SpillOverflowError(RuntimeError):
@@ -227,7 +271,30 @@ class Runtime:
         #   (tuning.resolve): source, variants, table, winner, chosen,
         #   detail, cache_path
         self._state_epoch = 0
-        self._rl_windows = 0          # retired windows (cache write-back)
+        # Run-loop telemetry (run_loop_stats()): windows retired, how
+        #   many dispatches rode behind an in-flight window, cumulative
+        #   host-imposed device-idle gap, re-queued gated-out injects,
+        #   window-length histogram.
+        self._rl_windows = 0
+        self._rl_pipelined = 0
+        self._rl_synced = 0
+        self._rl_gap_ns = 0
+        self._rl_requeued = 0
+        self._win_hist = np.zeros((WIN_BUCKETS,), np.int64)
+        # Operations (flight.py, metrics.py).
+        self._flight = None           # flight.FlightRecorder (start())
+        self._watchdog = None         # flight.Watchdog when watchdog_s
+        self._metrics = None          # metrics.MetricsServer when
+        #   metrics_port is not None
+        self._pre_pin_affinity = None  # the CPU set before opts.pin
+        self._wd_epoch = 0            # phase-stamp progress counter
+        self._wd_stamp = ("idle", 0, time.monotonic())  # (phase,
+        #   epoch, t): one tuple assignment per transition — the
+        #   progress evidence the watchdog thread reads
+        # Coded runtime errors raised or caught on this runtime, keyed
+        # (class name, int code): the metrics label and the
+        # postmortem's error section.
+        self._error_counts: collections.Counter = collections.Counter()
         # The collector and the blob pool (host side).
         self._gc_fn = None
         self._ever_released = False
@@ -275,6 +342,33 @@ class Runtime:
         return self
 
     def start(self) -> "Runtime":
+        """≙ pony_init. The flight recorder and the watchdog arm before
+        the first device call, so a start() that hangs (CUDA context
+        creation, a kernel build) trips the watchdog: postmortem on
+        disk, PonyStallError raised."""
+        self._apply_defaults_and_pin()
+        from .. import flight as _flight
+        self._flight = _flight.FlightRecorder(self, self.opts.flight_windows)
+        self._stamp("backend-init")
+        if self.opts.watchdog_s is not None:
+            self._watchdog = _flight.Watchdog(self, self.opts.watchdog_s)
+            self._watchdog.start()
+        try:
+            self._start_world()
+        except KeyboardInterrupt:
+            stall = self._stall_from_interrupt()
+            if stall is not None:
+                raise stall from None
+            raise
+        if self.opts.metrics_port is not None:
+            from .. import metrics as _metrics
+            self._metrics = _metrics.MetricsServer(self,
+                                                   self.opts.metrics_port)
+            self._metrics.update_now(self)
+        self._stamp("idle")
+        return self
+
+    def _apply_defaults_and_pin(self) -> None:
         if self._opts_defaulted:
             overrides = {}
             for atype, _cap in self.program._declared:
@@ -283,8 +377,17 @@ class Runtime:
                 self.opts = dataclasses.replace(self.opts, **overrides)
                 check_supported(self.opts)
                 self.program.opts = self.opts
-        if self.opts.pin >= 0:
-            raise unported("observability")     # pin: slice 11
+        if self.opts.pin >= 0:   # ≙ --ponypin (start.c:75-94): pin the
+            # host thread that runs this runtime (its "scheduler")
+            try:
+                self._pre_pin_affinity = os.sched_getaffinity(0)
+                os.sched_setaffinity(0, {self.opts.pin})
+            except OSError as e:
+                raise ValueError(
+                    f"cannot pin host thread to core {self.opts.pin}: "
+                    f"{e}") from None
+
+    def _start_world(self) -> None:
         self.program.finalize()
         self.state = init_state(self.program, self.opts, self.device)
         from .. import tuning
@@ -346,7 +449,6 @@ class Runtime:
         for cohort in self.program.cohorts:
             self._free[cohort.atype.__name__] = list(
                 range(cohort.capacity - 1, -1, -1))
-        return self
 
     def _replace(self, **kw) -> RtState:
         return dataclasses.replace(self.state, **kw)
@@ -743,6 +845,7 @@ class Runtime:
         fh, nl = self.program.first_host_row, self.program.n_local
         if fh >= nl:
             return False
+        self._await_device()
         st = self.state
         ht = torch.stack([st.head[fh:nl], st.tail[fh:nl]]).cpu().numpy()
         head, pending = ht[0], ht[1] - ht[0]
@@ -816,6 +919,9 @@ class Runtime:
                 if (pack.is_blob(spec) and not pack.is_blob_val(spec)
                         and int(a) >= 0):
                     self._host_blobs.add(int(a))
+        if self._flight is not None:
+            # The recent-host-mail lane of the black box.
+            self._flight.mail(aid, f"{cohort.atype.__name__}.{bdef.name}")
         try:
             st2 = bdef.fn(ctx, st, *args)
         except PonyError as e:
@@ -824,6 +930,7 @@ class Runtime:
             self._host_errors[aid] = e.code
             self._host_error_locs[aid] = e.loc
             self.totals["host_errors"] += 1
+            self._error_counts[("PonyError", e.code)] += 1
             st2 = st
         self._host_state[aid] = st2 if st2 is not None else st
         self.totals["host_processed"] += 1
@@ -867,6 +974,86 @@ class Runtime:
         return True
 
     # ---- the run loop ----
+    def _stamp(self, phase: str) -> None:
+        """Advance the watchdog phase stamp (flight.py): one int bump and
+        one tuple assignment, readable atomically from any thread. The
+        run loop stamps every phase change (dispatching, in-flight,
+        host-work, quiescent, idle), so "no stamp within the deadline"
+        is exactly "no progress"."""
+        self._wd_epoch += 1
+        self._wd_stamp = (phase, self._wd_epoch, time.monotonic())
+
+    def _fatal(self, exc):
+        """Record a coded runtime error (metrics label and postmortem
+        evidence) on its way out; returns `exc`."""
+        self._error_counts[(type(exc).__name__, error_code(exc))] += 1
+        if self._flight is not None:
+            self._flight.event("error", cls=type(exc).__name__,
+                               code=error_code(exc), message=str(exc))
+        return exc
+
+    def _stall_from_interrupt(self):
+        """A pending KeyboardInterrupt may be the watchdog's doing
+        (flight.Watchdog.trip interrupts the main thread after dumping
+        the postmortem): the int-coded stall error, or None for a
+        genuine Ctrl-C."""
+        wd = self._watchdog
+        if wd is None or wd.tripped is None:
+            return None
+        t = wd.tripped
+        return self._fatal(PonyStallError(
+            f"runtime stalled: phase {t['phase']!r} made no progress "
+            f"for {t['age_s']}s (deadline {t['deadline_s']}s; "
+            f"postmortem: {t.get('postmortem') or '(unwritten)'})",
+            phase=t["phase"], postmortem=t.get("postmortem", "")))
+
+    def _defer_signals(self):
+        """Block SIGINT/SIGTERM delivery across the window's call and the
+        assignment of its state, so that a signal handler (the analysis
+        SIGTERM dump, SIGQUIT's postmortem) never sees a state half
+        replaced. Blocked signals are delivered the moment the mask is
+        restored. Returns the previous mask, or None where masking is
+        unavailable (not the main thread's business, or no pthreads)."""
+        try:
+            return signal.pthread_sigmask(
+                signal.SIG_BLOCK, {signal.SIGINT, signal.SIGTERM})
+        except (AttributeError, ValueError, OSError):
+            return None
+
+    def _restore_signals(self, prev) -> None:
+        if prev is not None:
+            signal.pthread_sigmask(signal.SIG_SETMASK, prev)
+
+    @staticmethod
+    def _wait_event(event) -> None:
+        """Wait until `event` (a torch.cuda.Event) completed, polling it
+        from Python so that signals land meanwhile (WAIT_SPIN_S above
+        says why this is not Event.synchronize())."""
+        if event.query():
+            return
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WAIT_SPIN_S:
+            time.sleep(0)
+            if event.query():
+                return
+        nap = WAIT_SLEEP_MIN_S
+        while not event.query():
+            time.sleep(nap)
+            nap = min(2 * nap, WAIT_SLEEP_MAX_S)
+
+    def _await_device(self) -> None:
+        """Wait, interruptibly, until the card has run everything
+        enqueued so far. The run loop's host work calls it before it
+        reads device memory (`_drain_host`, `gc`, `profile`, the level
+        2-3 analysis drains), so that no read blocks inside C behind a
+        wedged window; the host API's other reads (spawn, state_of,
+        ...) run between runs, or in a host behaviour after
+        `_drain_host` waited."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            self._wait_event(ev)
+
     def _dispatch_window(self, budget: int, force: bool, prev_aux,
                          pipelined: bool = False) -> Dict[str, Any]:
         """Enqueue one gated window and start the non-blocking copy of
@@ -874,14 +1061,27 @@ class Runtime:
         enqueued behind an unretired one (`pipelined`) leaves the device
         no gap; any other is charged the host's time since the last
         retire (the analysis CSV's host_gap_us)."""
-        gap_ns = 0 if pipelined or self._last_retire_t is None else \
-            max(0, int((time.perf_counter() - self._last_retire_t) * 1e9))
+        if pipelined:
+            self._rl_pipelined += 1
+            gap_ns = 0
+        else:
+            self._rl_synced += 1
+            gap_ns = 0 if self._last_retire_t is None else max(
+                0, int((time.perf_counter() - self._last_retire_t) * 1e9))
         inj_t, inj_w, consumed = self._drain_inject_tracked()
-        st2, aux, kdev = self._multi_g(
-            self.state, inj_t, inj_w, max(1, budget), force, prev_aux,
-            self._probe)
-        self.state = st2
-        epoch = self._state_epoch
+        self._stamp("dispatching")
+        mask = self._defer_signals()
+        try:
+            st2, aux, kdev = self._multi_g(
+                self.state, inj_t, inj_w, max(1, budget), force, prev_aux,
+                self._probe)
+            self.state = st2
+            epoch = self._state_epoch
+        finally:
+            self._restore_signals(mask)
+        # From here the window is the card's: the watchdog's deadline
+        # now covers its completion.
+        self._stamp("in-flight")
         vec = engine.aux_vector(aux, kdev)
         event = None
         if self.device.type == "cuda":
@@ -893,19 +1093,24 @@ class Runtime:
             vec = host
         return {"aux": aux, "vec": vec, "event": event,
                 "budget": int(budget), "consumed": consumed,
-                "epoch": epoch, "gap_ns": gap_ns}
+                "epoch": epoch, "gap_ns": gap_ns, "pipelined": pipelined}
 
     def _retire_window(self, win: Dict[str, Any]):
         """Wait for an in-flight window's scalars and fold them into host
         accounting. A gated-out window (0 ticks) changed nothing: its
         injections go back to the front of the queue."""
         if win["event"] is not None:
-            win["event"].synchronize()
+            self._wait_event(win["event"])
+        # The event completed: the scalars are in pinned host memory and
+        # tolist() reads them without waiting (on the CPU they are a CPU
+        # tensor).
         k, a = engine.aux_from_vector(win["vec"].tolist())
         self._last_retire_t = time.perf_counter()
+        self._stamp("host-work")
         if k == 0:
             if win["consumed"]:
                 self._inject_q.extendleft(reversed(win["consumed"]))
+                self._rl_requeued += len(win["consumed"])
             return 0, a
         if self._state_epoch == win["epoch"]:
             self._device_dirty = False
@@ -920,34 +1125,46 @@ class Runtime:
             self.totals[key] += (cur - last) & 0xFFFFFFFF
             self._last_counters[key] = cur
         self._rl_windows += 1
+        self._rl_gap_ns += win["gap_ns"]
+        self._win_hist[min(WIN_BUCKETS - 1, max(0, k.bit_length() - 1))] += 1
         attention = (a.host_pending or a.exit_flag or a.spill_overflow
                      or a.spawn_fail or a.blob_fail or a.blob_budget_fail)
         self._controller.observe(k, win["budget"], attention,
                                  qw_p99=a.qw_p99)
+        # The black box keeps this window's already-fetched scalars: host
+        # ints, one bounded-deque append, no device traffic.
+        if self._flight is not None:
+            self._flight.window(self.steps_run, k, win["budget"],
+                                win["gap_ns"] / 1e3, win["pipelined"], a)
         if self._analysis is not None:
+            if self.opts.analysis >= 2:
+                self._await_device()      # the drains read the card
             self._analysis.window(a, ticks=k, gap_us=win["gap_ns"] / 1e3)
+        if self._metrics is not None:
+            self._metrics.maybe_update(self)
         return k, a
 
     def _fatal_checks(self, a) -> None:
         if a.spill_overflow:
-            raise SpillOverflowError(
-                f"spill overflow at step {self.steps_run}")
+            raise self._fatal(SpillOverflowError(
+                f"spill overflow at step {self.steps_run}"))
         if a.spawn_fail:
-            raise SpawnCapacityError(
-                f"device spawn found no free slot by step {self.steps_run}")
+            raise self._fatal(SpawnCapacityError(
+                f"device spawn found no free slot by step "
+                f"{self.steps_run}"))
         if a.blob_fail:
-            raise BlobCapacityError(
+            raise self._fatal(BlobCapacityError(
                 f"device blob_alloc found no free pool slot by step "
                 f"{self.steps_run} — the pool is exhausted: raise "
                 "RuntimeOptions.blob_slots, or free blobs "
-                "(ctx.blob_free) faster")
+                "(ctx.blob_free) faster"))
         if a.blob_budget_fail:
-            raise BlobCapacityError(
+            raise self._fatal(BlobCapacityError(
                 f"device blob_alloc exceeded its per-tick reservation "
                 f"budget by step {self.steps_run} — more allocating "
                 "dispatches than BLOB_DISPATCHES in one tick (free "
                 "pool slots may remain): raise the actor class's "
-                "BLOB_DISPATCHES (or lower its batch)")
+                "BLOB_DISPATCHES (or lower its batch)"))
 
     @staticmethod
     def _clean_busy(a) -> bool:
@@ -972,6 +1189,17 @@ class Runtime:
         skipped = 0
         a = None          # newest retired aux; None forces a first window
         win = None        # the one in-flight (unretired) window
+        self._last_retire_t = None
+        # SIGQUIT dumps the flight recorder and the run goes on (the
+        # operator's "what is it doing right now" key, ^\ on a tty).
+        prev_quit = None
+        if self._flight is not None and hasattr(signal, "SIGQUIT"):
+            def _quit_dump(_signum, _frame):
+                self._flight.dump(reason="SIGQUIT")
+            try:
+                prev_quit = signal.signal(signal.SIGQUIT, _quit_dump)
+            except ValueError:      # not the main thread: no handler
+                prev_quit = None
         try:
             while True:
                 if win is None:
@@ -1011,6 +1239,7 @@ class Runtime:
                     steps_this_run += k
                     win = spec
                 # ---- host boundary for `a` ----
+                self._stamp("host-work")
                 self._fatal_checks(a)
                 if a.exit_flag:
                     self._exit_code = int(a.exit_code)
@@ -1042,6 +1271,7 @@ class Runtime:
                     # drain that satisfies it by one tick. (Waiting on
                     # outside events, the reference's bridge pollers, is
                     # not served by this slice.)
+                    self._stamp("quiescent")
                     cleanup = 0
                     while (a.any_muted and cleanup < 3
                            and (max_steps is None
@@ -1056,19 +1286,52 @@ class Runtime:
                 if max_steps is not None \
                         and steps_this_run + skipped >= max_steps:
                     break
+        except KeyboardInterrupt:
+            # The interrupt may be the watchdog's (flight.Watchdog trips
+            # by signalling the main thread after dumping the
+            # postmortem): surface the int-coded stall, not a bare ^C.
+            stall = self._stall_from_interrupt()
+            if stall is not None:
+                raise stall from None
+            raise
         finally:
-            # An in-flight window's output IS self.state: fold its
-            # scalars in, and drain the host mail it surfaced, so the
+            # A tripped watchdog means the card (or a host phase) is
+            # wedged: retiring the window in flight, draining host mail
+            # or refreshing the metrics would block on the very hang
+            # being turned into an error. Skip every device-touching
+            # teardown and let the PonyStallError out (the postmortem is
+            # the value; the runtime is not restartable after a stall).
+            stalled = (self._watchdog is not None
+                       and self._watchdog.tripped is not None)
+            exc = sys.exc_info()[1]
+            # Otherwise an in-flight window's output IS self.state: fold
+            # its scalars in, and drain the host mail it surfaced, so the
             # runtime stays consistent for a restart.
-            if win is not None:
+            if win is not None and not stalled:
                 _k, a2 = self._retire_window(win)
                 if a2.host_pending:
                     self._drain_host()
-            if sys.exc_info()[0] is not None:
+            if exc is not None and not isinstance(exc, PonyStallError):
                 # Interrupted between boundaries: deliver the host → host
                 # messages already queued, which would otherwise wait for
-                # the next run().
+                # the next run(). (After a stall the wedged behaviour may
+                # be on this lane.)
                 self._drain_host_fast(self.opts.host_fastpath_budget)
+            if prev_quit is not None:
+                try:
+                    signal.signal(signal.SIGQUIT, prev_quit)
+                except ValueError:
+                    pass
+            self._stamp("idle")
+            # Crash postmortem: any exceptional exit dumps the black box
+            # (a stall's dump was written by the watchdog already).
+            if (exc is not None and self._flight is not None
+                    and not isinstance(exc, (SystemExit, PonyStallError))):
+                self._flight.dump(
+                    reason=f"crash: {type(exc).__name__}: {exc}",
+                    error_code=error_code(exc))
+            if self._metrics is not None and not stalled:
+                self._metrics.update_now(self)
         if (self._qi_auto and ctrl.state == "steady"
                 and self._rl_windows >= 8
                 and ctrl.window != self._qi_loaded):
@@ -1078,17 +1341,128 @@ class Runtime:
             self._qi_loaded = ctrl.window
         return self._exit_code
 
-    def stop(self) -> int:
+    def run_loop_stats(self) -> Dict[str, Any]:
+        """Run-loop telemetry (metrics, the analysis dump, the
+        postmortem): windows retired, pipelined and sync-point
+        dispatches, the cumulative host-imposed device-idle gap,
+        re-queued gated-out injections, the window-length histogram
+        (power-of-two buckets) and the controller snapshot."""
+        n = max(1, self._rl_windows)
+        return {
+            "windows": self._rl_windows,
+            "pipelined_dispatches": self._rl_pipelined,
+            "sync_dispatches": self._rl_synced,
+            "host_gap_us_total": self._rl_gap_ns / 1e3,
+            "host_gap_us_mean": self._rl_gap_ns / 1e3 / n,
+            "injects_requeued": self._rl_requeued,
+            "window_hist": [int(x) for x in self._win_hist],
+            "controller": (self._controller.snapshot()
+                           if self._controller is not None else None),
+        }
+
+    def request_exit(self, code: int = 0) -> None:
+        """Ask the run loop to stop at the next host boundary (≙
+        pony_exitcode + the quiescent stop, start.c:345, callable from
+        host code outside any behaviour: an input handler, a signal
+        callback). A request made before run() is honoured by it."""
+        self._exit_code = int(code)
+        self._exit_requested = True
+
+    def stop(self, postmortem: bool = False) -> int:
         """Tear down the auxiliaries (≙ pony_stop, start.c:332-351): emit
-        the analysis summary and stop its writer thread. (The flight
-        recorder, the bridge, checkpoints and the watchdog come with
-        their own port slices.) Returns the exit code."""
+        the analysis summary and stop its writer thread, and stop the
+        watchdog and metrics threads. ``postmortem=True`` also dumps the
+        flight recorder (the path lands in ``rt._flight.last_dump``).
+        Returns the exit code."""
+        if postmortem and self._flight is not None:
+            self._flight.dump(reason="stop(postmortem=True)")
         a = self._analysis
         if a is not None:
             a.summary()
             a.close()
             self._analysis = None
+        wd = self._watchdog
+        if wd is not None:
+            wd.close()
+            self._watchdog = None
+        if self._metrics is not None:
+            if wd is None or wd.tripped is None:
+                # A stalled card would hang this last snapshot's reads.
+                self._metrics.update_now(self)
+            self._metrics.close()
+            self._metrics = None
         return self._exit_code
+
+    def queue_depth(self, actor_id: int) -> int:
+        """Messages waiting in an actor's mailbox (≙
+        ponyint_actor_num_messages, actor.c:666)."""
+        return int(self.state.tail[actor_id] - self.state.head[actor_id])
+
+    def total_memory(self) -> Dict[str, int]:
+        """Process and device memory accounting (≙ the fork's
+        @ponyint_total_memory): the host's resident set, the bytes of the
+        state's tensors (the actor world's device footprint), and the
+        native pool's block counts, 0 here (the port has no native
+        pool)."""
+        try:    # current RSS (Linux); the peak through getrusage else
+            with open("/proc/self/statm") as f:
+                rss_bytes = (int(f.read().split()[1])
+                             * os.sysconf("SC_PAGE_SIZE"))
+        except OSError:
+            import resource
+            rss_bytes = resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024
+        dev = 0
+        if self.state is not None:
+            dev = sum(t.nbytes for t in _state_tensors(self.state))
+        return {"host_rss_bytes": int(rss_bytes),
+                "device_state_bytes": int(dev),
+                "pool_live_blocks": 0,
+                "pool_recycled_blocks": 0}
+
+    def measured_costs(self, force: bool = False):
+        """Measured device costs of the window's executables: not served
+        by the port yet (config.PORT_SLICES, "observability")."""
+        from ..config import unported
+        raise unported("observability")
+
+    def profile_device(self, windows: int = 1, path: Optional[str] = None,
+                       ticks: Optional[int] = None) -> str:
+        """Trace `windows` forced windows of `ticks` ticks each (the
+        controller's current window by default) with torch.profiler,
+        CPU and CUDA activities, through the runtime's own window (the
+        window kernel under delivery="pallas_mega" on CUDA): the world
+        really advances, and the ticks count in steps_run. The first
+        window runs outside the trace, so one-time costs stay out of
+        it. Writes a Chrome trace (chrome://tracing, Perfetto) to
+        `path`, by default ``<analysis_path>.trace.json``, and returns
+        the path."""
+        if self.state is None:
+            raise RuntimeError("call start() first")
+        from torch.profiler import ProfilerActivity, profile as tprof
+        if path is None:
+            path = (self.opts.analysis_path or "ponyc_profile") \
+                + ".trace.json"
+        n = max(1, int(ticks if ticks is not None
+                       else self._controller.window))
+        inj_t, inj_w = self._empty_inject
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+
+        def window():
+            st, _aux, k = self._multi_g(self.state, inj_t, inj_w, n, True,
+                                        self._zero_aux, self._probe)
+            self.state = st
+            self._await_device()
+            self.steps_run += int(k)
+
+        window()
+        with tprof(activities=acts) as prof:
+            for _ in range(max(1, int(windows))):
+                window()
+        prof.export_chrome_trace(path)
+        return path
 
     def profile(self) -> Dict[str, Any]:
         """The per-behaviour and per-cohort telemetry report, the host
@@ -1105,6 +1479,7 @@ class Runtime:
                 "(the telemetry lanes do not exist at level 0)")
         if self.state is None:
             raise RuntimeError("call start() first")
+        self._await_device()
         from ..analysis import hist_percentile
         from .state import PHASE_NAMES, QW_BUCKETS
         nd = len(self.program.device_cohorts)
@@ -1212,6 +1587,25 @@ class Runtime:
         """(Re-)pin actors as host-held GC roots."""
         self._set_flag_column("pinned", ids, True)
 
+    def apply_backpressure(self, ids) -> None:
+        """Mark actors under pressure (≙ pony_apply_backpressure,
+        actor.c:1137-1162): senders to them mute on send until
+        release_backpressure(), whatever their mailboxes hold — the hook
+        for pressure the runtime cannot see (a stalled socket, a full
+        outside queue). Raises bit 0 of world_bits, the "any pressure"
+        bit, as the JAX package does; each tick's vote keeps it honest
+        from then on."""
+        self._set_flag_column("pressured", ids, True)
+        fkey = self._freelist_key
+        self.state = self._replace(world_bits=self.state.world_bits | 1)
+        self._freelist_key = fkey
+
+    def release_backpressure(self, ids) -> None:
+        """Clear the pressure (≙ pony_release_backpressure); muted
+        senders release on a later unmute pass once the receiver is also
+        under the occupancy threshold."""
+        self._set_flag_column("pressured", ids, False)
+
     def gc(self) -> int:
         """Run one collection: trace reachability from the roots, free
         every actor not reached and sweep the blobs nothing holds (≙ ORCA
@@ -1219,6 +1613,7 @@ class Runtime:
         number of actors collected."""
         if self.state is None:
             raise RuntimeError("call start() first")
+        self._await_device()
         from . import gc as gc_mod
         if self._gc_fn is None:
             self._gc_fn = gc_mod.build_gc(self.program, self.opts)
@@ -1264,6 +1659,10 @@ class Runtime:
             self.state, self._tensor(extra, torch.bool),
             self._tensor(blob_roots, torch.bool))
         collected = self.counter("n_collected") - before
+        if self._flight is not None:
+            self._flight.event("gc", collected=int(collected),
+                               iters=int(iters), swept=int(n_swept),
+                               converged=bool(converged))
         if not collected:
             self._freelist_key = fkey     # no slot was freed
         self.totals["gc_runs"] += 1

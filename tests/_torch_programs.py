@@ -1445,3 +1445,80 @@ def csv_rows(path, skip=WALL_COLUMNS):
     with open(path) as f:
         return [{k: v for k, v in r.items() if k not in skip}
                 for r in csv.DictReader(f)]
+
+
+def define_ops(pkg):
+    """Actor types of the flight-recorder, metrics and host-API tests
+    (tests/test_flight.py, test_metrics.py, test_stdlib_extra.py), built
+    with `pkg`."""
+    I32, Ref = pkg.I32, pkg.Ref
+
+    @pkg.actor
+    class HostEcho:
+        n: I32
+        HOST = True
+
+        @pkg.behaviour
+        def ping(self, st, v: I32):
+            return {**st, "n": st["n"] + v}
+
+    @pkg.actor
+    class Bad:
+        n: I32
+        HOST = True
+
+        @pkg.behaviour
+        def boom(self, st, v: I32):
+            raise ValueError("kaboom")
+
+    @pkg.actor
+    class Sink:
+        total: I32
+
+        @pkg.behaviour
+        def consume(self, st, v: I32):
+            return {**st, "total": st["total"] + v}
+
+    @pkg.actor
+    class Producer:
+        sink: Ref["Sink"]
+        left: I32
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def produce(self, st, n: I32):
+            self.send(st["sink"], Sink.consume, 1, when=n > 0)
+            self.send(self.actor_id, Producer.produce, n - 1, when=n > 0)
+            return {**st, "left": n - 1}
+
+    @pkg.actor
+    class Ticker:
+        """Counts down on the device; at `n == 1` it mails the host."""
+        host: Ref["HostEcho"]
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def tick(self, st, n: I32):
+            self.send(self.actor_id, Ticker.tick, n - 1, when=n > 1)
+            self.send(st["host"], HostEcho.ping, n, when=n == 1)
+            return st
+
+    return types.SimpleNamespace(HostEcho=HostEcho, Bad=Bad, Sink=Sink,
+                                 Producer=Producer, Ticker=Ticker)
+
+
+def ops_world(pkg, O, ticks=24, device="cpu", **okw):
+    """A device Ticker counting down `ticks` ticks beside a host
+    HostEcho it mails at the end, and a HostEcho pinged from the API:
+    windows with and without host attention, pipelined dispatches, and
+    one exit-free quiescence."""
+    rt = new_runtime(pkg, dict(mailbox_cap=8, batch=1, max_sends=2,
+                               msg_words=1, spill_cap=64, inject_slots=8,
+                               quiesce_interval=4, **okw), device)
+    rt.declare(O.Ticker, 2).declare(O.HostEcho, 2)
+    rt.start()
+    h = rt.spawn(O.HostEcho)
+    t = rt.spawn(O.Ticker, host=h)
+    rt.send(int(t), O.Ticker.tick, ticks)
+    rt.send(int(h), O.HostEcho.ping, 5)
+    return rt, int(t), int(h)

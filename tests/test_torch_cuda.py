@@ -601,3 +601,104 @@ def test_tuner_calibrates_then_starts_from_cache(tmp_path):
         nums.append((code, r.steps_run, counters(r),
                      r.cohort_state(ubench.Pinger)["pings"].tolist()))
     assert nums[0] == nums[1]
+
+
+def _sleep_cycles(seconds):
+    """torch.cuda._sleep's argument for about `seconds` on this card, from
+    a measured rate."""
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1000)                  # warm
+    t0.record()
+    torch.cuda._sleep(50_000_000)
+    t1.record()
+    torch.cuda.synchronize()
+    rate = 50_000_000 / (t0.elapsed_time(t1) / 1e3)
+    return int(rate * seconds)
+
+
+@pytest.mark.cuda
+def test_window_wait_is_interruptible_under_a_busy_card():
+    """Runtime._wait_event polls from Python: a SIGINT sent while the
+    card sleeps lands within a poll, long before the kernel ends
+    (Event.synchronize() would block until it did)."""
+    import signal
+    import threading
+    import time
+    from ponyc_tpu_torch.runtime.runtime import Runtime
+    _need_cuda()
+    cycles = _sleep_cycles(4.0)
+    torch.cuda._sleep(cycles)
+    ev = torch.cuda.Event()
+    ev.record()
+    main = threading.main_thread().ident
+    timer = threading.Timer(
+        0.5, lambda: signal.pthread_kill(main, signal.SIGINT))
+    t0 = time.perf_counter()
+    timer.start()
+    with pytest.raises(KeyboardInterrupt):
+        Runtime._wait_event(ev)
+    waited = time.perf_counter() - t0
+    busy = not ev.query()
+    torch.cuda.synchronize()
+    assert busy and waited < 1.5, waited
+    # A finished event returns at once.
+    t0 = time.perf_counter()
+    Runtime._wait_event(ev)
+    assert time.perf_counter() - t0 < 0.01
+
+
+@pytest.mark.cuda
+def test_watchdog_turns_a_wedged_window_into_a_stall(tmp_path):
+    """A window of the window kernel queued behind a long sleep on the
+    runtime's stream: run() raises PonyStallError in phase in-flight
+    within the deadline and a few seconds, with its postmortem on disk."""
+    import time
+    from ponyc_tpu_torch import flight
+    from ponyc_tpu_torch.errors import PonyStallError
+    from ponyc_tpu_torch.models import ubench
+    _need_cuda()
+    kw = dict(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
+              spill_cap=256, inject_slots=8, quiesce_interval=8,
+              delivery="pallas_mega", tuning_cache="off",
+              analysis_path=str(tmp_path / "a.csv"))
+    # Build the window kernel first: start()'s nvcc build takes longer
+    # than the cold deadline of a 1 s watchdog (10 s), and would trip it.
+    ubench.build(1 << 12, RuntimeOptions(**kw), pings=4)
+    rt, ids = ubench.build(1 << 12, RuntimeOptions(watchdog_s=1.0, **kw),
+                           pings=4)
+    ubench.seed_all(rt, ids, hops=1 << 20, pings=4)
+    rt.run(max_steps=16)                     # warm: past the cold grace
+    cycles = _sleep_cycles(12.0)
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    with pytest.raises(PonyStallError) as ei:
+        rt.run(max_steps=16)
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()                 # wait the sleep out
+    assert ei.value.code == 7 and ei.value.phase == "in-flight"
+    assert took < 6.0, took
+    pm = flight.load_postmortem(ei.value.postmortem)
+    line, _ = flight.diagnose_postmortem(pm)
+    assert line.startswith("STALLED") and "mega_window.cu" in line
+    rt.stop()
+
+
+@pytest.mark.cuda
+def test_profile_device_traces_the_window_kernel(tmp_path):
+    from ponyc_tpu_torch.models import ubench
+    _need_cuda()
+    opts = RuntimeOptions(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
+                          spill_cap=256, inject_slots=8, tuning_cache="off",
+                          delivery="pallas_mega",
+                          analysis_path=str(tmp_path / "a.csv"))
+    rt, ids = ubench.build(1 << 12, opts, pings=4)
+    ubench.seed_all(rt, ids, hops=1 << 20, pings=4)
+    steps = rt.steps_run
+    path = rt.profile_device(windows=2, ticks=8)
+    assert path == str(tmp_path / "a.csv") + ".trace.json"
+    assert rt.steps_run == steps + 3 * 8     # the world advanced
+    import json
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("pony_mega_kernel" in n for n in names), sorted(names)[:40]

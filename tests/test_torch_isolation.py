@@ -36,6 +36,41 @@ print(json.dumps({"bad": bad, "code": rt.exit_code,
 """
 
 
+_OPS_CHILD = """
+import json, sys, tempfile
+import ponyc_tpu_torch.flight, ponyc_tpu_torch.metrics
+from ponyc_tpu_torch.__main__ import main
+from ponyc_tpu_torch import RuntimeOptions
+from ponyc_tpu_torch.models import ring
+path = tempfile.mkdtemp() + "/an.csv"
+rt = ring.run(8, 20, opts=RuntimeOptions(
+    mailbox_cap=4, batch=1, max_sends=1, msg_words=1, spill_cap=32,
+    inject_slots=4, tuning_cache="off", analysis=1, metrics_port=0,
+    watchdog_s=5.0, analysis_path=path), device="cpu")
+rt.stop(postmortem=True)
+codes = [main(["doctor", "--postmortem", path + ".postmortem.json"]),
+         main(["version"])]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
+print(json.dumps({"bad": bad, "codes": codes}))
+"""
+
+
+def test_observability_modules_import_no_jax_and_no_reference():
+    """flight.py, metrics.py and __main__.py, driven through a run with
+    the watchdog and the exporter on and the doctor, pull in no JAX and
+    nothing of the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _OPS_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "codes": [0, 0]}
+
+
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -58,11 +93,46 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 @pytest.mark.parametrize("kw,slice_no", [
     (dict(checkpoint_every_s=1.0), 9), (dict(mesh_shards=2), 10),
-    (dict(cost_capture=True), 11), (dict(watchdog_s=1.0), 11),
+    (dict(cost_capture=True), 11),
+    # Slice 11 serves the watchdog; cost capture still raises beside it.
+    (dict(cost_capture=True, watchdog_s=1.0), 11),
 ])
 def test_unported_options_raise(kw, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         Runtime(RuntimeOptions(**kw), device="cpu")
+
+
+def test_cost_capture_raises_by_name():
+    with pytest.raises(NotImplementedError,
+                       match=r"measured cost capture \(cost_capture, "
+                             r"measured_costs\).*slice 11"):
+        Runtime(RuntimeOptions(cost_capture=True), device="cpu")
+    rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
+    with pytest.raises(NotImplementedError, match="measured_costs"):
+        rt.measured_costs()
+
+
+def test_observability_options_are_served(tmp_path):
+    """watchdog_s, metrics_port and pin start (slice 11)."""
+    import os
+    cores = sorted(os.sched_getaffinity(0))
+    rt = Runtime(RuntimeOptions(watchdog_s=5.0, metrics_port=0,
+                                pin=cores[-1], tuning_cache="off",
+                                analysis_path=str(tmp_path / "a.csv")),
+                 device="cpu")
+    try:
+        from ponyc_tpu_torch.models import ring
+        rt.declare(ring.RingNode, 4).start()
+        assert os.sched_getaffinity(0) == {cores[-1]}
+        assert rt._watchdog.is_alive() and rt._metrics.port > 0
+    finally:
+        if rt._pre_pin_affinity is not None:
+            os.sched_setaffinity(0, rt._pre_pin_affinity)
+        rt.stop()
+    assert sorted(os.sched_getaffinity(0)) == cores
+    with pytest.raises(ValueError, match="cannot pin"):
+        Runtime(RuntimeOptions(pin=4096, tuning_cache="off"),
+                device="cpu").start()
 
 
 def test_unported_program_features_raise():
@@ -152,7 +222,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     root = Path(REPO)
     files = sorted((root / "ponyc_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py", root / "profiling" / "torch_tick.py",
-        root / "profiling" / "torch_mega_phases.py"]
+        root / "profiling" / "torch_mega_phases.py",
+        root / "profiling" / "torch_ops.py"]
     assert len(files) > 10
     bad = []
     for f in files:
