@@ -173,7 +173,36 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 total n*items, mutes and rejections, and the radix sort
                 taken unforced on the first ticks, one a window), then
                 2**8 x 4 on each path, fields, counters and ticks equal;
- 15. profile  — kernels launched a tick and the device's busy share
+ 15. ops      — the flight recorder, the watchdog, /metrics and
+                backpressure on each path (run_ops says what it checks);
+ 16. durable  — durable snapshots: (a) ubench 2**20 x 4 with a 0.05 s
+                checkpoint cadence (keep 3) beside the same run without,
+                on each path, timed in spans that alternate between the
+                two (off, on, on, off twice; pallas_mega 448 ticks a
+                span, the plain and fused paths 32): the ring bounded,
+                every file verified, fields, counters and ticks equal
+                the run without; bytes a snapshot, capture ms, writer s,
+                ms a tick on against off (medians of four spans each,
+                spread); (b)
+                the newest snapshot restored into each path and run 32
+                more ticks, bit-equal (fields, counters, ticks, plan
+                state) to the run without; (c) the blob chain at full
+                width and the hostlog world at 2**20 (256 chains still
+                queued as host sends) snapshotted at tick 64 under
+                pallas_mega and restored into walkers x1.5, spill x2 (the
+                blob pool 3 * 2**18 - 1 grown to 2**20 - 1), finished
+                against their NumPy oracles (blobs_in_use 0;
+                HostLog.ends 2**12); (d)
+                the agree phase's walkers snapshotted on the card,
+                finished on the card and on the CPU, equal; (e) the
+                hostlog world at 2**15 under pallas_mega, watchdog 1 s, a
+                window queued behind a 15 s torch.cuda._sleep in a child
+                process (this script with --durable-child) supervised to
+                completion (code 7, a restart, the unfaulted result);
+                (f) the same child SIGKILLed mid-flush
+                (PONY_TPU_CHAOS=snapshot-mid-flush@3), every ring file
+                intact, the unfaulted result;
+ 17. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -199,7 +228,9 @@ gated windows, which stop for the host, and a forced window, timed), and
 `agree` runs a small host reporting world on the card and the CPU.
 `--only host` runs the build and the host phase; `--only telemetry` the
 build and the telemetry phase (its analysis=0 references then run too);
-`--only tune,gups,fanin` the build and this slice's phases.
+`--only tune,gups,fanin` the build and those phases; `--only durable` the
+build and the durable phase, whose snapshots go to _chipwork/smoke_durable/
+(git-ignored, removed after the phase).
 The analysis CSVs go to _chipwork/smoke_analysis/ (git-ignored, removed
 after the phase).
 
@@ -222,6 +253,7 @@ import time
 H100_BYTES_PER_S = 3.35e12      # H100 SXM data sheet (HBM3)
 H100_F32_OPS_PER_S = 67e12      # H100 SXM, float32 outside tensor cores
 FAILED = []
+FAILURES = []   # (phase, its exception's line, the traceback's last frame)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -235,6 +267,13 @@ def phase(name):
                 import traceback
                 traceback.print_exc()
                 FAILED.append(name)
+                tb = traceback.extract_tb(e.__traceback__)
+                mine = [f for f in tb if f.filename == __file__]
+                where = dict.fromkeys(
+                    f"{os.path.basename(f.filename)}:{f.lineno} in {f.name}"
+                    for f in mine[-1:] + tb[-1:])
+                FAILURES.append((name, f"{type(e).__name__}: {e}",
+                                 ", ".join(where)))
                 print(f"[{name}] FAILED: {type(e).__name__}: {e}",
                       flush=True)
                 return None
@@ -848,6 +887,18 @@ def mega_windows():
     for n, items in (FANIN_BIG, FANIN_SMALL):
         out[f"fanin {n}"] = window(fanin.Producer, n, RuntimeOptions(
             **fanin_kw("mega", n, items)), [(fanin.Aggregator, 1)])
+    # The durable phase's relayout worlds: the blob chain's snapshot pool
+    # and grown geometry, the hostlog world's grown geometry.
+    out["durable blob chain"] = window(
+        blob_t.BlobWalker, BLOB_WALKERS,
+        RuntimeOptions(tuning_cache="off", **durable_blob_kw("mega")))
+    out["durable blob chain grown"] = window(
+        blob_t.BlobWalker, int(BLOB_WALKERS * DURABLE_GROW),
+        RuntimeOptions(tuning_cache="off", **durable_blob_kw("mega", True)))
+    out["durable hostlog grown"] = window(
+        host_t.WalkerH, int(HOST_WALKERS * DURABLE_GROW), RuntimeOptions(
+            tuning_cache="off", **durable_hostlog_kw("mega", True)),
+        [(host_t.HostLog, 1)])
     out["ops ubench analysis=1"] = window(
         ubench.Pinger, OPS_LIVE[0], ubench_opts("mega", **ops_kw("mega")))
     O = tp.define_ops(ponyc_tpu_torch)
@@ -3854,6 +3905,522 @@ def run_ops(rec, frec, mrec):
     return out
 
 
+DURABLE_DIR = os.path.join(ROOT, "_chipwork", "smoke_durable")  # git-ignored
+DURABLE_CADENCE = 0.05            # checkpoint_every_s of (a)
+DURABLE_KEEP = 3                  # checkpoint_keep of (a)
+DURABLE_TICKS = {"mega": 448, False: 32, True: 32}   # (a): ticks a
+#   timed span, about one write of the writer (0.3-0.4 s) on each path:
+#   64-tick windows under pallas_mega, the plain and fused paths cut to
+#   32 ticks, as the ops phase cuts them
+DURABLE_ORDER = (False, True, True, False, False, True, True, False)
+#   (a): the timed spans, cadence off and on alternated ABBA, so that a
+#   drift of the host's clock falls on both alike
+DURABLE_WARM = {"mega": 2, False: 2, True: 2}   # (a): untimed spans
+#   first, about 0.6 s on each path: the run's first captures, which
+#   allocate their pinned buffers, are out of the timed spans
+DURABLE_MORE = 32                 # ticks (b) runs after each restore
+DURABLE_BLOB_POOL = ((3 << 18) - 1, (1 << 20) - 1)  # (c): the snapshot's
+#   pool and the grown one. A handle addresses at most 2^20 - 1 slots
+#   (ops/pack.py), so the grown pool is the largest there is; the
+#   snapshot's must still hold a reservation for every walker beside the
+#   live blobs (2^19 - 1 slots fail at the first tick)
+DURABLE_GROW = 1.5                # (c): walker capacity x 1.5, spill x 2
+DURABLE_CUT_TICKS = 64            # (c): ticks before the snapshot
+DURABLE_QUEUED = 256              # (c): hostlog chains still queued as host
+#   sends (Runtime.send) when the snapshot is taken
+DURABLE_CHILD_CADENCE = 0.02      # (e), (f): the child's checkpoint cadence
+DURABLE_WEDGE_S = 15.0            # (e): the sleep a window queues behind
+
+
+def durable_blob_kw(mode, grown=False):
+    kw = blob_kw(mode)
+    kw["blob_slots"] = DURABLE_BLOB_POOL[int(grown)]
+    if grown:
+        kw["spill_cap"] *= 2
+    return kw
+
+
+def durable_hostlog_kw(mode, grown=False):
+    kw = hostlog_kw(mode)
+    if grown:
+        kw["spill_cap"] *= 2
+    return kw
+
+
+def durable_cadence(mode, prefix):
+    """(a) on one path: ubench 2^20 x 4 in two runtimes from the same
+    seeds, one with the checkpoint cadence and one without, timed in
+    spans that alternate between them (DURABLE_ORDER). Before each span
+    without, the other's writer is waited for, so that no write falls in
+    it. Returns (the cadence-off runtime, its numbers, the times a tick
+    of each span by cadence, the checkpointer's stats, launches of the
+    cadence-on spans)."""
+    import torch
+    from ponyc_tpu_torch import serialise
+    from ponyc_tpu_torch.models import ubench
+    n, pings, warm, window = UBENCH
+    ticks = DURABLE_TICKS[mode]
+    rts = {}
+    for on in (False, True):
+        kw = dict(analysis_path=os.path.join(DURABLE_DIR, "a.csv"))
+        if on:
+            kw.update(checkpoint_every_s=DURABLE_CADENCE,
+                      checkpoint_keep=DURABLE_KEEP, checkpoint_path=prefix)
+        rt, ids = ubench.build(n, ubench_opts(
+            mode, window if mode == "mega" else ticks, **kw), pings=pings)
+        ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
+        rt.run(max_steps=warm)
+        for _ in range(DURABLE_WARM[mode]):
+            rt.run(max_steps=ticks)
+        rts[on] = rt
+    ck = rts[True]._ckpt
+    per_tick = {False: [], True: []}
+    launched = (0, 0, 0)
+    timed = {"checkpoints": 0, "capture_ms_total": 0.0}
+    for on in DURABLE_ORDER:
+        rt = rts[on]
+        if not on:
+            ck.flush()
+        s0 = ck.stats()
+        # The run loop's total, not the state's int32 counter, which
+        # wraps every 512 ticks of this world.
+        p0 = rt.totals["processed"]
+        torch.cuda.synchronize()
+        reset_launches()                # the main path's run starts here
+        t0 = time.perf_counter()
+        rt.run(max_steps=ticks)
+        elapsed = time.perf_counter() - t0
+        got = launches()                # ... and ends here
+        done_n = rt.totals["processed"] - p0
+        if done_n != n * pings * ticks:
+            raise AssertionError(f"durable {_mode_name(mode)}: processed "
+                                 f"{done_n}, expected {n * pings * ticks}")
+        per_tick[on].append(elapsed / ticks)
+        if on:
+            launched = tuple(max(a, b) for a, b in zip(launched, got))
+            s1 = ck.stats()
+            for k in timed:
+                timed[k] += s1[k] - s0[k]
+    base = world_numbers(rts[False], ubench.Pinger)
+    numbers = world_numbers(rts[True], ubench.Pinger)
+    rts[True].stop()                    # the final checkpoint, all written
+    stats = ck.stats()
+    stats["timed_captures"] = timed["checkpoints"]
+    stats["timed_capture_ms"] = (timed["capture_ms_total"]
+                                 / max(1, timed["checkpoints"]))
+    files = serialise.list_checkpoints(prefix)
+    for _seq, f in files:
+        serialise.verify_snapshot(f)
+    if not files or len(files) > DURABLE_KEEP or stats["failures"] \
+            or not stats["checkpoints"] or not timed["checkpoints"]:
+        raise AssertionError(f"durable {_mode_name(mode)}: ring "
+                             f"{len(files)} files, stats {stats}")
+    if not same_arrays(numbers["fields"], base["fields"]) or \
+            numbers["counters"] != base["counters"] or \
+            numbers["steps"] != base["steps"]:
+        raise AssertionError(f"durable {_mode_name(mode)}: the "
+                             "checkpointed run's fields, counters or "
+                             "ticks differ from the run without")
+    kern = {False: 0, True: 1, "mega": 2}[mode]
+    if not launched[kern] or sum(launched) != launched[kern]:
+        raise AssertionError(f"durable {_mode_name(mode)}: launches "
+                             f"(drain, fused, window) {launched}")
+    rts.pop(True)
+    med = {on: statistics.median(v) for on, v in per_tick.items()}
+    return rts[False], base, per_tick, med, stats, launched, len(files)
+
+
+def durable_restore_paths(ref, prefix):
+    """(b): the newest snapshot of (a)'s pallas_mega ring restored into a
+    fresh runtime on each path and run DURABLE_MORE ticks, against the
+    cadence-off runtime run as far."""
+    import torch
+    from ponyc_tpu_torch import serialise
+    from ponyc_tpu_torch.models import ubench
+    n, pings, _warm, _ = UBENCH
+    newest = serialise.newest_intact(prefix)
+    if newest is None:
+        raise AssertionError("durable: no intact snapshot in the ring")
+    ref.run(max_steps=DURABLE_MORE)
+    want = world_numbers(ref, ubench.Pinger)
+    want_plan = plan_state(ref)
+    del ref
+    torch.cuda.empty_cache()
+    out = {}
+    for mode in ("mega", False, True):
+        rt, _ids = ubench.build(n, ubench_opts(mode, DURABLE_MORE),
+                                pings=pings)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serialise.restore(rt, newest)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        reset_launches()
+        rt.run(max_steps=DURABLE_MORE)
+        got = launches()
+        num = world_numbers(rt, ubench.Pinger)
+        if not same_arrays(num["fields"], want["fields"]) or \
+                num["counters"] != want["counters"] or \
+                num["steps"] != want["steps"] or \
+                not same_arrays(num["tel"], want["tel"]) or \
+                plan_state(rt) != want_plan:
+            raise AssertionError(f"durable restore into "
+                                 f"{_mode_name(mode)}: the world differs "
+                                 "from the uninterrupted run's")
+        print(f"durable (b) {os.path.basename(newest)} restored into "
+              f"{_mode_name(mode)} in {restore_s:.3f} s, {DURABLE_MORE} "
+              f"more ticks: fields, counters, ticks ({num['steps']}) and "
+              f"plan state equal the uninterrupted run's; launches "
+              f"(drain, fused, window) {got} [{_CACHE['card']}]",
+              flush=True)
+        out[_mode_name(mode)] = restore_s
+        del rt
+        torch.cuda.empty_cache()
+    return out
+
+
+def durable_relayout():
+    """(c): the blob chain and the hostlog world at full width,
+    snapshotted mid-run under pallas_mega and restored into a grown
+    geometry, run to the end against their oracles."""
+    import numpy as np
+    import torch
+    import ponyc_tpu_torch
+    from ponyc_tpu_torch import serialise
+    out = {}
+    tp, B = blob_programs()
+    nxt, starts, lens, words, acc = plan = blob_plan()
+    n = len(nxt)
+    rt = tp.new_runtime(ponyc_tpu_torch, durable_blob_kw("mega"), "cuda")
+    rt.declare(B.BlobWalker, n).start()
+    ids = rt.spawn_many(B.BlobWalker, n, acc=0)
+    rt.set_fields(B.BlobWalker, ids, nxt=ids[nxt])
+    hs = np.array([rt.blob_store([int(w)]) for w in words], np.int32)
+    rt.bulk_send(ids[starts], B.BlobWalker.step, lens.astype(np.int32), hs)
+    rt.run(max_steps=DURABLE_CUT_TICKS)
+    live = rt.blobs_in_use
+    p = os.path.join(DURABLE_DIR, "blob.npz")
+    t0 = time.perf_counter()
+    serialise.save(rt, p)
+    save_s = time.perf_counter() - t0
+    del rt
+    torch.cuda.empty_cache()
+    grown = tp.new_runtime(ponyc_tpu_torch, durable_blob_kw("mega", True),
+                           "cuda")
+    grown.declare(B.BlobWalker, int(n * DURABLE_GROW)).start()
+    t0 = time.perf_counter()
+    serialise.restore(grown, p)
+    restore_s = time.perf_counter() - t0
+    reset_launches()
+    code = grown.run(max_steps=100_000)
+    got = launches()
+    st = grown.cohort_state(B.BlobWalker)
+    if code != 0 or not (st["acc"][:n].astype(np.int64) == acc).all() or \
+            grown.blobs_in_use != 0 or grown.counter("n_blob_remote") or \
+            not got[2] or not live:
+        raise AssertionError(f"durable (c) blob chain: code {code}, acc "
+                             f"ok {(st['acc'][:n] == acc).all()}, "
+                             f"blobs_in_use {grown.blobs_in_use}, "
+                             f"launches {got}, live at the cut {live}")
+    print(f"durable (c) blob chain 2^19 x 2^14: snapshot at tick "
+          f"{DURABLE_CUT_TICKS} ({live} live blobs) saved in {save_s:.2f} s "
+          f"({os.path.getsize(p)} bytes, compressed), restored into walkers "
+          f"x{DURABLE_GROW}, pool {DURABLE_BLOB_POOL[1]}, spill x2 in "
+          f"{restore_s:.2f} s; acc = the NumPy oracle, blobs_in_use 0 "
+          f"after {grown.steps_run} ticks; launches {got} "
+          f"[{_CACHE['card']}]", flush=True)
+    out["blob"] = {"save_s": save_s, "restore_s": restore_s,
+                   "bytes": os.path.getsize(p)}
+    del grown
+    torch.cuda.empty_cache()
+    os.remove(p)
+
+    tp, T = programs()
+    nxt, starts, lens, acc = hostlog_plan()
+    n = len(nxt)
+    q = DURABLE_QUEUED
+    rt = tp.new_runtime(ponyc_tpu_torch, durable_hostlog_kw("mega"), "cuda")
+    rt.declare(T.WalkerH, n).declare(T.HostLog, 1).start()
+    ids = rt.spawn_many(T.WalkerH, n)
+    log = rt.spawn(T.HostLog)
+    rt.set_fields(T.WalkerH, ids, nxt=ids[nxt], log=np.full(n, log))
+    rt.bulk_send(ids[starts[q:]], T.WalkerH.step, lens[q:].astype(np.int32))
+    rt.run(max_steps=DURABLE_CUT_TICKS)
+    for s, v in zip(starts[:q], lens[:q]):
+        rt.send(int(ids[s]), T.WalkerH.step, int(v))
+    queued, ends0 = len(rt._inject_q), rt.state_of(log)["ends"]
+    p = os.path.join(DURABLE_DIR, "hostlog.npz")
+    t0 = time.perf_counter()
+    serialise.save(rt, p)
+    save_s = time.perf_counter() - t0
+    del rt
+    torch.cuda.empty_cache()
+    grown = tp.new_runtime(ponyc_tpu_torch, durable_hostlog_kw("mega", True),
+                           "cuda")
+    grown.declare(T.WalkerH, int(n * DURABLE_GROW)).declare(
+        T.HostLog, 1).start()
+    t0 = time.perf_counter()
+    serialise.restore(grown, p)
+    restore_s = time.perf_counter() - t0
+    reset_launches()
+    code = grown.run(max_steps=1_000_000)
+    got = launches()
+    st = grown.cohort_state(T.WalkerH)
+    glog = int(grown.program.by_type[T.HostLog].slot_to_gid(0))
+    ends = grown.state_of(glog)["ends"]
+    if code != 0 or not (st["acc"][:n].astype(np.int64) == acc).all() or \
+            ends != HOST_CHAINS or not got[2] or queued != q or \
+            not 0 < ends0 < HOST_CHAINS:
+        raise AssertionError(f"durable (c) hostlog: code {code}, acc ok "
+                             f"{(st['acc'][:n] == acc).all()}, ends {ends} "
+                             f"({ends0} at the cut), queued {queued}, "
+                             f"launches {got}")
+    print(f"durable (c) hostlog 2^20 x 2^12: snapshot at tick "
+          f"{DURABLE_CUT_TICKS} with {queued} host sends queued and "
+          f"HostLog.ends {ends0}, saved in {save_s:.2f} s "
+          f"({os.path.getsize(p)} bytes), restored into walkers "
+          f"x{DURABLE_GROW}, spill x2 in {restore_s:.2f} s; acc = the "
+          f"NumPy oracle, ends {ends}, exit 0 after {grown.steps_run} "
+          f"ticks; launches {got} [{_CACHE['card']}]", flush=True)
+    out["hostlog"] = {"save_s": save_s, "restore_s": restore_s,
+                      "bytes": os.path.getsize(p)}
+    del grown
+    torch.cuda.empty_cache()
+    os.remove(p)
+    return out
+
+
+def durable_card_cpu():
+    """(d): the agree phase's walkers world snapshotted on the card on each
+    path, finished on the card and, restored, on the CPU: equal."""
+    from ponyc_tpu_torch import serialise
+    for name, build, finish in agree_worlds():
+        if name == "walkers (spill/mute)":
+            break
+    for mode in ("mega", False, True):
+        rt = build("cuda", mode)
+        rt.run(max_steps=6)
+        p = os.path.join(DURABLE_DIR, "small.npz")
+        serialise.save(rt, p)
+        cpu = build("cpu", mode)
+        serialise.restore(cpu, p)
+        g, c = finish(rt), finish(cpu)
+        if g != c:
+            raise AssertionError(f"durable (d) {_mode_name(mode)}: the card "
+                                 f"and the CPU disagree after a restore")
+        print(f"durable (d) {name} {_mode_name(mode)}: snapshot on the card "
+              f"at tick 6, finished on the card and restored on the CPU: "
+              f"fields, counters, exit code and ticks ({g[3]}) equal",
+              flush=True)
+        os.remove(p)
+
+
+def durable_world(mode, **kw):
+    """The supervised child's world: the hostlog world at HOST_CUT under
+    pallas_mega (tests/_torch_programs.py's WalkerH and HostLog)."""
+    return hostlog_build("mega", hostlog_plan(*HOST_CUT), **kw)
+
+
+def durable_numbers(rt, log):
+    tp, T = programs()
+    return {"code": rt.exit_code, "steps": rt.steps_run,
+            "ends": rt.state_of(log)["ends"],
+            "acc": rt.cohort_state(T.WalkerH)["acc"].tolist()}
+
+
+def durable_child(argv):
+    """`chip_smoke.py --durable-child MODE PREFIX OUT EVENTS CYCLES`: one
+    life of the supervised world ((e), (f)). MODE "wedge" queues a window
+    behind a CYCLES-long torch.cuda._sleep on its first life. Exits with
+    the coded error's code on a coded failure; writes its numbers to OUT
+    when it finishes, and its events (JSON lines) to EVENTS."""
+    import torch
+    from ponyc_tpu_torch import supervise, testing
+    from ponyc_tpu_torch.errors import error_code
+    mode, prefix, out, events, cycles = argv[:5]
+
+    def event(kind):
+        with open(events, "a") as f:
+            f.write(json.dumps({"event": kind, "t": time.time()}) + "\n")
+
+    event("start")
+    # The window kernel loads from the build's cache (the parent built
+    # it) before the watchdog is armed.
+    durable_world("mega")
+    rt, log = durable_world(
+        "mega", watchdog_s=OPS_DEADLINE_S,
+        checkpoint_every_s=DURABLE_CHILD_CADENCE, checkpoint_path=prefix,
+        checkpoint_keep=DURABLE_KEEP,
+        analysis_path=os.path.join(os.path.dirname(prefix), "child.csv"))
+    restored = supervise.maybe_restore(rt)
+    if restored is None:
+        rt.checkpoint()                          # the recovery floor
+        if mode == "wedge":
+            rt.run(max_steps=32)
+            torch.cuda.synchronize()
+            event("wedge")
+            torch.cuda._sleep(int(cycles))
+    else:
+        event("restored")
+        os.environ.pop("PONY_TPU_CHAOS", None)   # faults are one-shot
+        testing.chaos.reset()
+    try:
+        rt.run()
+    except Exception as e:                       # noqa: BLE001
+        code = error_code(e)
+        if code:
+            event(f"failed {code}")
+            os._exit(code)
+        raise
+    nums = durable_numbers(rt, log)
+    rt.stop()
+    event("done")
+    nums["restored"] = restored is not None
+    with open(out, "w") as f:
+        json.dump(nums, f)
+    return 0
+
+
+def durable_supervised(label, want, cycles, chaos=None):
+    """(e)/(f): the child under the subprocess supervisor; its result
+    against the unfaulted run's `want`."""
+    from ponyc_tpu_torch import serialise, supervise
+    d = os.path.join(DURABLE_DIR, label)
+    os.makedirs(d)
+    prefix, out = os.path.join(d, "ring"), os.path.join(d, "out.json")
+    events = os.path.join(d, "events.jsonl")
+    argv = [sys.executable, os.path.abspath(__file__), "--durable-child",
+            "wedge" if chaos is None else "clean", prefix, out, events,
+            str(cycles)]
+    if chaos is not None:
+        os.environ["PONY_TPU_CHAOS"] = chaos
+    try:
+        sup = supervise.Supervisor(argv=argv, prefix=prefix, retries=3,
+                                   backoff_s=0.1)
+        code = sup.run()
+    finally:
+        os.environ.pop("PONY_TPU_CHAOS", None)
+    with open(events) as f:
+        ev = [json.loads(line) for line in f]
+    with open(out) as f:
+        got = json.load(f)
+    ring = serialise.list_checkpoints(prefix)
+    for _seq, f in ring:
+        serialise.verify_snapshot(f)
+    first = -9 if chaos is not None else 7
+    same = {k: got[k] == want[k] for k in ("code", "ends", "acc")}
+    if code != 0 or sup.restarts < 1 or sup.failures[0]["code"] != first \
+            or not got["restored"] or not all(same.values()):
+        raise AssertionError(f"durable {label}: exit {code}, restarts "
+                             f"{sup.restarts}, failures {sup.failures}, "
+                             f"equal {same}")
+    return sup, ev, got, len(ring)
+
+
+@phase("durable")
+def run_durable(rec, frec, mrec):
+    """Durable snapshots, the checkpoint ring and the supervisor on the
+    card: (a) the cadence on ubench 2^20 x 4 on each path, (b) its newest
+    snapshot restored into each path, (c) a grown relayout of the blob
+    chain and the hostlog world at full width, (d) the card against the
+    CPU, (e) a wedged window supervised to completion, (f) SIGKILL
+    mid-flush supervised to completion."""
+    import shutil
+    import torch
+    card = _CACHE["card"]
+    recs = {False: rec, True: frec, "mega": mrec}
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    os.makedirs(DURABLE_DIR)
+    out = {}
+    ref = None
+    for mode in ("mega", False, True):
+        prefix = os.path.join(DURABLE_DIR, f"ring-{_mode_name(mode)}")
+        keep, _base, per, med, stats, launched, nfiles = durable_cadence(
+            mode, prefix)
+        recs[mode]["launches_durable"] = max(launched)
+        if mode == "mega":
+            ref, ring_prefix = keep, prefix
+        else:
+            del keep
+        torch.cuda.empty_cache()
+        lo = {on: (1e3 * min(v), 1e3 * max(v)) for on, v in per.items()}
+        it = {on: iter(v) for on, v in per.items()}
+        spans = [next(it[on]) for on in DURABLE_ORDER]
+        print(f"durable (a) ubench 2^20x4 {_mode_name(mode)}, "
+              f"{DURABLE_TICKS[mode]}-tick spans alternated: cadence "
+              f"{DURABLE_CADENCE} s on {1e3 * med[True]:.4f} ms/tick "
+              f"({lo[True][0]:.4f}-{lo[True][1]:.4f}) against off "
+              f"{1e3 * med[False]:.4f} ({lo[False][0]:.4f}-"
+              f"{lo[False][1]:.4f}), {100 * (med[True] / med[False] - 1):+.1f}"
+              f" %; {stats['checkpoints']} captured, {stats['written']} "
+              f"written, {stats['skipped']} skipped (writer busy), "
+              f"{stats['bytes_last']} bytes a snapshot, capture "
+              f"{stats['timed_capture_ms']:.1f} ms mean over the "
+              f"{stats['timed_captures']} of the timed spans ("
+              f"{stats['capture_ms_total'] / max(1, stats['checkpoints']):.1f}"
+              f" over all, the first allocating pinned memory), write "
+              f"{stats['write_ms_total'] / max(1, stats['written']) / 1e3:.3f}"
+              f" s mean; ring {nfiles} files, all verified; fields, "
+              f"counters and ticks equal the run without; launches (drain, "
+              f"fused, window) {launched}; spans in order, ms/tick: "
+              f"{[round(1e3 * x, 4) for x in spans]} [{card}]", flush=True)
+        out[f"cadence {_mode_name(mode)}"] = {
+            "ms_tick_on": 1e3 * med[True], "ms_tick_off": 1e3 * med[False],
+            "on_each": [1e3 * x for x in per[True]],
+            "off_each": [1e3 * x for x in per[False]],
+            "bytes": stats["bytes_last"],
+            "capture_ms_timed": stats["timed_capture_ms"],
+            "captures_timed": stats["timed_captures"],
+            "capture_ms_mean": stats["capture_ms_total"]
+            / max(1, stats["checkpoints"]),
+            "write_s_mean": stats["write_ms_total"]
+            / max(1, stats["written"]) / 1e3,
+            "captured": stats["checkpoints"], "written": stats["written"],
+            "skipped": stats["skipped"]}
+    out["restore_s"] = durable_restore_paths(ref, ring_prefix)
+    del ref
+    torch.cuda.empty_cache()
+    out["relayout"] = durable_relayout()
+    durable_card_cpu()
+    # (e) and (f): the unfaulted run in this process, then the children.
+    rt, log = durable_world("mega")
+    rt.run()
+    want = durable_numbers(rt, log)
+    rt.stop()
+    del rt
+    cycles, rate = sleep_cycles(DURABLE_WEDGE_S)
+    t0 = time.time()
+    sup, ev, got, nring = durable_supervised("wedge", want, cycles)
+    t_end = time.time()
+    wedge = next(e["t"] for e in ev if e["event"] == "wedge")
+    back = next(e["t"] for e in ev if e["event"] == "restored")
+    done = next(e["t"] for e in ev if e["event"] == "done")
+    print(f"durable (e) hostlog 2^15 x 2^10 under pallas_mega, watchdog "
+          f"{OPS_DEADLINE_S} s, a window behind a {DURABLE_WEDGE_S} s sleep: "
+          f"first failure code {sup.failures[0]['code']}, {sup.restarts} "
+          f"restart(s) from {os.path.basename(sup.restored_from)}; "
+          f"{back - wedge:.2f} s from the wedge to the restored child, "
+          f"{done - wedge:.2f} s to completion ({t_end - t0:.1f} s "
+          f"supervised); acc, ends ({got['ends']}) and exit code equal the "
+          f"unfaulted run's, ticks {got['steps']} (unfaulted "
+          f"{want['steps']}); ring {nring} files verified [{card}]",
+          flush=True)
+    out["wedge"] = {"to_restart_s": back - wedge,
+                    "to_completion_s": done - wedge}
+    t0 = time.time()
+    sup, ev, got, nring = durable_supervised(
+        "kill", want, 0, chaos="snapshot-mid-flush@3")
+    print(f"durable (f) the same child with PONY_TPU_CHAOS="
+          f"snapshot-mid-flush@3: first failure {sup.failures[0]['code']} "
+          f"(SIGKILL mid-flush), {sup.restarts} restart(s) from "
+          f"{os.path.basename(sup.restored_from)}, every ring file left "
+          f"({nring}) verifies; acc, ends and exit code equal the "
+          f"unfaulted run's ({time.time() - t0:.1f} s supervised)",
+          flush=True)
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    return out
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -3887,6 +4454,9 @@ KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 
 
 def main():
+    if "--durable-child" in sys.argv:
+        i = sys.argv.index("--durable-child")
+        return durable_child(sys.argv[i + 1:])
     only = None
     if "--only" in sys.argv:
         only = set(sys.argv[sys.argv.index("--only") + 1].split(","))
@@ -3956,11 +4526,19 @@ def main():
             summary["fanin"] = run_fanin(rec, frec, mrec)
         if want("ops"):
             summary["ops"] = run_ops(rec, frec, mrec)
+        if want("durable"):
+            summary["durable"] = run_durable(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
     if FAILED:
-        print(f"chip_smoke: FAILED phases: {FAILED}", flush=True)
+        # Repeated last on both streams: later phases' output (children's
+        # postmortems on stderr) must not bury why an early phase failed.
+        for stream in (sys.stdout, sys.stderr):
+            print(f"chip_smoke: FAILED phases: {FAILED}", file=stream)
+            for name, err, where in FAILURES:
+                print(f"chip_smoke: [{name}] {err[:2000]} (at {where})",
+                      file=stream, flush=True)
         return 1
     print(json.dumps(summary), flush=True)
     if only is not None:
@@ -3973,7 +4551,7 @@ def main():
              "launches_telemetry", "launches_telemetry_spawn",
              "launches_telemetry_host", "launches_cosort", "launches_tune",
              "launches_tune_calibration", "launches_gups", "launches_fanin",
-             "launches_ops",
+             "launches_ops", "launches_durable",
              "spawn_tree", "mixed_onehot", "mixed_before_ms",
              "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",

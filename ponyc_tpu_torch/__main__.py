@@ -24,17 +24,32 @@ Commands:
                               one-line verdict + diagnosis. Exit:
                               0 ok/snapshot, 1 stalled/crashed/
                               degraded, 2 usage or unreadable.
+  snapshot <file|prefix>      inspect a world snapshot (serialise.py):
+           [--json]           header summary + checksum verdict; a
+                              ring prefix resolves to its newest intact
+                              file. Exit: 0 intact, 1 corrupt, 2 usage.
+  restore <file|prefix>       deep restorability check (every array's
+                              checksum, the format gate). Exit: 0
+                              restorable, 1 corrupt, 2 usage.
+  supervise --prefix P        run a script under restart-from-
+            [--retries N]     checkpoint supervision (supervise.py):
+            [--backoff S]     a coded exit or a kill restarts it with
+            <script.py> ...   PONY_TPU_RESTORE at the newest intact
+                              ring snapshot. Exit: the script's, 3 on
+                              deterministic poison, 2 usage.
   version                     print the version, the torch build and
                               the card.
 
 The JAX package's other verbs (run, bench, test, doc, verify, lint,
-supervise, snapshot, restore, serve, perf) print which part of the port
-brings them and exit 2.
+serve, perf) print which part of the port brings them and exit 2.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import sys
+import time
 
 
 def _usage(code: int = 2) -> int:
@@ -217,6 +232,170 @@ def cmd_doctor(argv) -> int:
     return 0 if status == "ok" else 1
 
 
+def _resolve_snapshot_target(target: str):
+    """A snapshot CLI target is a file OR a checkpoint-ring prefix;
+    returns (path, err). Prefixes resolve to the newest intact ring
+    file (falling back past corrupt ones, like the supervisor)."""
+    from . import serialise
+    if os.path.exists(target):
+        return target, None
+    ring = serialise.list_checkpoints(target)
+    if not ring:
+        return None, (f"no such snapshot file and no checkpoint ring "
+                      f"under prefix {target!r}")
+    path = serialise.newest_intact(target)
+    if path is None:
+        return None, (f"all {len(ring)} ring snapshot(s) under "
+                      f"{target!r} are corrupt")
+    return path, None
+
+
+def cmd_snapshot(argv) -> int:
+    """Inspect a world snapshot (serialise.py): header summary +
+    checksum verdict. Exit 0 intact, 1 corrupt/unreadable, 2 usage."""
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    if len(argv) != 1:
+        print("ponyc_tpu_torch snapshot: need exactly one <file|ring-prefix>",
+              file=sys.stderr)
+        return 2
+    from . import serialise
+    path, err = _resolve_snapshot_target(argv[0])
+    if err:
+        print(f"ponyc_tpu_torch snapshot: {err}", file=sys.stderr)
+        return 1 if "corrupt" in err else 2
+    try:
+        header = serialise.verify_snapshot(path)
+    except (serialise.SnapshotCorruptError,
+            serialise.SnapshotFormatError, OSError) as e:
+        print(f"ponyc_tpu_torch snapshot: CORRUPT — {e}", file=sys.stderr)
+        return 1
+    geo = header.get("geometry", {})
+    info = {
+        "path": path,
+        "format": header.get("format"),
+        "intact": True,
+        "fingerprint": header.get("fingerprint"),
+        "age_s": (round(time.time() - header["time"], 1)
+                  if header.get("time") else None),
+        "steps_run": header.get("steps_run"),
+        "actors_total": geo.get("total"),
+        "shards": geo.get("shards"),
+        "mailbox_cap": geo.get("mailbox_cap"),
+        "cohorts": {c["name"]: c["capacity"]
+                    for c in geo.get("cohorts", [])},
+        "totals": header.get("totals", {}),
+    }
+    if as_json:
+        print(json.dumps(info))
+    else:
+        print(f"{path}: INTACT (format v{info['format']}, "
+              f"fingerprint {info['fingerprint']})")
+        print(f"  steps_run={info['steps_run']} "
+              f"actors={info['actors_total']} shards={info['shards']} "
+              f"mailbox_cap={info['mailbox_cap']}"
+              + (f" age={info['age_s']}s"
+                 if info["age_s"] is not None else ""))
+        if info["cohorts"]:
+            print("  cohorts: " + ", ".join(
+                f"{n}[{c}]" for n, c in info["cohorts"].items()))
+    return 0
+
+
+def cmd_restore(argv) -> int:
+    """Deep restorability check: full verification of every array plus
+    the format gate — what serialise.restore() would accept. Exit 0
+    restorable, 1 corrupt/unreadable, 2 usage."""
+    if len(argv) != 1:
+        print("ponyc_tpu_torch restore: need exactly one <file|ring-prefix> "
+              "(in-program restore is serialise.restore(rt, path))",
+              file=sys.stderr)
+        return 2
+    from . import serialise
+    path, err = _resolve_snapshot_target(argv[0])
+    if err:
+        print(f"ponyc_tpu_torch restore: {err}", file=sys.stderr)
+        return 1 if "corrupt" in err else 2
+    try:
+        header = serialise.verify_snapshot(path)
+    except (serialise.SnapshotCorruptError,
+            serialise.SnapshotFormatError, OSError) as e:
+        print(f"ponyc_tpu_torch restore: NOT RESTORABLE — {e}",
+              file=sys.stderr)
+        return 1
+    geo = header.get("geometry", {})
+    print(f"{path}: RESTORABLE (format v{header.get('format')}, "
+          f"{geo.get('total', '?')} actor rows, "
+          f"step {header.get('steps_run', '?')}; restore with "
+          "serialise.restore(rt, path) — geometry may differ since v3)")
+    return 0
+
+
+def cmd_supervise(argv) -> int:
+    """Run a workload script under restart-from-checkpoint supervision
+    (supervise.Supervisor subprocess mode)."""
+    retries, backoff, prefix = 5, 0.25, None
+    rest: list = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if rest:                      # after the script: its own argv
+            rest.append(a)
+            i += 1
+            continue
+        if a in ("--retries", "--backoff", "--prefix"):
+            if i + 1 >= len(argv):
+                print(f"ponyc_tpu_torch supervise: {a} needs a value",
+                      file=sys.stderr)
+                return 2
+            try:
+                if a == "--retries":
+                    retries = int(argv[i + 1])
+                elif a == "--backoff":
+                    backoff = float(argv[i + 1])
+                else:
+                    prefix = argv[i + 1]
+            except ValueError:
+                print(f"ponyc_tpu_torch supervise: bad value for {a}: "
+                      f"{argv[i + 1]!r}", file=sys.stderr)
+                return 2
+            i += 2
+            continue
+        rest.append(a)
+        i += 1
+    if not rest or prefix is None:
+        print("ponyc_tpu_torch supervise: need --prefix <checkpoint-prefix> "
+              "and a <script.py> (the script should set "
+              "RuntimeOptions(checkpoint_every_s=..., checkpoint_path="
+              "<prefix>) and call supervise.maybe_restore(rt))",
+              file=sys.stderr)
+        return 2
+    script = rest[0]
+    if not os.path.exists(script):
+        print(f"ponyc_tpu_torch supervise: no such script: {script}",
+              file=sys.stderr)
+        return 2
+    from .supervise import PoisonError, Supervisor
+    # The child must find THIS ponyc_tpu_torch whatever directory its
+    # script lives in: append our package root to PYTHONPATH (append,
+    # not replace — an environment's own entries stay first).
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    existing = os.environ.get("PYTHONPATH", "")
+    os.environ["PYTHONPATH"] = (existing + os.pathsep + pkg_root
+                                if existing else pkg_root)
+    sup = Supervisor(argv=[sys.executable, script] + rest[1:],
+                     prefix=prefix, retries=retries, backoff_s=backoff)
+    try:
+        code = sup.run()
+    except PoisonError as e:
+        print(f"ponyc_tpu_torch supervise: POISON — {e}", file=sys.stderr)
+        return 3
+    if sup.restarts:
+        print(f"ponyc_tpu_torch supervise: recovered after {sup.restarts} "
+              f"restart(s); final exit {code}", file=sys.stderr)
+    return code
+
+
 def cmd_version(_argv) -> int:
     import torch
 
@@ -234,7 +413,8 @@ def cmd_version(_argv) -> int:
 
 
 COMMANDS = {"trace": cmd_trace, "top": cmd_top, "doctor": cmd_doctor,
-            "version": cmd_version}
+            "snapshot": cmd_snapshot, "restore": cmd_restore,
+            "supervise": cmd_supervise, "version": cmd_version}
 
 # The JAX package's other verbs, and what part of the port brings each
 # (ROADMAP.md, "Port slices" and Queue 1).
@@ -247,9 +427,6 @@ NOT_SERVED = {
     "doc": "the static checks (ROADMAP Queue 1 item 8)",
     "verify": "the static checks (ROADMAP Queue 1 item 8)",
     "lint": "the static checks (ROADMAP Queue 1 item 8)",
-    "supervise": "durability (port slice 9)",
-    "snapshot": "durability (port slice 9)",
-    "restore": "durability (port slice 9)",
     "serve": "the host services (ROADMAP Queue 1 item 7)",
 }
 

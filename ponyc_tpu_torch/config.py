@@ -264,8 +264,8 @@ class RuntimeOptions:
     #   checkpoint cadence in seconds (None = off): the run loop
     #   snapshots the whole world at the next quiescent window boundary
     #   once this much time has passed — capture (device→host copy,
-    #   started async) runs on the run-loop thread; compression,
-    #   checksumming and the fsync+atomic-rename write ride a
+    #   started async) runs on the run-loop thread; checksumming
+    #   and the fsync+atomic-rename write ride a
     #   background writer thread behind the next in-flight window
     #   (Runtime.checkpoint_stats() records both costs, PROFILE.md §12)
     checkpoint_path: str = ""      # checkpoint ring file PREFIX; files
@@ -500,7 +500,6 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 PORT_SLICES = {
     "observability": ("measured cost capture (cost_capture, "
                       "measured_costs)", 11),
-    "durability": ("durable checkpoints (checkpoint_every_s)", 9),
     "mesh": ("mesh sharding (mesh_shards > 1)", 10),
 }
 
@@ -526,5 +525,3 @@ def check_supported(opts: RuntimeOptions) -> None:
         raise unported("mesh")
     if opts.cost_capture:
         raise unported("observability")
-    if opts.checkpoint_every_s is not None:
-        raise unported("durability")

@@ -155,10 +155,11 @@ class FlightRecorder:
     def postmortem(self, reason: str, **extra) -> Dict[str, Any]:
         """The structured dump: reason + the rings + runtime/host facts.
         Everything in it is JSON-serialisable host state — building it
-        never touches the device. The checkpoint, serving and measured
-        blocks belong to slices the port does not serve yet: they read
-        through getattr and stay None, as the JAX package's readers
-        expect of a runtime without them."""
+        never touches the device. The checkpoint block is the ring's
+        newest restorable snapshot (serialise.Checkpointer.info). The
+        serving and measured blocks belong to parts the port does not
+        serve yet: they read through getattr and stay None, as the JAX
+        package's readers expect of a runtime without them."""
         rt = self.rt
         import dataclasses
         ctrl = getattr(rt, "_controller", None)
@@ -379,6 +380,14 @@ def render_postmortem(pm: Dict[str, Any]) -> str:
     for e in pm.get("errors") or []:
         lines.append(f"error: {e['class']} (code {e['code']}) "
                      f"x{e['count']}")
+    ck = pm.get("checkpoint")
+    if ck and ck.get("path"):
+        lines.append(
+            f"restorable from: {ck['path']} (age {ck.get('age_s', '?')}s,"
+            f" seq {ck.get('seq', '?')}, checksum "
+            f"{'ok' if ck.get('verified') else 'unverified'})")
+    elif ck is not None:
+        lines.append("restorable from: (no checkpoint written yet)")
     ctrl = pm.get("controller")
     if ctrl:
         lines.append(f"controller: window={ctrl.get('window')} "
@@ -463,4 +472,10 @@ def diagnose_postmortem(pm: Dict[str, Any]) -> Tuple[str, str]:
             and "STALLED" in line:
         line += (f"; {last['occ_sum']} message(s) still queued "
                  f"(deepest {last['occ_max']})")
+    ck = pm.get("checkpoint")
+    if ck and ck.get("path") and line.startswith(("STALLED", "CRASHED")):
+        # The doctor's recovery pointer: what the supervisor would
+        # restore from (`python -m ponyc_tpu_torch supervise`,
+        # supervise.py).
+        line += f" — restorable from {ck['path']}"
     return line, render_postmortem(pm)

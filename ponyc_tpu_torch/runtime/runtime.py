@@ -286,6 +286,16 @@ class Runtime:
         self._watchdog = None         # flight.Watchdog when watchdog_s
         self._metrics = None          # metrics.MetricsServer when
         #   metrics_port is not None
+        self._ckpt = None             # serialise.Checkpointer when
+        #   checkpoint_every_s is set (durable worlds)
+        self._last_run_crashed = False  # run() exited exceptionally:
+        #   stop() must not overwrite the ring's newest snapshot with
+        #   the post-crash world (the supervisor restores the last
+        #   intact pre-crash checkpoint)
+        self._bridge_pollers: List[Any] = []   # register_poller's
+        self._noisy = 0               # outside event sources holding the
+        #   run open (≙ asio's noisy count): the snapshot header carries
+        #   it; the port has no such sources yet, so no run waits on it
         self._pre_pin_affinity = None  # the CPU set before opts.pin
         self._wd_epoch = 0            # phase-stamp progress counter
         self._wd_stamp = ("idle", 0, time.monotonic())  # (phase,
@@ -365,8 +375,19 @@ class Runtime:
             self._metrics = _metrics.MetricsServer(self,
                                                    self.opts.metrics_port)
             self._metrics.update_now(self)
+        if self.opts.checkpoint_every_s is not None:
+            from .. import serialise as _serialise
+            self._ckpt = _serialise.Checkpointer(self)
         self._stamp("idle")
         return self
+
+    def register_poller(self, poller) -> None:
+        """poller.poll(rt) is called at every host boundary of run(); it
+        may send messages or raise (the chaos harness's coded fatal,
+        testing.fatal_at_boundary). While a poller is registered a
+        quiescent run polls a few more boundaries before it ends, as the
+        JAX package's does."""
+        self._bridge_pollers.append(poller)
 
     def _apply_defaults_and_pin(self) -> None:
         if self._opts_defaulted:
@@ -1189,7 +1210,9 @@ class Runtime:
         skipped = 0
         a = None          # newest retired aux; None forces a first window
         win = None        # the one in-flight (unretired) window
+        idle_polls = 0
         self._last_retire_t = None
+        self._last_run_crashed = False
         # SIGQUIT dumps the flight recorder and the run goes on (the
         # operator's "what is it doing right now" key, ^\ on a tty).
         prev_quit = None
@@ -1226,7 +1249,13 @@ class Runtime:
                     # in-flight one before reading its scalars; its tick 0
                     # is gated on the device by the in-flight aux.
                     spec = None
-                    if pipelining and a is not None and self._clean_busy(a):
+                    # A due checkpoint suppresses the next speculation:
+                    # the following boundary then has no window in
+                    # flight, the quiescent-consistent point a snapshot
+                    # needs (a delay of at most one window).
+                    ckpt_due = self._ckpt is not None and self._ckpt.due()
+                    if pipelining and not ckpt_due and a is not None \
+                            and self._clean_busy(a):
                         budget = ctrl.window
                         if max_steps is not None:
                             budget = min(budget, max_steps - steps_this_run
@@ -1246,11 +1275,28 @@ class Runtime:
                     break
                 if a.host_pending:
                     self._drain_host()
+                for p in self._bridge_pollers:
+                    p.poll(self)
                 # Fast lane: host → host messages, including those the
-                # drain just produced, dispatch now, without a device
-                # window a hop.
+                # drain and the pollers just produced, dispatch now,
+                # without a device window a hop.
                 self._drain_host_fast(self.opts.host_fastpath_budget)
                 self._maybe_gc()
+                # Periodic crash-safe checkpoint: with no window in
+                # flight the retired state and the host queues are
+                # exactly what serialise captures. The device→host copy
+                # runs now, the write on the checkpointer's thread. A
+                # failed checkpoint is counted and recorded; it never
+                # takes down the run it exists to protect.
+                if self._ckpt is not None and win is None:
+                    try:
+                        self._ckpt.tick(self, in_flight=False)
+                    except Exception as e:          # noqa: BLE001
+                        self.totals["checkpoint_errors"] += 1
+                        if self._flight is not None:
+                            self._flight.event(
+                                "checkpoint_failed",
+                                error=f"{type(e).__name__}: {e}")
                 if self._exit_requested:
                     self._exit_requested = False    # consume the request
                     break
@@ -1268,21 +1314,27 @@ class Runtime:
                             continue
                     # Quiescent: terminate (≙ the ACK'd CNF token), after
                     # at most 3 cleanup ticks — the unmute pass lags the
-                    # drain that satisfies it by one tick. (Waiting on
-                    # outside events, the reference's bridge pollers, is
-                    # not served by this slice.)
+                    # drain that satisfies it by one tick. With pollers
+                    # registered, a few idle boundaries poll first.
                     self._stamp("quiescent")
-                    cleanup = 0
-                    while (a.any_muted and cleanup < 3
-                           and (max_steps is None
-                                or steps_this_run + skipped < max_steps)):
-                        cw = self._dispatch_window(
-                            1, force=True,
-                            prev_aux=engine.aux_to_device(a, self.device))
-                        k2, a = self._retire_window(cw)
-                        steps_this_run += k2
-                        cleanup += 1
-                    break
+                    if not self._bridge_pollers or idle_polls > 2:
+                        cleanup = 0
+                        while (a.any_muted and cleanup < 3
+                               and (max_steps is None
+                                    or steps_this_run + skipped
+                                    < max_steps)):
+                            cw = self._dispatch_window(
+                                1, force=True,
+                                prev_aux=engine.aux_to_device(a,
+                                                              self.device))
+                            k2, a = self._retire_window(cw)
+                            steps_this_run += k2
+                            cleanup += 1
+                        break
+                    idle_polls += 1
+                    time.sleep(min(0.002, 2e-5 * (1 << min(idle_polls, 7))))
+                else:
+                    idle_polls = 0
                 if max_steps is not None \
                         and steps_this_run + skipped >= max_steps:
                     break
@@ -1323,6 +1375,8 @@ class Runtime:
                 except ValueError:
                     pass
             self._stamp("idle")
+            self._last_run_crashed = (exc is not None
+                                      and not isinstance(exc, SystemExit))
             # Crash postmortem: any exceptional exit dumps the black box
             # (a stall's dump was written by the watchdog already).
             if (exc is not None and self._flight is not None
@@ -1360,6 +1414,28 @@ class Runtime:
                            if self._controller is not None else None),
         }
 
+    def checkpoint(self, path: Optional[str] = None) -> Optional[str]:
+        """Write one snapshot now: to `path` (synchronous, serialise.save)
+        or into the periodic ring (the write on the checkpointer's
+        thread; needs checkpoint_every_s) — returns the file's path.
+        Call between runs only, like serialise.save."""
+        from .. import serialise as _serialise
+        if path is not None:
+            _serialise.save(self, path)
+            return path
+        if self._ckpt is None:
+            raise RuntimeError(
+                "no checkpoint ring configured: pass path=, or set "
+                "RuntimeOptions.checkpoint_every_s/checkpoint_path")
+        seq = self._ckpt.checkpoint(self, force=True)
+        return _serialise.checkpoint_file(self._ckpt.prefix, seq)
+
+    def checkpoint_stats(self) -> Optional[Dict[str, Any]]:
+        """The checkpointer's telemetry: captures, writes, failures,
+        skips, capture and write ms, bytes of the last snapshot, and the
+        newest file; None when checkpointing is off."""
+        return self._ckpt.stats() if self._ckpt is not None else None
+
     def request_exit(self, code: int = 0) -> None:
         """Ask the run loop to stop at the next host boundary (≙
         pony_exitcode + the quiescent stop, start.c:345, callable from
@@ -1370,10 +1446,12 @@ class Runtime:
 
     def stop(self, postmortem: bool = False) -> int:
         """Tear down the auxiliaries (≙ pony_stop, start.c:332-351): emit
-        the analysis summary and stop its writer thread, and stop the
-        watchdog and metrics threads. ``postmortem=True`` also dumps the
-        flight recorder (the path lands in ``rt._flight.last_dump``).
-        Returns the exit code."""
+        the analysis summary and stop its writer thread, take the final
+        checkpoint (checkpointing on, the last run neither crashed nor
+        stalled) and stop the checkpointer's, the watchdog's and the
+        metrics threads. ``postmortem=True`` also dumps the flight
+        recorder (the path lands in ``rt._flight.last_dump``). Returns
+        the exit code."""
         if postmortem and self._flight is not None:
             self._flight.dump(reason="stop(postmortem=True)")
         a = self._analysis
@@ -1382,6 +1460,21 @@ class Runtime:
             a.close()
             self._analysis = None
         wd = self._watchdog
+        if self._ckpt is not None:
+            if (wd is None or wd.tripped is None) \
+                    and not self._last_run_crashed:
+                # The final checkpoint of a clean teardown, the fast-start
+                # restore source. Skipped after a stall (the capture
+                # would wait on the wedged card) and after any crashed
+                # run: the ring's newest snapshot must stay the last
+                # intact pre-crash world, or the supervisor would
+                # restore straight back into the failure.
+                try:
+                    self._ckpt.checkpoint(self, force=True)
+                except Exception:                  # noqa: BLE001
+                    self.totals["checkpoint_errors"] += 1
+            self._ckpt.close()
+            self._ckpt = None
         if wd is not None:
             wd.close()
             self._watchdog = None

@@ -230,3 +230,39 @@ def init_state(program: Program, opts: RuntimeOptions,
         world_bits=z((p,)),
         type_state=type_state,
     )
+
+
+def geometry_descriptor(program: Program, opts: RuntimeOptions):
+    """The layout facts a snapshot carries so that a restore can re-lay
+    out the state into a different geometry (serialise.py): everything
+    that sizes a tensor without changing the program's structure.
+    Cohorts are in declaration order (behaviour ids depend on it, and
+    the structural fingerprint covers it); a slot is the actor's
+    identity whatever the capacity. The JAX package's descriptor for
+    the same program and options is the same dict, so snapshots cross
+    between the packages."""
+    assert program.frozen
+    return {
+        "shards": program.shards,
+        "n_local": program.n_local,
+        "total": program.total,
+        "mailbox_cap": opts.mailbox_cap,
+        "msg_words": opts.msg_words,
+        "trace_lanes": opts.trace_lanes,
+        "spill_cap": opts.spill_cap,
+        "mute_slots": opts.mute_slots,
+        "blob_slots": opts.blob_slots,
+        "blob_words": opts.blob_words,
+        "analysis": opts.analysis,
+        "trace_slots": opts.trace_slots if opts.tracing else 0,
+        "analysis_events": (opts.analysis_events
+                            if opts.analysis >= 3 else 0),
+        "cohorts": [{
+            "name": c.atype.__name__,
+            "capacity": c.capacity,
+            "local_capacity": c.local_capacity,
+            "local_start": c.local_start,
+            "host": bool(c.host),
+            "msg_words": c.msg_words,
+        } for c in program.cohorts],
+    }

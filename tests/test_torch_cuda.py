@@ -702,3 +702,119 @@ def test_profile_device_traces_the_window_kernel(tmp_path):
     with open(path) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any("pony_mega_kernel" in n for n in names), sorted(names)[:40]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_card_snapshot_restores_bit_equal_on_each_path(path, tmp_path):
+    """The walkers world under mute pressure, snapshotted on the card on
+    `path` mid-run, restored into a fresh card runtime on each of the
+    three paths and into a CPU runtime: each finishes with the fields,
+    counters, ticks and plan state of the run the snapshot was cut
+    from."""
+    from ponyc_tpu_torch import serialise
+    _need_cuda()
+    kw = dict(mailbox_cap=2, batch=1, max_sends=2, msg_words=1,
+              spill_cap=512, inject_slots=16)
+
+    def numbers(rt):
+        return (rt.exit_code, rt.steps_run, counters(rt),
+                {k: v.tolist() for k, v in
+                 rt.cohort_state(TT.Walker).items()},
+                {f: getattr(rt.state, f).cpu().tolist()
+                 for f in ("plan_key", "plan_perm", "plan_bounds")})
+
+    whole = build_walkers(ponyc_tpu_torch, TT, 23, device="cuda",
+                          **kw, **PATHS[path])
+    whole.run(max_steps=8)
+    whole.run(max_steps=50_000)
+    want = numbers(whole)
+    rt = build_walkers(ponyc_tpu_torch, TT, 23, device="cuda", **kw,
+                       **PATHS[path])
+    rt.run(max_steps=8)
+    assert bool(rt.state.muted.any())
+    p = str(tmp_path / "card.npz")
+    serialise.save(rt, p)
+    for to_path, device in [(q, "cuda") for q in PATHS] + [("plain",
+                                                            "cpu")]:
+        rt2 = ponyc_tpu_torch.Runtime(RuntimeOptions(
+            tuning_cache="off", **kw, **PATHS[to_path]), device=device)
+        rt2.declare(TT.Walker, 24).declare(TT.Splitter, 8).start()
+        serialise.restore(rt2, p)
+        rt2.run(max_steps=50_000)
+        assert numbers(rt2) == want, (to_path, device)
+
+
+_WEDGE_CHILD = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+import numpy as np
+import torch
+from ponyc_tpu_torch import RuntimeOptions, supervise
+from ponyc_tpu_torch.errors import error_code
+from ponyc_tpu_torch.models import ubench
+kw = dict(mailbox_cap=4, batch=4, max_sends=1, msg_words=1, spill_cap=256,
+          inject_slots=8, quiesce_interval=8, delivery="pallas_mega",
+          tuning_cache="off", analysis_path={apath!r})
+ubench.build(1 << 12, RuntimeOptions(**kw), pings=4)   # build the kernel
+rt, ids = ubench.build(1 << 12, RuntimeOptions(
+    watchdog_s=1.0, checkpoint_every_s=0.05, checkpoint_path={prefix!r},
+    **kw), pings=4)
+restored = supervise.maybe_restore(rt)
+if restored is None:
+    ubench.seed_all(rt, ids, hops=400, pings=4)
+    rt.checkpoint()                              # the recovery floor
+    if {wedge!r}:
+        rt.run(max_steps=64)
+        torch.cuda._sleep({cycles})              # the wedge
+try:
+    code = rt.run()
+except Exception as e:
+    c = error_code(e)
+    if c:
+        os._exit(c)
+    raise
+out = {{"code": code, "steps": rt.steps_run,
+       "pings": rt.cohort_state(ubench.Pinger)["pings"].tolist(),
+       "processed": rt.counter("n_processed"),
+       "restored": restored is not None}}
+rt.stop()
+json.dump(out, open({out!r}, "w"))
+"""
+
+
+@pytest.mark.cuda
+def test_wedged_window_supervised_to_completion(tmp_path):
+    """A kernel-3 window queued behind a sleep of about 8 s, under a 1 s
+    watchdog: the child exits with code 7, the subprocess supervisor
+    restarts it from the newest intact snapshot, and the run finishes
+    with the unfaulted run's result."""
+    import json
+    import os
+    import sys
+    from ponyc_tpu_torch import supervise
+    _need_cuda()
+    cycles = _sleep_cycles(8.0)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    results = {}
+    for wedge in (False, True):
+        name = "wedged" if wedge else "clean"
+        script = str(tmp_path / f"{name}.py")
+        out = str(tmp_path / f"{name}.json")
+        with open(script, "w") as f:
+            f.write(_WEDGE_CHILD.format(
+                root=root, apath=str(tmp_path / f"{name}.csv"),
+                prefix=str(tmp_path / f"{name}-ring"), wedge=wedge,
+                cycles=cycles, out=out))
+        sup = supervise.Supervisor(argv=[sys.executable, script],
+                                   prefix=str(tmp_path / f"{name}-ring"),
+                                   retries=3, backoff_s=0.1)
+        assert sup.run() == 0, sup.failures
+        with open(out) as f:
+            results[name] = (json.load(f), sup)
+    got, sup = results["wedged"]
+    want, _ = results["clean"]
+    assert sup.restarts >= 1 and sup.failures[0]["code"] == 7
+    assert got["restored"] and not want["restored"]
+    for k in ("code", "steps", "pings", "processed"):
+        assert got[k] == want[k], k

@@ -71,6 +71,67 @@ def test_observability_modules_import_no_jax_and_no_reference():
     assert res == {"bad": [], "codes": [0, 0]}
 
 
+_DURABLE_CHILD = """
+import json, os, subprocess, sys, tempfile
+import ponyc_tpu_torch.serialise, ponyc_tpu_torch.supervise
+import ponyc_tpu_torch.testing
+from ponyc_tpu_torch import RuntimeOptions, serialise, supervise
+from ponyc_tpu_torch.models import ring
+d = tempfile.mkdtemp()
+opts = RuntimeOptions(mailbox_cap=4, batch=1, max_sends=1, msg_words=1,
+                      spill_cap=32, inject_slots=4, tuning_cache="off",
+                      checkpoint_every_s=0.01, checkpoint_path=d + "/ring",
+                      analysis_path=d + "/an.csv")
+rt, ids = ring.build(8, opts, device="cpu")
+rt.send(int(ids[0]), ring.RingNode.token, 40)
+rt.run(max_steps=9)
+serialise.save(rt, d + "/w.npz")
+rt2, _ = ring.build(8, opts, device="cpu")
+serialise.restore(rt2, d + "/w.npz")
+code = rt2.run()
+rt2.stop()
+child = d + "/child.py"
+with open(child, "w") as f:
+    f.write("import sys; sys.path.insert(0, %r)\\n" % os.getcwd()
+            + "from ponyc_tpu_torch import RuntimeOptions, supervise\\n"
+            + "from ponyc_tpu_torch.models import ring\\n"
+            + "rt, ids = ring.build(8, RuntimeOptions(tuning_cache='off', "
+            + "checkpoint_every_s=1.0, checkpoint_path=%r, "
+            % (d + "/sup")
+            + "analysis_path=%r), device='cpu')\\n" % (d + "/c.csv")
+            + "if supervise.maybe_restore(rt) is None:\\n"
+            + "    rt.send(int(ids[0]), ring.RingNode.token, 16)\\n"
+            + "code = rt.run(); rt.stop()\\n"
+            + "bad = [m for m in sys.modules if m == 'jax' or "
+            + "m.startswith(('jax.', 'jaxlib')) or m == 'ponyc_tpu' or "
+            + "m.startswith('ponyc_tpu.')]\\n"
+            + "sys.exit(3 if bad else code)\\n")
+sup = supervise.Supervisor(argv=[sys.executable, child],
+                           prefix=d + "/sup", retries=0)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
+print(json.dumps({"bad": bad, "code": code, "child": sup.run(),
+                  "passes": int(rt2.cohort_state(ring.RingNode)
+                                ["passes"].sum())}))
+"""
+
+
+def test_durability_modules_import_no_jax_and_no_reference():
+    """serialise.py, supervise.py and testing.py, driven through a
+    checkpointed run, a save/restore round trip and a supervised child
+    on the CPU, pull in no JAX and nothing of the JAX package (in the
+    parent and in the child)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _DURABLE_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "code": 0, "child": 0, "passes": 40}
+
+
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -92,7 +153,7 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(checkpoint_every_s=1.0), 9), (dict(mesh_shards=2), 10),
+    (dict(mesh_shards=2), 10),
     (dict(cost_capture=True), 11),
     # Slice 11 serves the watchdog; cost capture still raises beside it.
     (dict(cost_capture=True, watchdog_s=1.0), 11),
