@@ -37,11 +37,17 @@ Commands:
             <script.py> ...   PONY_TPU_RESTORE at the newest intact
                               ring snapshot. Exit: the script's, 3 on
                               deterministic poison, 2 usage.
+  serve [--host H] [--port P] run the serving front door (serve.py:
+        [--workers N] [--cpu] batched socket ingress, admission
+        [--tls-cert C         control, graceful drain on SIGTERM) over
+         --tls-key K]         the default compute service, on the card
+        [--pending-limit B]   unless --cpu. Exit: 0 drained, a coded
+        [--drain-grace S]     failure's error code, 2 usage.
   version                     print the version, the torch build and
                               the card.
 
 The JAX package's other verbs (run, bench, test, doc, verify, lint,
-serve, perf) print which part of the port brings them and exit 2.
+perf) print which part of the port brings them and exit 2.
 """
 
 from __future__ import annotations
@@ -396,6 +402,14 @@ def cmd_supervise(argv) -> int:
     return code
 
 
+def cmd_serve(argv) -> int:
+    """Run the serving front door (serve.py: batched socket ingress,
+    admission control, graceful drain) over the default compute
+    service."""
+    from .serve import main as serve_main
+    return serve_main(argv)
+
+
 def cmd_version(_argv) -> int:
     import torch
 
@@ -414,7 +428,8 @@ def cmd_version(_argv) -> int:
 
 COMMANDS = {"trace": cmd_trace, "top": cmd_top, "doctor": cmd_doctor,
             "snapshot": cmd_snapshot, "restore": cmd_restore,
-            "supervise": cmd_supervise, "version": cmd_version}
+            "supervise": cmd_supervise, "serve": cmd_serve,
+            "version": cmd_version}
 
 # The JAX package's other verbs, and what part of the port brings each
 # (ROADMAP.md, "Port slices" and Queue 1).
@@ -427,7 +442,6 @@ NOT_SERVED = {
     "doc": "the static checks (ROADMAP Queue 1 item 8)",
     "verify": "the static checks (ROADMAP Queue 1 item 8)",
     "lint": "the static checks (ROADMAP Queue 1 item 8)",
-    "serve": "the host services (ROADMAP Queue 1 item 7)",
 }
 
 

@@ -156,10 +156,11 @@ class FlightRecorder:
         """The structured dump: reason + the rings + runtime/host facts.
         Everything in it is JSON-serialisable host state — building it
         never touches the device. The checkpoint block is the ring's
-        newest restorable snapshot (serialise.Checkpointer.info). The
-        serving and measured blocks belong to parts the port does not
-        serve yet: they read through getattr and stay None, as the JAX
-        package's readers expect of a runtime without them."""
+        newest restorable snapshot (serialise.Checkpointer.info), the
+        serving block the front door's stats (serve.Server.stats). The
+        measured block belongs to cost capture, which the port does not
+        serve yet: it reads through getattr and stays None, as the JAX
+        package's readers expect of a runtime without it."""
         rt = self.rt
         import dataclasses
         ctrl = getattr(rt, "_controller", None)
@@ -402,6 +403,21 @@ def render_postmortem(pm: Dict[str, Any]) -> str:
                 f"  step={w['step']} ticks={w['ticks']}/{w['budget']} "
                 f"gap={w['gap_us']}us occ={w['occ_sum']} "
                 f"qw_p99={w['qw_p99']} flags={_fmt_flags(w['flags'])}")
+    srv = pm.get("serving")
+    if srv:
+        sh = srv.get("shed") or {}
+        lines.append(
+            f"serving: frames={srv.get('frames')} "
+            f"accepted={srv.get('accepted')} "
+            f"replied={srv.get('replied')} "
+            f"shed={srv.get('shed_total')} "
+            f"(rate {srv.get('shed_rate')}; "
+            + ", ".join(f"{k}={v}" for k, v in sorted(sh.items()))
+            + f") queue={srv.get('queue')} "
+            f"inflight={srv.get('inflight')} "
+            f"admit_limit={(srv.get('admission') or {}).get('limit')} "
+            f"net_pending={srv.get('net_pending_bytes')}B"
+            + (" DRAINING" if srv.get("draining") else ""))
     mail = pm.get("host_mail") or []
     if mail:
         lines.append("recent host mail: " + ", ".join(
@@ -472,6 +488,13 @@ def diagnose_postmortem(pm: Dict[str, Any]) -> Tuple[str, str]:
             and "STALLED" in line:
         line += (f"; {last['occ_sum']} message(s) still queued "
                  f"(deepest {last['occ_max']})")
+    srv = pm.get("serving")
+    if srv and line.startswith(("STALLED", "CRASHED")):
+        # Serving-aware verdict: was the front door shedding (the edge
+        # held) and how much reply backlog died with the world?
+        line += (f"; serving: shed_rate={srv.get('shed_rate')} "
+                 f"inflight={srv.get('inflight')} "
+                 f"net_pending={srv.get('net_pending_bytes')}B")
     ck = pm.get("checkpoint")
     if ck and ck.get("path") and line.startswith(("STALLED", "CRASHED")):
         # The doctor's recovery pointer: what the supervisor would

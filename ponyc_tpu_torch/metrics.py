@@ -22,9 +22,10 @@ REFRESH_S) and the HTTP thread renders the latest one. The health
 verdict reads only host attributes (the phase stamp tuple, the watchdog
 trip record), so ``/healthz`` keeps answering — and flips to
 ``stalled`` — while the card is wedged solid. With ``metrics_port=None``
-nothing starts. The net, serving and measured blocks belong to slices
-the port does not serve yet: the snapshot reads them through getattr,
-so they stay absent.
+nothing starts. The net and serving blocks are the front door's
+(``rt.net``, ``rt._serve``: net/, serve.py); the measured block belongs
+to cost capture, which the port does not serve yet. The snapshot reads
+all three through getattr, so a runtime without them leaves them out.
 """
 
 from __future__ import annotations

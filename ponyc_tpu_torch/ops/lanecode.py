@@ -47,11 +47,26 @@ the scalar's reciprocal; ``pow`` special-cases its exponent). Target
 "host" mirrors torch's CPU kernels instead, for the host build the CPU
 tests use.
 
+A constant tensor the body makes (``torch.tensor(w).reshape(8, 1)``)
+is one "const" node per element, laid out like any other value; one that
+holds a single value is one node. Reductions over a value's leading axes
+only (``x.sum(0)`` of a ``[8, lanes]`` plane; ``sum``, ``prod``,
+``amax``, ``amin``, the values of ``max``/``min`` over a dim, ``any``,
+``all``) stay inside each lane: the tracer lowers each to a chain of the
+binary nodes above (``add``, ``mul``, ``maximum``, ``minimum``,
+``logical_or``, ``logical_and``), in torch's result dtype (an integer
+or bool ``sum``/``prod`` computes in int64), so no op of its own reaches
+C++.
+
 Anything else raises NotImplementedError naming the behaviour and the
-ATen op: an op that crosses lanes (a reduction, an index over the actor
-axis), an op without an emitter (transcendentals, float floor division,
-in-place updates of body-local tensors), a non-scalar constant tensor,
-or reading a lane value on the host (``bool(x)``, ``x.item()``).
+ATen op: an op that crosses lanes (a reduction over the actor axis, an
+index over it), a float ``sum``/``prod`` (torch's reduce kernels choose
+the order of the additions, and keep several accumulators on CUDA, so a
+chain cannot match them bit for bit), the indices of ``max``/``min``,
+an op without an emitter (transcendentals, float floor division,
+in-place updates of body-local tensors), a constant tensor with an axis
+of the lane count (a per-actor table written into the body), or reading
+a lane value on the host (``bool(x)``, ``x.item()``).
 """
 
 from __future__ import annotations
@@ -98,6 +113,20 @@ _CROSSING = {"sum", "mean", "prod", "max", "min", "amax", "amin", "any",
              "searchsorted", "var", "std", "norm", "count_nonzero",
              "matmul", "mm", "bmm", "dot", "mv", "logsumexp", "softmax",
              "_softmax", "log_softmax", "_log_softmax"}
+# Reductions that stay inside a lane when they reduce leading axes only:
+# the overloads taken, and the binary op each chains.
+_REDUCE = {aten.sum.dim_IntList: aten.add.Tensor,
+           aten.prod.dim_int: aten.mul.Tensor,
+           aten.amax.default: aten.maximum.default,
+           aten.amin.default: aten.minimum.default,
+           aten.max.dim: aten.maximum.default,
+           aten.min.dim: aten.minimum.default,
+           aten.any.dim: aten.logical_or.default,
+           aten.all.dim: aten.logical_and.default}
+for _name, _op in (("any", aten.logical_or.default),
+                   ("all", aten.logical_and.default)):
+    if hasattr(getattr(aten, _name), "dims"):
+        _REDUCE[getattr(aten, _name).dims] = _op
 # Ops that would read a lane value into Python.
 _HOST_READ = {"_local_scalar_dense", "is_nonzero", "equal", "item"}
 
@@ -189,6 +218,7 @@ class _Tracer(TorchDispatchMode):
         self.vals: Dict[int, torch.Tensor] = {}   # id(tensor) -> node ids
         self.keep: List[torch.Tensor] = []        # ids stay unique
         self.inputs: set = set()
+        self.unusable: Dict[int, str] = {}        # id(tensor) -> why
 
     # -- bookkeeping --------------------------------------------------
     def refuse(self, func, why: str):
@@ -231,16 +261,30 @@ class _Tracer(TorchDispatchMode):
         c = self.vals.get(id(t))
         if c is not None:
             return c
-        flat = t.detach().reshape(-1)
-        if flat.numel() == 0 or (flat.numel() > 1
-                                 and not bool((flat == flat[0]).all())):
+        if id(t) in self.unusable:
             raise NotImplementedError(
-                f"pallas_fused: behaviour {self.where} uses a non-scalar "
-                f"constant tensor of shape {tuple(t.shape)}; the fused "
-                "kernel takes scalar constants only")
-        i = self.add(Node("const", t.dtype, key=flat[0].item(),
-                          dimmed=t.ndim > 0))
-        return torch.full(self.cshape(t.shape), i, dtype=torch.int64)
+                f"pallas_fused: behaviour {self.where} uses "
+                f"{self.unusable[id(t)]}; the fused kernel does not make it")
+        flat = t.detach().reshape(-1)
+        if flat.numel() == 0:
+            raise NotImplementedError(
+                f"pallas_fused: behaviour {self.where} uses an empty "
+                f"constant tensor of shape {tuple(t.shape)}")
+        if flat.numel() == 1 or bool((flat == flat[0]).all()):
+            i = self.add(Node("const", t.dtype, key=flat[0].item(),
+                              dimmed=t.ndim > 0))
+            return torch.full(self.cshape(t.shape), i, dtype=torch.int64)
+        if self.lane_shaped(t):
+            raise NotImplementedError(
+                f"pallas_fused: behaviour {self.where} uses a constant "
+                f"tensor of shape {tuple(t.shape)}, whose last axis has the "
+                "lane count (a per-actor table written into the body); the "
+                "fused kernel takes constants without a lane axis only")
+        ids = torch.empty(tuple(t.shape), dtype=torch.int64)
+        for idx in np.ndindex(*t.shape):
+            ids[idx] = self.add(Node("const", t.dtype, key=t[idx].item(),
+                                     dimmed=True))
+        return ids
 
     # -- dispatch -----------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -262,6 +306,9 @@ class _Tracer(TorchDispatchMode):
                 return out      # eval_behaviour raises for this itself
             raise self.refuse(func, "updates a tensor in place "
                               "(write x = x + 1, not x += 1)")
+        if func in _REDUCE:
+            self._reduce(func, args, kwargs, out)
+            return out
         if name in _CROSSING:
             raise self.refuse(func, "is not lane-wise (it reads across "
                               "actors)")
@@ -312,6 +359,67 @@ class _Tracer(TorchDispatchMode):
             if tuple(c.shape) != self.cshape(o.shape):
                 raise self.refuse(func, "mixes the actor axis with others")
             self.bind(o, c.clone())
+
+    def node(self, func, args, kwargs, dtype, cdtype) -> int:
+        """An op node over `args`/`kwargs` whose tensor operands are
+        _Refs."""
+        flat, spec = pytree.tree_flatten((args, kwargs))
+        return self.add(Node("op", dtype, func=func, spec=spec,
+                             leaves=tuple(flat), cdtype=cdtype))
+
+    def convert(self, i: int, dtype) -> int:
+        """Node `i` as `dtype` (a _to_copy node; `i` itself if it has
+        that dtype)."""
+        if self.nodes[i].dtype == dtype:
+            return i
+        return self.node(aten._to_copy.default, (_Ref(i),),
+                         {"dtype": dtype}, dtype, dtype)
+
+    def _reduce(self, func, args, kwargs, out):
+        """A reduction over leading axes: per output element, a chain of
+        binary nodes over the reduced elements in row-major order."""
+        x = args[0]
+        if id(x) not in self.vals:
+            return                  # over a constant: a constant
+        named = _named(func, args, kwargs)
+        dims = named.get("dim")
+        if dims is None or (isinstance(dims, (list, tuple)) and not dims):
+            dims = range(x.ndim)
+        elif not isinstance(dims, (list, tuple)):
+            dims = [dims]
+        dims = sorted({int(d) % max(x.ndim, 1) for d in dims})
+        if self.lane_shaped(x) and x.ndim - 1 in dims:
+            raise self.refuse(func, "is not lane-wise (it reads across "
+                              "actors)")
+        vals = out[0] if isinstance(out, (tuple, list)) else out
+        if isinstance(out, (tuple, list)):
+            for extra in out[1:]:
+                self.unusable[id(extra)] = f"the indices of {func}"
+                self.keep.append(extra)
+        op = _REDUCE[func]
+        rdt = vals.dtype
+        if op in (aten.add.Tensor, aten.mul.Tensor) and rdt in _FLOAT:
+            raise self.refuse(func, "reduces floats, whose order of "
+                              "operations torch's reduce kernels choose "
+                              "(on CUDA with several accumulators), so a "
+                              "lane chain cannot match it bit for bit")
+        edt = (torch.bool if op in (aten.logical_or.default,
+                                    aten.logical_and.default) else rdt)
+        comps = self.comps_of(x)
+        kept = [a for a in range(comps.ndim) if a not in dims]
+        cp = comps.permute(kept + dims)
+        kshape = tuple(cp.shape[:len(kept)])
+        groups = cp.reshape(kshape + (-1,))
+        if groups.shape[-1] == 0:
+            raise self.refuse(func, "reduces an empty axis")
+        ids = torch.empty(kshape, dtype=torch.int64)
+        for idx in np.ndindex(*kshape):
+            elems = [self.convert(int(i), edt) for i in groups[idx]]
+            acc = elems[0]
+            for e in elems[1:]:
+                acc = self.node(op, (_Ref(acc), _Ref(e)), {}, edt, edt)
+            ids[idx] = self.convert(acc, rdt)
+        self.bind(vals, ids.reshape(self.cshape(vals.shape)))
 
     def _elementwise(self, func, args, kwargs, out) -> torch.Tensor:
         flat, spec = pytree.tree_flatten((args, kwargs))

@@ -294,8 +294,13 @@ class Runtime:
         #   intact pre-crash checkpoint)
         self._bridge_pollers: List[Any] = []   # register_poller's
         self._noisy = 0               # outside event sources holding the
-        #   run open (≙ asio's noisy count): the snapshot header carries
-        #   it; the port has no such sources yet, so no run waits on it
+        #   run open (≙ asio's noisy count: a socket, a timer, a pending
+        #   lookup); while > 0 a quiescent run waits for them
+        self.bridge = None            # attach_bridge / attach_net /
+        self.net = None               #   attach_resolver
+        self.resolver = None
+        self._last_aux = None         # the newest retired window's aux
+        #   (host ints; serve.Server reads qw_p99 and n_muted_now)
         self._pre_pin_affinity = None  # the CPU set before opts.pin
         self._wd_epoch = 0            # phase-stamp progress counter
         self._wd_stamp = ("idle", 0, time.monotonic())  # (phase,
@@ -388,6 +393,41 @@ class Runtime:
         quiescent run polls a few more boundaries before it ends, as the
         JAX package's does."""
         self._bridge_pollers.append(poller)
+
+    # ---- outside event sources (≙ asio/asio.c noisy accounting) ----
+    def add_noisy(self) -> None:
+        """One more outside source (a socket, a timer, a lookup) that may
+        still send: a quiescent run waits while any is held."""
+        self._noisy += 1
+
+    def remove_noisy(self) -> None:
+        self._noisy = max(0, self._noisy - 1)
+
+    def attach_bridge(self):
+        """Create (once) and register the ASIO bridge for this runtime
+        (≙ ponyint_asio_start, asio/asio.c:47-56): OS events become actor
+        messages at host boundaries (bridge/)."""
+        if self.bridge is None:
+            from ..bridge import Bridge
+            self.bridge = Bridge(self)
+            self.register_poller(self.bridge)
+        return self.bridge
+
+    def attach_net(self):
+        """Create (once) the TCP/UDP layer (≙ packages/net over
+        lang/socket.c) on top of the bridge (net/)."""
+        if self.net is None:
+            from ..net import Net
+            self.net = Net(self)
+        return self.net
+
+    def attach_resolver(self):
+        """Create (once) the asynchronous DNS resolver (≙ the addrinfo
+        surface of lang/socket.c, delivered as actor messages)."""
+        if self.resolver is None:
+            from ..net.dns import Resolver
+            self.resolver = Resolver(self)
+        return self.resolver
 
     def _apply_defaults_and_pin(self) -> None:
         if self._opts_defaulted:
@@ -517,7 +557,9 @@ class Runtime:
             raise RuntimeError(
                 f"cohort {atype.__name__} capacity exhausted "
                 f"({cohort.capacity} declared)")
-        slots = np.array([free.pop() for _ in range(count)], np.int64)
+        # The last `count` entries, in the order `count` pops take them.
+        slots = np.array(free[len(free) - count:][::-1], np.int64)
+        del free[len(free) - count:]
         ids = np.asarray(cohort.slot_to_gid(slots), np.int32)
         if cohort.host:
             # A host actor's state lives here, not in device columns.
@@ -1135,6 +1177,7 @@ class Runtime:
             return 0, a
         if self._state_epoch == win["epoch"]:
             self._device_dirty = False
+        self._last_aux = a
         self.steps_run += k
         if self.opts.debug_checks:
             self.check_invariants()
@@ -1315,9 +1358,12 @@ class Runtime:
                     # Quiescent: terminate (≙ the ACK'd CNF token), after
                     # at most 3 cleanup ticks — the unmute pass lags the
                     # drain that satisfies it by one tick. With pollers
-                    # registered, a few idle boundaries poll first.
+                    # registered, a few idle boundaries poll first; while
+                    # an outside source is held (add_noisy) the run
+                    # waits for it.
                     self._stamp("quiescent")
-                    if not self._bridge_pollers or idle_polls > 2:
+                    if self._noisy == 0 and (not self._bridge_pollers
+                                             or idle_polls > 2):
                         cleanup = 0
                         while (a.any_muted and cleanup < 3
                                and (max_steps is None
@@ -1332,7 +1378,19 @@ class Runtime:
                             cleanup += 1
                         break
                     idle_polls += 1
-                    time.sleep(min(0.002, 2e-5 * (1 << min(idle_polls, 7))))
+                    # Waiting on the outside world: block on the asio
+                    # queue when a bridge is attached (the native epoll
+                    # thread wakes the wait the instant an event lands,
+                    # ≙ a suspended scheduler woken by the ASIO thread,
+                    # scheduler.c:1427-1476), else back off. The cap
+                    # bounds other pollers' cadence (resolver results).
+                    waiter = next((p for p in self._bridge_pollers
+                                   if hasattr(p, "wait")), None)
+                    if waiter is not None:
+                        waiter.wait(0.02)
+                    else:
+                        time.sleep(min(0.002,
+                                       2e-5 * (1 << min(idle_polls, 7))))
                 else:
                     idle_polls = 0
                 if max_steps is not None \
@@ -1459,6 +1517,12 @@ class Runtime:
             a.summary()
             a.close()
             self._analysis = None
+        b = self.bridge
+        if b is not None:
+            b.close()
+            self.bridge = None
+            self._bridge_pollers = [p for p in self._bridge_pollers
+                                    if p is not b]
         wd = self._watchdog
         if self._ckpt is not None:
             if (wd is None or wd.tripped is None) \

@@ -818,3 +818,51 @@ def test_wedged_window_supervised_to_completion(tmp_path):
     assert got["restored"] and not want["restored"]
     for k in ("code", "steps", "pings", "processed"):
         assert got[k] == want[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_mandelbrot_card_matches_cpu_and_oracle(path):
+    """mandelbrot at 256x128 on the card equals the CPU's image and the
+    float32 replay of the body, bit for bit."""
+    import dataclasses
+    from ponyc_tpu_torch.models import mandelbrot
+    _need_cuda()
+    opts = dataclasses.replace(mandelbrot.default_options(),
+                               tuning_cache="off", **PATHS[path])
+    card = mandelbrot.render(256, 128, opts)
+    cpu = mandelbrot.render(256, 128, opts, device="cpu")
+    np.testing.assert_array_equal(card, cpu)
+    np.testing.assert_array_equal(card, mandelbrot.f32_bytes(256, 128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_serve_world_on_the_card(path):
+    """The serve world on the card answers every request 2x+1, drains,
+    and its device cohort served what the server submitted."""
+    import threading
+    from ponyc_tpu_torch import loadgen, serve
+    _need_cuda()
+    opts = serve.default_options(64, tuning_cache="off", **PATHS[path])
+    rt, server = serve.build(64, opts)
+    port = server.listen("127.0.0.1", 0)
+    out = {}
+
+    def client():
+        try:
+            out["r"] = loadgen.run_load("127.0.0.1", port, conns=2,
+                                        depth=4, requests=50)
+        finally:
+            server.begin_drain()
+    t = threading.Thread(target=client, daemon=True)
+    t.start()
+    assert rt.run() == 0
+    t.join(timeout=60)
+    r = out["r"]
+    assert r["ok"] == r["sent"] == 100 and r["bad_value"] == 0
+    assert r["unanswered"] == 0
+    st = server.stats()
+    assert st["drained"] and st["replied"] == 100
+    assert int(rt.cohort_state(serve.ServeWorker)["served"].sum()) == 100
+    rt.stop()

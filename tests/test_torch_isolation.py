@@ -132,6 +132,53 @@ def test_durability_modules_import_no_jax_and_no_reference():
     assert res == {"bad": [], "code": 0, "child": 0, "passes": 40}
 
 
+_SERVE_CHILD = """
+import json, sys, threading
+import ponyc_tpu_torch.native, ponyc_tpu_torch.bridge, ponyc_tpu_torch.net
+import ponyc_tpu_torch.net.dns, ponyc_tpu_torch.net.tls
+from ponyc_tpu_torch import loadgen, serve
+from ponyc_tpu_torch.models import mandelbrot
+from ponyc_tpu_torch import RuntimeOptions
+import dataclasses
+img = mandelbrot.render(16, 8, dataclasses.replace(
+    mandelbrot.default_options(), tuning_cache="off", pallas_fused=True),
+    device="cpu")
+opts = dataclasses.replace(serve.default_options(4), tuning_cache="off")
+rt, server = serve.build(4, opts, device="cpu")
+port = server.listen("127.0.0.1", 0)
+out = {}
+def client():
+    out["r"] = loadgen.run_load("127.0.0.1", port, conns=1, depth=2,
+                                requests=6)
+    server.begin_drain()
+t = threading.Thread(target=client, daemon=True)
+t.start()
+code = rt.run()
+t.join(30)
+rt.stop()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
+print(json.dumps({"bad": bad, "code": code, "ok": out["r"]["ok"],
+                  "img": bool((img == mandelbrot.reference_bytes(16, 8))
+                              .all())}))
+"""
+
+
+def test_serving_modules_import_no_jax_and_no_reference():
+    """native/, bridge/, net/ (dns, tls), serve.py, loadgen.py and the
+    mandelbrot model, driven through a served request stream and a fused
+    render, pull in no JAX and nothing of the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _SERVE_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "code": 0, "ok": 6, "img": True}
+
+
 def test_port_imports_no_jax_and_no_reference():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -284,7 +331,8 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     files = sorted((root / "ponyc_tpu_torch").rglob("*.py")) + [
         root / "chip_smoke.py", root / "profiling" / "torch_tick.py",
         root / "profiling" / "torch_mega_phases.py",
-        root / "profiling" / "torch_ops.py"]
+        root / "profiling" / "torch_ops.py",
+        root / "profiling" / "serve_overload.py"]
     assert len(files) > 10
     bad = []
     for f in files:
