@@ -70,7 +70,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 pinger processes `pings` messages a tick and the path's
                 kernel launches once a tick (once a window for the
                 window kernel);
-  5. ring     — the token ring, 1024 nodes, 4096 hops (128 on the
+  5. ring     — the token ring, 1024 nodes, 4096 hops (64 on the
                 plain and fused paths, whose hops take milliseconds), through
                 Runtime.run(), on each path: the pass count, the exit
                 code, and one launch of the path's kernel per enqueued
@@ -103,16 +103,17 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 paths; one launch of the path's kernel per tick enqueued
                 (a window kernel per window), the windows the device
                 ended for the host (host_pending), wall a run (the plain
-                and fused paths at 2**15 walkers and 2**10 chains of
-                1..64 hops, held against the window kernel there; the window
+                and fused paths at 2**15 walkers and 2**9 chains of
+                1..32 hops, held against the window kernel there; the window
                 kernel at full width too); under
                 pallas_mega a second run whose first windows and every
                 128th run the host C++ build of the window kernel on the
                 same input too, bit-equal to the card, and the kernel's
                 per-phase clock on this world (a forced window). Then
-                examples/spreader.py's program at depth 10 (device
-                spawns and a host collector, no promise) on each path:
-                got = 2**10;
+                examples/spreader.py's program at depth 9 (device
+                spawns and a host collector that fulfils the stdlib
+                Promise the host waits on) on each path: the promise's
+                value and got = 2**9;
  10. blobs    — the device blob pool and the collector: the blob chain
                 of tests/test_differential.py (the reference's
                 BlobWalker, tests/_torch_programs.py's define_blobs) at
@@ -122,7 +123,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 words (cap 2, batch 1, 3 words, 1 send, inject 16; the
                 spill raised to 2**14, one a chain),
                 through Runtime.run() on each path (the plain and fused
-                paths at 2**17 walkers and 2**11 chains of 1..128 hops,
+                paths at 2**17 walkers and 2**11 chains of 1..64 hops,
                 held against the
                 window kernel there; the window kernel at full width
                 too): every walker's acc
@@ -137,7 +138,8 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 world with every walker but 1,024 released: the collected
                 count, the alive mask, `iters` and `converged` against a
                 NumPy reachability oracle over `nxt`, and the GC's wall.
-                Then the `records` model at 256 sources x 2 records and
+                Then the `records` model at 64 sources x 2 records (the
+                window kernel also at 256 x 2) and
                 examples/blob_pipeline.py's program on each path, each
                 against its oracle with blobs_in_use 0;
  11. telemetry — analysis levels 1-3 and causal tracing on each path
@@ -179,7 +181,7 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 one aggregator under the window kernel (the aggregator's
                 total n*items, mutes and rejections, and the radix sort
                 taken unforced on the first ticks, one a window), then
-                2**7 x 4 on each path, fields, counters and ticks equal;
+                2**6 x 4 on each path, fields, counters and ticks equal;
  15. mandelbrot — models/mandelbrot.py at 8,192^2 pixels (2^23 Workers
                 of 8 pixels, one message each; the Benchmarks Game's
                 16,000^2 is cut for the time limit, MANDEL_N) on each
@@ -190,9 +192,9 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 are counted), ms a tick, launches; kernel 3's window on
                 the seeded world bit-equal to the plain window, its
                 device time against its bound;
- 16. serve    — serve.py's world at 65,536 workers on each path: a
+ 16. serve    — serve.py's world at 16,384 workers on each path: a
                 loadgen thread runs calibration (2 x 2 x 30) and 2x
-                overload (64 connections x depth 2,048 for 3 s, a 1 s
+                overload (64 connections x depth 512 for 3 s, a 1 s
                 deadline, BUSY backoff 5 ms), then the drain: every OK
                 reply 2x+1, every request answered, no sticky capacity
                 error, the drain complete; p50/p99 of OK replies,
@@ -230,7 +232,21 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 (PONY_TPU_CHAOS=snapshot-mid-flush@3), every ring file
                 intact, the unfaulted result (a --only run's; a whole
                 run skips it for the time limit);
- 19. profile  — kernels launched a tick and the device's busy share
+ 19. stdlib   — the standard library: randping (tests/_torch_programs.py,
+                define_random: 2**20 pingers x 4 tokens x 64 visits, each
+                hop to a peer drawn by stdlib.random.randint, a hit when
+                stdlib.random.uniform < 0.5; cap 16, batch 8, 2 words) on
+                each path: 2**28 processed, visits and hits equal to a
+                NumPy replay of every walk (in worker processes while
+                the card runs), fields, counters and ticks equal across
+                the paths, launches, ms a tick; then on each path a child
+                process's stdout and exit code through attach_processes()
+                and examples/heartbeat.py's Heart beaten 5 times by a
+                stdlib timer (exit 0); a FilePath written and read back
+                under TMPDIR. Kernels 2 and 3 are held against their
+                plain versions at randping's shape in `kernels` and
+                `kernels-mega`;
+ 20. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -501,12 +517,16 @@ def corpus_opts():
 HOST_WALKERS = 1 << 20    # the hostlog world on the card
 HOST_CHAINS = 1 << 12
 HOST_SEED = 2026
-HOST_CUT = (1 << 15, 1 << 10, 64)  # walkers, chains, longest chain of its
+HOST_CUT = (1 << 15, 1 << 9, 32)  # walkers, chains, longest chain of its
 #   plain and fused runs, untraced and traced (their ticks take tens of ms
 #   on the host's clock, and the host actor's ring of 4 takes a window a
-#   tick)
-SPREAD_DEPTH = 10         # examples/spreader.py's program on the card
-#   (cut from 12: a window a tick on the plain and fused paths)
+#   tick: about one a chain's report); 2^10 chains of 1..64 hops until the
+#   stdlib phase needed the time
+HOST_CHILD = (1 << 15, 1 << 10, 64)  # the ops and durable phases' hostlog
+#   world: walkers, chains, seed (chains of 1..256 hops)
+SPREAD_DEPTH = 9          # examples/spreader.py's program on the card
+#   (cut from 12: a window a tick on the plain and fused paths; from 10
+#   for the stdlib phase)
 
 
 def hostlog_kw(mode, **kw):
@@ -559,29 +579,97 @@ def hostlog_build(mode, plan, device="cuda", trace=None, **kw):
 
 def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
     """examples/spreader.py's world (its options; Spread declared at 4 x
-    2^depth rows) without the promise: (runtime, the collector's id)."""
+    2^depth rows) with its promise, which the host collector fulfils at
+    the last leaf: (runtime, the collector's id, the promise)."""
     import ponyc_tpu_torch
+    from ponyc_tpu_torch.stdlib.promises import Promise
     tp, T = programs()
     rt = tp.new_runtime(ponyc_tpu_torch, dict(
         mailbox_cap=8, batch=2, max_sends=5, msg_words=2, spill_cap=4096,
         inject_slots=8, **_mode_kw(mode)), device)
     rt.declare(T.Spread, 4 << depth).declare(T.Collect, 1).start()
+    done = Promise(rt)
+    T.spread_done["promise"] = (done, 1 << depth)
     col = rt.spawn(T.Collect, got=0)
     root = rt.spawn(T.Spread, col=int(col))
     rt.send(root, T.Spread.go, depth)
-    return rt, col
+    return rt, col, done
+
+
+RANDPING = (1 << 20, 64)  # randping on the card: pingers, visits a token
+#   (each pinger seeded with 4 tokens: 2^22 walks, 2^28 messages)
+RANDPING_WINDOW = 64      # ticks a window (quiesce_interval)
+RANDPING_ORACLE_PROCS = 4  # processes replaying the walks in NumPy while
+#   the card runs the paths (one a token)
+
+
+def randping_type():
+    """randping's RandPinger for RANDPING[0] pingers
+    (tests/_torch_programs.py, define_random)."""
+    if "randping" not in _CACHE:
+        import ponyc_tpu_torch
+        tp, _T = programs()
+        _CACHE["randping"] = tp.define_random(ponyc_tpu_torch, RANDPING[0])
+    return _CACHE["randping"]
+
+
+def randping_opts(mode):
+    from ponyc_tpu_torch import RuntimeOptions
+    tp, _T = programs()
+    return RuntimeOptions(tuning_cache="off", **tp.randping_opts(
+        RANDPING[0], quiesce_interval=RANDPING_WINDOW, **_mode_kw(mode)))
+
+
+def randping_build(mode, device="cuda"):
+    """A started randping world at full width on `mode`'s path, every
+    pinger seeded with its 4 tokens."""
+    import ponyc_tpu_torch
+    tp, _T = programs()
+    return tp.randping_build(ponyc_tpu_torch, randping_type(), RANDPING[0],
+                             RANDPING[1], device=device,
+                             quiesce_interval=RANDPING_WINDOW,
+                             **_mode_kw(mode))
+
+
+def randping_oracle_part(n, hops, token):
+    """One token's walks of randping replayed in NumPy (in a worker
+    process): (visits, hits) per actor."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_programs as tp
+    return tp.randping_oracle(n, hops, tokens=[token])
+
+
+def stdlib_types():
+    """The host-services program (tests/_torch_programs.py,
+    define_stdlib): examples/heartbeat.py's Heart and a host ProcLog."""
+    if "stdlib" not in _CACHE:
+        import ponyc_tpu_torch
+        tp, _T = programs()
+        _CACHE["stdlib"] = tp.define_stdlib(ponyc_tpu_torch)
+    return _CACHE["stdlib"]
+
+
+def stdlib_opts(mode):
+    from ponyc_tpu_torch import RuntimeOptions
+    tp, _T = programs()
+    return RuntimeOptions(tuning_cache="off", **tp.STDLIB_OPTS,
+                          **_mode_kw(mode))
 
 
 BLOB_WALKERS = 1 << 19    # the blob chain on the card
 BLOB_CHAINS = 1 << 14
 BLOB_SEED = 2026
-BLOB_CUT = (1 << 17, 1 << 11, 128)  # walkers, chains, longest chain of its
-#   plain and fused runs (their ticks take tens of ms on the host's clock)
+BLOB_CUT = (1 << 17, 1 << 11, 64)  # walkers, chains, longest chain of its
+#   plain and fused runs (their ticks take tens of ms on the host's clock;
+#   the longest chain cut from 128 to 64 for the stdlib phase)
 BLOB_SLOTS = (1 << 20) - 1    # the most one shard addresses (ops/pack.py)
 BLOB_SPILL = 1 << 14          # one a chain: a chain has one token in
 #   flight, so the spill cannot overflow (1,024 overflowed at tick 309)
 BLOB_KEEP = 1024              # walkers the GC check keeps pinned
 RECORDS = (256, 2)            # the records model: sources x records
+RECORDS_CUT = (64, 2)         # ... on the plain and fused paths, held
+#   against the window kernel there (their ticks, about one a record,
+#   take tens of ms on the host's clock; cut for the stdlib phase)
 
 
 def blob_kw(mode):
@@ -633,10 +721,10 @@ def blob_build(mode, plan, device="cuda"):
     return rt
 
 
-def records_opts(mode):
-    # the records model's own options at 256 sources
+def records_opts(mode, sources=RECORDS[0]):
+    # the records model's own options at `sources` sources
     from ponyc_tpu_torch.models import records
-    return records.options(RECORDS[0], tuning_cache="off", **_mode_kw(mode))
+    return records.options(sources, tuning_cache="off", **_mode_kw(mode))
 
 
 def reach_oracle(nxt, roots):
@@ -731,6 +819,12 @@ def fused_cases():
     cases.append(("serve", [serve.ServeWorker, serve.Egress,
                             serve.FrontDoor], serve_opts(True),
                   SERVE_WORKERS))
+    # The stdlib phase's randping (bodies drawing from stdlib.random) and
+    # its heartbeat world.
+    cases.append(("randping", [randping_type()], randping_opts(True),
+                  RANDPING[0]))
+    S = stdlib_types()
+    cases.append(("heartbeat", [S.Heart, S.ProcLog], stdlib_opts(True), 1))
     worlds = [("walkers", ("Walker", "Splitter"), WALKERS_KW),
               ("mixers", ("Mixer",), MIXERS_KW)]
     worlds += [(n, names, kw) for n, (names, kw) in tp.CORPUS_WORLDS.items()]
@@ -893,6 +987,10 @@ def mega_windows():
                              records_opts("mega"),
                              [(records.RecWorker, RECORDS[0]),
                               (records.RecSink, 1)]),
+           "records cut": window(records.RecSource, RECORDS_CUT[0],
+                                 records_opts("mega", RECORDS_CUT[0]),
+                                 [(records.RecWorker, RECORDS_CUT[0]),
+                                  (records.RecSink, 1)]),
            "blob pipeline": window(blob_t.Tokenizer, 4, RuntimeOptions(
                blob_slots=32, blob_words=tp.PIPE_W, msg_words=2,
                max_sends=2, tuning_cache="off", **_mode_kw("mega")),
@@ -956,6 +1054,11 @@ def mega_windows():
     out["serve"] = window(serve.ServeWorker, SERVE_WORKERS,
                           serve_opts("mega"),
                           [(serve.Egress, 1), (serve.FrontDoor, 1)])
+    out["randping"] = window(randping_type(), RANDPING[0],
+                             randping_opts("mega"))
+    S = stdlib_types()
+    out["heartbeat"] = window(S.Heart, 1, stdlib_opts("mega"),
+                              [(S.ProcLog, 1)])
     return out
 
 
@@ -1183,14 +1286,14 @@ def check_kernels(rec, frec):
     times = {}
     for label in ("ubench", "mixed", "mixed one-hot",
                   "mixed one thread a lane", "spawn_tree",
-                  "spawn_tree regrouped"):
+                  "spawn_tree regrouped", "randping"):
         fd = _CACHE["fused"][label][0]
         pattern = "same" if label == "mixed one-hot" else None
         sets = [fd.sample_inputs(seed=100 + s, device="cuda", steady=True,
                                  pattern=pattern) for s in range(3)]
         t = dict(ms=device_ms(fd, 20, sets, "pony_fused_kernel"),
                  call_ms=cuda_ms(fd, 20, sets))
-        if label in ("ubench", "mixed", "spawn_tree"):
+        if label in ("ubench", "mixed", "spawn_tree", "randping"):
             reps = 10 if label == "ubench" else 3
             t.update(plain_ms=device_ms(fd.plain, reps, sets),
                      plain_call_ms=cuda_ms(fd.plain, reps, sets))
@@ -1221,7 +1324,8 @@ def check_kernels(rec, frec):
                 mixed_onehot=times["mixed one-hot"],
                 mixed_before_ms=times["mixed one thread a lane"]["ms"],
                 spawn_tree=times["spawn_tree"],
-                spawn_tree_regrouped_ms=times["spawn_tree regrouped"]["ms"])
+                spawn_tree_regrouped_ms=times["spawn_tree regrouped"]["ms"],
+                randping=times["randping"])
     return True
 
 
@@ -1237,7 +1341,13 @@ MEGA_TICKS = 16          # ticks a window in the window kernel's checks
 UNTIMED = ("ubench 2^20 hops=30000 (no payload escaped)",
            "ubench 2^20, 2048 pingers seeded",
            "hostlog 2^20 walkers, 2^12 chains, traced, span ring 1024, event "
-           "ring 64 (both overflow)")
+           "ring 64 (both overflow)",
+           # untimed since the stdlib phase needed the time (their times
+           # in PERF.md are earlier calls')
+           "ubench 2^20, 256 pingers seeded, radix sort forced",
+           "ubench 2^20 hops=2^30, radix sort forced",
+           f"spawn tree depth {SPAWN_DEPTH} (2^22 rows), analysis=3",
+           "hostlog 2^20 walkers, 2^12 chains, analysis=3, traced")
 TEL_WORLDS = {
     "ubench 2^20 hops=2^30, analysis=1": dict(analysis=1),
     f"spawn tree depth {SPAWN_DEPTH} (2^22 rows), analysis=3":
@@ -1417,6 +1527,9 @@ def full_worlds():
     def blobs():
         return blob_build("mega", blob_plan())
 
+    def randping():
+        return randping_build("mega")
+
     def tel(label, kw):
         def build():
             from ponyc_tpu_torch.models import spawn_tree
@@ -1445,8 +1558,12 @@ def full_worlds():
             (f"spawn tree depth {SPAWN_DEPTH} (2^22 rows)", tree),
             ("hostlog 2^20 walkers, 2^12 chains into a host actor",
              hostlog),
-            ("blob chain 2^19 walkers, 2^14 chains, pool 2^20 - 1", blobs)
+            ("blob chain 2^19 walkers, 2^14 chains, pool 2^20 - 1", blobs),
+            (RANDPING_WORLD, randping)
             ] + [(label, tel(label, kw)) for label, kw in TEL_WORLDS.items()]
+
+
+RANDPING_WORLD = "randping 2^20 x 4 x 64 (stdlib.random in the body)"
 
 
 YARDSTICK_WORLD = "ubench 2^20 hops=2^30 (every payload escaped)"
@@ -1584,7 +1701,7 @@ def check_mega(mrec):
             # --only run.
             t = dict(ms=device_ms(kern, 5, [()], "pony_mega_kernel"),
                      call_ms=cuda_ms(kern, 5, [()]),
-                     plain_call_ms=cuda_ms(plain, 2, [()], warm=1))
+                     plain_call_ms=cuda_ms(plain, 1, [()], warm=0))
             t.update(plain_ms=(
                 device_ms(plain, 1, [()], warm=0, host=False)
                 if PLAIN_EVERY_WORLD[0] or label == YARDSTICK_WORLD
@@ -1896,6 +2013,7 @@ def agree_small_worlds():
         cpu = {job: pool.submit(agree_cpu, *job) for job in jobs}
         worlds = {name: (build, finish)
                   for name, build, finish in agree_worlds()}
+        waited = 0.0
         for mode, name in jobs:
             build, finish = worlds[name]
             rt = build("cuda", mode)
@@ -1903,13 +2021,18 @@ def agree_small_worlds():
             g = finish(rt)
             if mode in ("cosort", "cosort+fused"):
                 g = (g, plan_state(rt))
+            t0 = time.perf_counter()
             c = cpu[(mode, name)].result()
+            waited += time.perf_counter() - t0
             if g != c:
                 raise AssertionError(f"{name} ({_mode_name(mode)}): the "
                                      f"card and the CPU disagree: {g} vs "
                                      f"{c}")
             print(f"{name} {_mode_name(mode)}: card == CPU ({paths})",
                   flush=True)
+    print(f"agree: {len(jobs)} worlds on the card and the CPU; the card's "
+          f"side waited {waited:.1f} s for the CPU's {AGREE_PROCS} "
+          "processes", flush=True)
 
 
 def count_windows(rt):
@@ -2083,10 +2206,11 @@ def run_ring(rec, frec, mrec, hops=4096):
         ring.run(nodes, 64, opts=opts)                    # warm-up
         per_hop = []
         # The plain and fused ticks take 7-20 ms a hop on the host's
-        # clock: they run a 32nd of the hops (three runs of 128), which
-        # keeps the whole script within its time limit (the time a hop is
-        # what this phase reports).
-        n_hops = hops if mode == "mega" else hops // 32
+        # clock: they run a 64th of the hops (three runs of 64; 128 until
+        # the stdlib phase needed the time), which keeps the whole script
+        # within its time limit (the time a hop is what this phase
+        # reports).
+        n_hops = hops if mode == "mega" else hops // 64
         for _ in range(3):
             rt, ids = ring.build(nodes, opts)
             rt.send(int(ids[0]), ring.RingNode.token, n_hops)
@@ -2508,20 +2632,23 @@ def run_host(rec, frec, mrec):
     out["host_build_windows"] = n_chk
     del rt
     torch.cuda.empty_cache()
-    # examples/spreader.py's program: device spawns and a host collector.
+    # examples/spreader.py's program: device spawns and a host collector
+    # that fulfils the promise the host waits on (the promise drives the
+    # runtime while it waits).
     leaves, sp = 1 << SPREAD_DEPTH, {}
     for mode in (False, True, "mega"):
-        rt, col = spread_build(mode)
+        rt, col, done = spread_build(mode)
         windows = count_windows(rt)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
+        total = done.value(timeout=600)
         code = rt.run(max_steps=100_000)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         got = launches()
         nums = host_numbers(rt, col)
-        if code != 0 or nums["host"]["got"] != leaves or \
+        if code != 0 or total != leaves or nums["host"]["got"] != leaves or \
                 nums["counters"]["n_spawned"] != 2 * leaves - 2:
             raise AssertionError(f"spreader {_mode_name(mode)}: exit code "
                                  f"{code}, {nums}")
@@ -2531,7 +2658,8 @@ def run_host(rec, frec, mrec):
             seconds=elapsed, ticks=rt.steps_run, windows=windows[0],
             launches=got)
         print(f"spreader depth {SPREAD_DEPTH} {_mode_name(mode)} [{card}]: "
-              f"got {nums['host']['got']}, n_spawned "
+              f"promise fulfilled with {total}, got {nums['host']['got']}, "
+              f"n_spawned "
               f"{nums['counters']['n_spawned']}, {rt.steps_run} ticks in "
               f"{elapsed:.3f} s, {windows[0]} windows, host_processed "
               f"{nums['host_processed']}; launches (drain, fused, window) "
@@ -2709,28 +2837,33 @@ def run_blobs(rec, frec, mrec):
     out["gc"] = gc
     del rt
     torch.cuda.empty_cache()
-    # The records model and the blob pipeline on each path.
+    # The records model on each path at RECORDS_CUT, the window kernel at
+    # RECORDS too, and the blob pipeline on each path.
     rr, pp = {}, {}
-    for mode in (False, True, "mega"):
+    for mode, size in ((False, RECORDS_CUT), (True, RECORDS_CUT),
+                       ("mega", RECORDS_CUT), ("mega", RECORDS)):
         reset_launches()
         t0 = time.perf_counter()
-        rt, st = records.run_records(*RECORDS, opts=records_opts(mode),
+        rt, st = records.run_records(*size, opts=records_opts(mode,
+                                                              size[0]),
                                      device="cuda")
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         got = launches()
-        rr[mode] = dict(sink=st, counters={c: rt.counter(c) for c in (
+        rr[mode, size] = dict(sink=st, counters={c: rt.counter(c) for c in (
             "n_processed", "n_blob_alloc", "n_blob_free", "n_mutes")},
             steps=rt.steps_run, gen=rt.state.blob_gen.cpu().numpy())
-        out[f"records {_mode_name(mode)}"] = dict(
+        out[f"records {size} {_mode_name(mode)}"] = dict(
             seconds=elapsed, ticks=rt.steps_run, launches=got)
-        print(f"records {RECORDS[0]} sources x {RECORDS[1]} records "
+        print(f"records {size[0]} sources x {size[1]} records "
               f"{_mode_name(mode)} [{card}]: the model's oracle holds "
               f"({st['n']} records, checksum {st['total']}), blobs in use "
               f"0; {rt.steps_run} ticks in {elapsed:.3f} s; launches "
               f"(drain, fused, window) {got}; dispatch {dispatch_paths(rt)}",
               flush=True)
         del rt
+        if mode in pp:
+            continue
         rt, (r1, r2), before = tp.run_blob_pipeline(
             ponyc_tpu_torch, T, device="cuda", **_mode_kw(mode))
         s1, s2 = rt.state_of(r1), rt.state_of(r2)
@@ -2744,15 +2877,16 @@ def run_blobs(rec, frec, mrec):
               f"{before} frozen summaries swept by gc()", flush=True)
         del rt
     for mode in (True, "mega"):
-        a, b = rr[mode], rr[False]
+        a, b = rr[mode, RECORDS_CUT], rr[False, RECORDS_CUT]
         if not np.array_equal(a["gen"], b["gen"]) or \
                 {k: v for k, v in a.items() if k != "gen"} != \
                 {k: v for k, v in b.items() if k != "gen"} \
                 or pp[mode] != pp[False]:
             raise AssertionError(f"records or pipeline: {_mode_name(mode)} "
                                  "differs from the plain tick")
-    print("records and the blob pipeline: results, counters, ticks and "
-          "the pool's generations equal across the three paths",
+    print(f"records at {RECORDS_CUT} and the blob pipeline: results, "
+          "counters, ticks and the pool's generations equal across the "
+          "three paths",
           flush=True)
     return out
 
@@ -3169,9 +3303,9 @@ def profile_ticks(label, rt, ticks, attempts=2):
 
 GUPS = (1 << 22, 1 << 20, 16)     # table cells, updaters, updates each
 FANIN_BIG = (1 << 16, 1)          # producers, items each (window kernel)
-FANIN_SMALL = (1 << 7, 4)         # producers, items each (every path;
-#   2**8 until the serve phase needed the time: its plain and fused runs
-#   are 2 * n * items ticks)
+FANIN_SMALL = (1 << 6, 4)         # producers, items each (every path;
+#   2**8 until the serve phase needed the time, 2**7 until the stdlib
+#   phase did: its plain and fused runs are about n * items ticks)
 FANIN_PROBED = 16                 # first ticks of the big run, one a window
 TUNE_SPAWN_DEPTH = 16             # the spawn tree of the tune phase
 TUNE_BLOB = BLOB_CUT              # the blob chain of the tune phase
@@ -3668,10 +3802,12 @@ MANDEL_BAND = 256         # rows held against the NumPy oracles, spread
 #   evenly over the image (the whole image at 64 rounds is too slow for
 #   NumPy)
 MANDEL_WINDOW = 4         # ticks a window of kernel 3's timed window
-SERVE_WORKERS = 1 << 16   # the serve world's device worker pool
+SERVE_WORKERS = 1 << 14   # the serve world's device worker pool (2^16
+#   until the stdlib phase needed the time: each path's run answers every
+#   request of the overload, at the host's 120-220 us a frame)
 SERVE_CALIB = (2, 2, 30)  # calibration: conns, depth, requests a conn
-SERVE_LOAD = (64, 2048, 3.0, 0.005, 1000)   # overload: conns, depth
-#   (64 x 2,048 = 131,072 outstanding, 2x the pool), seconds, busy
+SERVE_LOAD = (64, 512, 3.0, 0.005, 1000)   # overload: conns, depth
+#   (64 x 512 = 32,768 outstanding, 2x the pool), seconds, busy
 #   backoff, deadline ms. The server submits at most the window
 #   controller's window a boundary (4 under host traffic: about 100
 #   requests a second on the plain path at this pool), so without a
@@ -4192,7 +4328,9 @@ OPS_LIVE = (1 << 20, 4, 16, 448)  # pingers, pings, window, ticks: the live
 #   world's run; 2^20 x 4 x 448 messages stay under 2^31, so the device's
 #   int32 counters do not wrap
 OPS_CUT = 32                      # ticks of the plain and fused live runs
-OPS_WEDGE_S = 15.0                # the wedged window's sleep on the card
+OPS_WEDGE_S = 5.0                 # the wedged window's sleep on the card
+#   (15 s until the stdlib phase needed the time; the watchdog trips at
+#   OPS_DEADLINE_S, and the run waits the sleep out)
 OPS_DEADLINE_S = 1.0              # the watchdog's deadline for (c), (d)
 
 
@@ -4538,7 +4676,7 @@ def run_ops(rec, frec, mrec):
                          "trip_to_raise_s": trip_to_raise}
     # (e) SIGQUIT from host behaviours under the window kernel: the run
     # dumps and ends as an undisturbed one does.
-    plan = hostlog_plan(*HOST_CUT)
+    plan = hostlog_plan(*HOST_CHILD)
     runs = []
     for quit_ in (False, True):
         rt, log = hostlog_build("mega", plan, analysis_path=os.path.join(
@@ -4886,9 +5024,9 @@ def durable_card_cpu():
 
 
 def durable_world(mode, **kw):
-    """The supervised child's world: the hostlog world at HOST_CUT under
+    """The supervised child's world: the hostlog world at HOST_CHILD under
     pallas_mega (tests/_torch_programs.py's WalkerH and HostLog)."""
-    return hostlog_build("mega", hostlog_plan(*HOST_CUT), **kw)
+    return hostlog_build("mega", hostlog_plan(*HOST_CHILD), **kw)
 
 
 def durable_numbers(rt, log):
@@ -5097,6 +5235,139 @@ def run_durable(rec, frec, mrec):
     return out
 
 
+@phase("stdlib")
+def run_stdlib(rec, frec, mrec):
+    """The standard library on the card: (a) randping at full width on
+    each path (bodies drawing from stdlib.random), against a NumPy replay
+    of every walk and across the paths; (b) examples/heartbeat.py's Heart
+    beaten by a stdlib timer, after (c) a child process's output and exit
+    code reach a host actor through attach_processes(), on each path,
+    and a FilePath written and read back under TMPDIR."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    import numpy as np
+    import torch
+    import ponyc_tpu_torch
+    card = _CACHE["card"]
+    tp, _T = programs()
+    n, hops = RANDPING
+    P = randping_type()
+    recs = {False: rec, True: frec, "mega": mrec}
+    out, worlds = {}, {}
+    with ProcessPoolExecutor(
+            RANDPING_ORACLE_PROCS,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        parts = [pool.submit(randping_oracle_part, n, hops, k)
+                 for k in range(tp.RP_TOKENS)]
+        for mode in (False, True, "mega"):
+            t0 = time.perf_counter()
+            rt = randping_build(mode)
+            windows = count_windows(rt)
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t0
+            q0 = rt.ticks_enqueued
+            reset_launches()                # the main path's run starts here
+            t0 = time.perf_counter()
+            code = rt.run(max_steps=1 << 20)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            got = launches()                # ... and ends here
+            enqueued = rt.ticks_enqueued - q0
+            nums = world_numbers(rt, P)
+            processed = rt.totals["processed"]
+            want = expected_launches(mode, enqueued, windows[0])
+            if code != 0 or processed != n * tp.RP_TOKENS * hops or \
+                    nums["counters"]["n_processed"] != processed:
+                raise AssertionError(
+                    f"randping {_mode_name(mode)}: exit code {code}, "
+                    f"processed {processed} (counter "
+                    f"{nums['counters']['n_processed']}), expected "
+                    f"{n * tp.RP_TOKENS * hops}")
+            if got != want:
+                raise AssertionError(
+                    f"randping {_mode_name(mode)}: launches (drain, fused, "
+                    f"window) {got} for {enqueued} ticks enqueued and "
+                    f"{windows[0]} windows, expected {want}")
+            recs[mode]["launches_stdlib"] = max(got)
+            worlds[mode] = nums
+            ms = 1e3 * elapsed / max(1, rt.steps_run)
+            out[f"randping {_mode_name(mode)}"] = dict(
+                seconds=elapsed, ticks=rt.steps_run, ms_tick=ms,
+                windows=windows[0], launches=got, setup_s=setup,
+                counters=nums["counters"])
+            print(f"randping {n} x {tp.RP_TOKENS} x {hops} "
+                  f"{_mode_name(mode)} [{card}]: {processed} processed in "
+                  f"{rt.steps_run} ticks, {elapsed:.3f} s = {ms:.4f} ms a "
+                  f"tick; {windows[0]} windows; counters {nums['counters']}; "
+                  f"launches (drain, fused, window) {got}; dispatch "
+                  f"{dispatch_paths(rt)} (build+seed {setup:.1f} s)",
+                  flush=True)
+            del rt
+            torch.cuda.empty_cache()
+        visits = sum(f.result()[0] for f in parts)
+        hits = sum(f.result()[1] for f in parts)
+    base = worlds[False]
+    for mode in (True, "mega"):
+        w = worlds[mode]
+        if not same_arrays(w["fields"], base["fields"]) or \
+                w["counters"] != base["counters"] or \
+                w["steps"] != base["steps"]:
+            raise AssertionError(f"randping: {_mode_name(mode)}'s fields, "
+                                 "counters or ticks differ from the plain "
+                                 "tick's")
+    if not (np.array_equal(base["fields"]["visits"].astype(np.int64),
+                           visits)
+            and np.array_equal(base["fields"]["hits"].astype(np.int64),
+                               hits)):
+        raise AssertionError("randping: visits or hits differ from the "
+                             "NumPy replay of the walks")
+    print(f"randping: visits and hits equal the NumPy replay of the "
+          f"{tp.RP_TOKENS * n} walks ({int(hits.sum())} hits of "
+          f"{int(visits.sum())} visits); fields, counters and ticks "
+          f"({base['steps']}) equal across the three paths; "
+          f"{base['counters']['n_mutes']} mutes, "
+          f"{base['counters']['n_rejected']} rejections", flush=True)
+    # (b), (c): a child process, then the heartbeat, on each path.
+    S = stdlib_types()
+    for mode in (False, True, "mega"):
+        t0 = time.perf_counter()
+        rt, got = tp.stdlib_world(ponyc_tpu_torch, S, device="cuda",
+                                  **_mode_kw(mode))
+        if got["code"] != 0 or got["beats"] != tp.HEART_BEATS or \
+                got["live_timers"] or got["proc"]["code"] != 3 or \
+                got["proc"]["stdout"] != b"child-says-hi\n":
+            raise AssertionError(f"heartbeat/child {_mode_name(mode)}: "
+                                 f"{got}")
+        rt.stop()
+        del rt
+        print(f"heartbeat {_mode_name(mode)}: a child's stdout "
+              f"{got['proc']['stdout']!r} and exit code 3 through "
+              f"attach_processes(); {got['beats']} timer beats, exit code "
+              f"0 ({time.perf_counter() - t0:.2f} s)", flush=True)
+    from ponyc_tpu_torch import Runtime, RuntimeOptions
+    from ponyc_tpu_torch.files import File, FilePath
+    d = tempfile.mkdtemp(prefix="pony_files_")
+    try:
+        rt = Runtime(RuntimeOptions(tuning_cache="off"))
+        notes = FilePath(rt.files_auth(), d).join("notes")
+        notes.mkdir()
+        fp = notes.join("log.txt")
+        with File(fp, "w+b") as f:
+            f.print("line one").print("line two").flush()
+        with File(fp, "rb") as f:
+            lines = f.lines()
+        if lines[:2] != [b"line one", b"line two"] or \
+                fp.info().st_size != 18:
+            raise AssertionError(f"files: read back {lines}")
+        print(f"files: a FilePath under TMPDIR written and read back "
+              f"({fp.info().st_size} bytes)", flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -5216,6 +5487,8 @@ def main():
             summary["ops"] = run_ops(rec, frec, mrec)
         if want("durable"):
             summary["durable"] = run_durable(rec, frec, mrec)
+        if want("stdlib"):
+            summary["stdlib"] = run_stdlib(rec, frec, mrec)
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start
@@ -5240,7 +5513,7 @@ def main():
              "launches_telemetry_host", "launches_cosort", "launches_tune",
              "launches_tune_calibration", "launches_gups", "launches_fanin",
              "launches_ops", "launches_durable", "launches_mandelbrot",
-             "launches_serve", "mandelbrot",
+             "launches_serve", "launches_stdlib", "mandelbrot", "randping",
              "spawn_tree", "mixed_onehot", "mixed_before_ms",
              "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",

@@ -3,6 +3,17 @@
 exit codes for the verbs the port serves).
 
 Commands:
+  run [--safe P1:P2] <script.py> [args]
+                              run an actor program. --pony* runtime
+                              flags anywhere in argv are stripped and
+                              handed to the script's
+                              config.options_from_env; --safe limits
+                              the OS-reaching packages stdlib.pkg.use
+                              resolves. The script's Runtime() runs
+                              on the card, or raises where there is
+                              none: it asks for the CPU with
+                              Runtime(opts, device="cpu"). Exit: 0,
+                              or 2 usage.
   trace <csv> [-o F]          analysis CSVs → Chrome-trace/Perfetto
         [--spans F.jsonl]     JSON (counter tracks + causal-trace span
   trace --tree <spans.jsonl>  slices with sender→receiver flow arrows);
@@ -46,14 +57,20 @@ Commands:
   version                     print the version, the torch build and
                               the card.
 
-The JAX package's other verbs (run, bench, test, doc, verify, lint,
-perf) print which part of the port brings them and exit 2.
+The JAX package's other verbs (bench, test, doc, verify, lint, perf)
+print which part of the port brings them and exit 2.
+
+Runtime flags are accepted anywhere in `run` argv, exactly like the
+reference stripping --pony* before the app sees argv (start.c:185-261):
+  python -m ponyc_tpu_torch run app.py --ponymailboxcap=128 --input x
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import runpy
 import sys
 import time
 
@@ -402,6 +419,55 @@ def cmd_supervise(argv) -> int:
     return code
 
 
+def cmd_run(argv) -> int:
+    """The JAX package's `run` verb without its backend choice: the port
+    has one device, the card, and never falls back to the CPU here (a
+    script's Runtime() raises where there is no card)."""
+    # --safe pkg1:pkg2 / --safe=pkg1:pkg2 (≙ ponyc --safe,
+    # package.c:685-692): restrict FFI-reaching packages for the
+    # program being run.
+    cleaned = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a == "--safe":
+            if i + 1 >= len(argv):
+                print("ponyc_tpu_torch run: --safe needs a value "
+                      "(e.g. --safe files:net)", file=sys.stderr)
+                return 2
+            os.environ["PONY_TPU_SAFE"] = argv[i + 1]
+            i += 2
+            continue
+        if a.startswith("--safe="):
+            os.environ["PONY_TPU_SAFE"] = a[len("--safe="):]
+            i += 1
+            continue
+        cleaned.append(a)
+        i += 1
+    from .config import strip_runtime_flags
+    opts, rest = strip_runtime_flags(cleaned)
+    if not rest:
+        print("ponyc_tpu_torch run: missing script path", file=sys.stderr)
+        return 2
+    # Hand the parsed runtime options to the script via the env channel
+    # config.options_from_env reads, so `run app.py --ponybatch 4`
+    # configures app.py's runtime (≙ pony_init eating --pony* from argv).
+    defaults = type(opts)()
+    for f in dataclasses.fields(opts):
+        v = getattr(opts, f.name)
+        if v != getattr(defaults, f.name) and v is not None:
+            os.environ["PONY_TPU_" + f.name.upper()] = str(v)
+    script, *args = rest
+    if not os.path.exists(script):
+        print(f"ponyc_tpu_torch run: no such script: {script}",
+              file=sys.stderr)
+        return 2
+    sys.argv = [script] + args
+    sys.path.insert(0, os.path.dirname(os.path.abspath(script)) or ".")
+    runpy.run_path(script, run_name="__main__")
+    return 0
+
+
 def cmd_serve(argv) -> int:
     """Run the serving front door (serve.py: batched socket ingress,
     admission control, graceful drain) over the default compute
@@ -426,15 +492,15 @@ def cmd_version(_argv) -> int:
     return 0
 
 
-COMMANDS = {"trace": cmd_trace, "top": cmd_top, "doctor": cmd_doctor,
-            "snapshot": cmd_snapshot, "restore": cmd_restore,
+COMMANDS = {"run": cmd_run, "trace": cmd_trace, "top": cmd_top,
+            "doctor": cmd_doctor, "snapshot": cmd_snapshot,
+            "restore": cmd_restore,
             "supervise": cmd_supervise, "serve": cmd_serve,
             "version": cmd_version}
 
 # The JAX package's other verbs, and what part of the port brings each
 # (ROADMAP.md, "Port slices" and Queue 1).
 NOT_SERVED = {
-    "run": "the port's bench (ROADMAP Queue 1 item 1)",
     "bench": "the port's bench (ROADMAP Queue 1 item 1)",
     "test": "the port's bench (ROADMAP Queue 1 item 1)",
     "perf": "the port's bench and cost capture (port slice 11, "

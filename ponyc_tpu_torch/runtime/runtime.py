@@ -123,6 +123,21 @@ class BlobCapacityError(RuntimeError):
     code = ERROR_CODES["BlobCapacityError"]
 
 
+class AmbientAuth:
+    """Root authority (≙ env.root: AmbientAuth). Obtained only from
+    Runtime.ambient_auth(); narrower capability tokens check for it.
+    The sentinel token (same pattern as files.FilesAuth) makes direct
+    construction impossible, so holding `rt` alone does not mint it."""
+
+    _token = object()
+
+    def __init__(self, rt, token=None):
+        if token is not AmbientAuth._token:
+            raise PermissionError(
+                "obtain AmbientAuth via rt.ambient_auth(), not directly")
+        self._rt = rt
+
+
 def resolve_device(device=None) -> torch.device:
     """The device a Runtime runs on: CUDA unless the caller names
     another. Asking for CUDA where there is none raises."""
@@ -297,8 +312,9 @@ class Runtime:
         #   run open (≙ asio's noisy count: a socket, a timer, a pending
         #   lookup); while > 0 a quiescent run waits for them
         self.bridge = None            # attach_bridge / attach_net /
-        self.net = None               #   attach_resolver
-        self.resolver = None
+        self.net = None               #   attach_resolver /
+        self.resolver = None          #   attach_processes
+        self.procs = None
         self._last_aux = None         # the newest retired window's aux
         #   (host ints; serve.Server reads qw_p99 and n_muted_now)
         self._pre_pin_affinity = None  # the CPU set before opts.pin
@@ -428,6 +444,29 @@ class Runtime:
             from ..net.dns import Resolver
             self.resolver = Resolver(self)
         return self.resolver
+
+    def attach_processes(self):
+        """Create (once) the child-process monitor (≙ packages/process
+        over lang/process.c): pipes through the bridge, exits reaped at
+        host boundaries (process/)."""
+        if self.procs is None:
+            from ..process import Processes
+            self.procs = Processes(self)
+        return self.procs
+
+    def files_auth(self):
+        """Root file-system capability (≙ env.root AmbientAuth handed to
+        the Main actor; see files.py)."""
+        from ..files import FilesAuth
+        return FilesAuth(FilesAuth._token)
+
+    def ambient_auth(self) -> "AmbientAuth":
+        """The root authority object (≙ env.root: AmbientAuth,
+        packages/builtin/ambient_auth.pony). Narrower tokens —
+        stdlib.backpressure.ApplyReleaseBackpressureAuth, capsicum
+        rights — derive from it, so a library can be handed only the
+        power it needs."""
+        return AmbientAuth(self, AmbientAuth._token)
 
     def _apply_defaults_and_pin(self) -> None:
         if self._opts_defaulted:

@@ -438,8 +438,8 @@ def define(pkg):
     # tests/test_differential.py and tests/test_run_loop.py, the host
     # FIFO consumer of tests/test_fifo.py (its arrival log in
     # `host_logs`), the fast-lane programs of tests/test_host_fastpath.py,
-    # the examples' helloworld, counter and spreader (without the
-    # promise), and the priority senders of tests/test_priority.py (Rx's
+    # the examples' helloworld, counter and spreader (with its promise),
+    # and the priority senders of tests/test_priority.py (Rx's
     # `jnp.where(first, v, 0)` spelt `v * first`, which both packages
     # run).
     host_logs = {}
@@ -607,6 +607,10 @@ def define(pkg):
             self.exit(0, when=total >= st["expected"])
             return {**st, "seen": total}
 
+    # The spreader's completion promise, as examples/spreader.py keeps
+    # it: (a stdlib Promise, the leaf count that fulfils it).
+    spread_done = {}
+
     @pkg.actor
     class Collect:
         HOST = True
@@ -614,7 +618,11 @@ def define(pkg):
 
         @pkg.behaviour
         def leaf(self, st, n: I32):
-            return {**st, "got": st["got"] + n}
+            total = st["got"] + n
+            done = spread_done.get("promise")
+            if done is not None and total >= done[1]:
+                done[0].fulfil(int(total))
+            return {**st, "got": total}
 
     @pkg.actor
     class Spread:
@@ -680,7 +688,8 @@ def define(pkg):
         DevPing=DevPing, Yielding=Yielding, DevCounter=DevCounter,
         HostKick=HostKick, HostErr=HostErr, Hello=Hello, Counter=Counter,
         Reporter=Reporter, Collect=Collect, Spread=Spread,
-        HiSender=HiSender, LoSender=LoSender, Rx=Rx,
+        spread_done=spread_done, HiSender=HiSender, LoSender=LoSender,
+        Rx=Rx,
         Pinger=Pinger, RingNode=RingNode, Walker=Walker,
         Splitter=Splitter, Cons=Cons, Prod=Prod, Mixer=Mixer, Tri=Tri,
         Div=Div,
@@ -1522,3 +1531,179 @@ def ops_world(pkg, O, ticks=24, device="cpu", **okw):
     rt.send(int(t), O.Ticker.tick, ticks)
     rt.send(int(h), O.HostEcho.ping, 5)
     return rt, int(t), int(h)
+
+
+# randping: the reference message-ubench's random-peer traffic, which the
+# JAX package's ubench model replaces with a fixed permutation. Every
+# pinger is seeded with RP_TOKENS tokens ping(n, k), k = 0..RP_TOKENS-1;
+# ping(n, k) at actor a counts a visit and a hit when uniform(a, n, k) <
+# 0.5, and while n > 1 passes ping(n - 1, k) to randint(a, n, 0, N, k).
+# A token's walk depends on (actor, n, k) alone, not on timing, so
+# `randping_oracle` replays every walk in uint32 NumPy arithmetic.
+RP_TOKENS = 4
+RP_OPTS = dict(mailbox_cap=16, batch=8, msg_words=2, max_sends=1)
+
+
+def define_random(pkg, n):
+    """The randping program for `n` pingers (ids 0..n-1: the world
+    declares this type alone), built with `pkg`; its body draws from
+    `pkg`'s stdlib.random."""
+    rnd = importlib.import_module(pkg.__name__ + ".stdlib.random")
+    I32 = pkg.I32
+
+    @pkg.actor
+    class RandPinger:
+        visits: I32
+        hits: I32
+
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def ping(self, st, n_left: I32, k: I32):
+            peer = rnd.randint(self.actor_id, n_left, 0, n, draw=k)
+            self.send(peer, RandPinger.ping, n_left - 1, k,
+                      when=n_left > 1)
+            u = rnd.uniform(self.actor_id, n_left, draw=k)
+            return {**st, "visits": st["visits"] + 1,
+                    "hits": st["hits"] + (u < 0.5) * np.int32(1)}
+
+    return RandPinger
+
+
+def randping_opts(n, **okw):
+    """The options of a randping world of `n` pingers: the spill holds
+    every token."""
+    return {**RP_OPTS, "spill_cap": RP_TOKENS * n, "inject_slots": 8,
+            **okw}
+
+
+def randping_build(pkg, P, n, hops, device="cpu", **okw):
+    """A started randping world of `n` pingers, every one seeded with
+    RP_TOKENS tokens of `hops` visits each; ready to run()."""
+    rt = new_runtime(pkg, randping_opts(n, **okw), device)
+    rt.declare(P, n).start()
+    ids = rt.spawn_many(P, n)
+    assert (np.asarray(ids) == np.arange(n)).all()
+    for k in range(RP_TOKENS):
+        rt.bulk_send(ids, P.ping, np.full(n, hops, np.int32),
+                     np.full(n, k, np.int32))
+    return rt
+
+
+def _np_mix(a, b):
+    a = np.asarray(a, np.uint32)
+    b = np.asarray(b, np.uint32)
+    x = a * np.uint32(0x9E3779B9) + b
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    x = (x ^ (x >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def np_bits(actor, step, draw, seed=0x5DEECE66):
+    """stdlib.random.bits in uint32 NumPy: the oracle's own arithmetic."""
+    with np.errstate(over="ignore"):
+        h = _np_mix(np.uint32(seed), np.asarray(actor).astype(np.uint32))
+        h = _np_mix(h, np.asarray(step).astype(np.uint32))
+        return _np_mix(h, np.asarray(draw).astype(np.uint32))
+
+
+def randping_oracle(n, hops, tokens=range(RP_TOKENS)):
+    """(visits, hits) per actor of randping with `n` pingers and `hops`
+    visits a token: every walk of the `tokens` replayed in uint32
+    NumPy (the sums over disjoint token sets add up)."""
+    tokens = list(tokens)
+    visits = np.zeros(n, np.int64)
+    hits = np.zeros(n, np.int64)
+    at = np.tile(np.arange(n, dtype=np.int64), len(tokens))
+    k = np.repeat(np.asarray(tokens, dtype=np.int64), n)
+    for left in range(hops, 0, -1):
+        b = np_bits(at, left, k)
+        visits += np.bincount(at, minlength=n)
+        u = (b >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+        hits += np.bincount(at, weights=u < np.float32(0.5),
+                            minlength=n).astype(np.int64)
+        at = (b % np.uint32(n)).astype(np.int64)
+    return visits, hits
+
+
+HEART_BEATS = 5     # examples/heartbeat.py's
+
+
+def define_stdlib(pkg):
+    """The host-services program: examples/heartbeat.py's Heart (a
+    device actor a stdlib timer beats, exiting after HEART_BEATS) beside
+    a host actor that logs a child process's output and exit code
+    (tests/test_process_files.py's Collector); the bytes each ProcLog
+    received are in `ProcLog.chunks`."""
+    I32 = pkg.I32
+
+    @pkg.actor
+    class Heart:
+        beats: I32
+
+        @pkg.behaviour
+        def beat(self, st, kind: I32, n: I32, flags: I32):
+            total = st["beats"] + n
+            self.exit(0, when=total >= HEART_BEATS)
+            return {**st, "beats": total}
+
+    chunks = {}
+
+    @pkg.actor
+    class ProcLog:
+        HOST = True
+        n_out: I32
+        n_err: I32
+        code: I32
+        done: I32
+
+        @pkg.behaviour
+        def on_stdout(self, st, proc: I32, data: I32, n: I32):
+            chunks.setdefault(int(self.actor_id), []).append(
+                self.rt.heap.unbox(data))
+            return {**st, "n_out": st["n_out"] + n}
+
+        @pkg.behaviour
+        def on_stderr(self, st, proc: I32, data: I32, n: I32):
+            self.rt.heap.drop(data)
+            return {**st, "n_err": st["n_err"] + n}
+
+        @pkg.behaviour
+        def on_exit(self, st, proc: I32, code: I32):
+            return {**st, "code": code, "done": 1}
+
+    ProcLog.chunks = chunks
+    return types.SimpleNamespace(Heart=Heart, ProcLog=ProcLog)
+
+
+STDLIB_OPTS = dict(mailbox_cap=8, batch=2, msg_words=3, max_sends=1,
+                   inject_slots=8)
+
+
+def stdlib_world(pkg, S, device="cpu", child=("sh", "-c",
+                                              "echo child-says-hi; exit 3"),
+                 **okw):
+    """A heartbeat and a child process in one runtime of `pkg`: the child
+    runs to its exit through attach_processes(), then a count-limited
+    timer beats the Heart until it exits the run. Returns (runtime,
+    what the run observed)."""
+    timers = importlib.import_module(pkg.__name__ + ".stdlib.timers")
+    S.ProcLog.chunks.clear()            # an earlier world's, same row ids
+    rt = new_runtime(pkg, {**STDLIB_OPTS, **okw}, device)
+    rt.declare(S.Heart, 1).declare(S.ProcLog, 1).start()
+    h = rt.spawn(S.Heart, beats=0)
+    log = rt.spawn(S.ProcLog)
+    procs = rt.attach_processes()
+    procs.spawn("/bin/sh", list(child), int(log),
+                on_stdout=S.ProcLog.on_stdout, on_stderr=S.ProcLog.on_stderr,
+                on_exit=S.ProcLog.on_exit)
+    code_proc = rt.run()
+    got = {k: int(v) for k, v in rt.state_of(log).items()}
+    got["stdout"] = b"".join(S.ProcLog.chunks.get(int(log), []))
+    hub = timers.Timers(rt)
+    hub.timer(int(h), S.Heart.beat, interval_s=0.05, count=HEART_BEATS)
+    code = rt.run()
+    out = {"proc": got, "proc_run_code": code_proc, "code": code,
+           "beats": int(rt.state_of(h)["beats"]), "live_timers":
+           len(hub._live)}
+    return rt, out

@@ -16,6 +16,7 @@ so that a loaded test machine's slow window is not taken for the wedge. Subproce
 with device="cpu". The worlds are integer, so comparisons are exact.
 """
 
+import functools
 import json
 import os
 import sys
@@ -57,15 +58,23 @@ def _passes(rt):
 
 # ======================================================= checkpoint ring
 
+@functools.lru_cache(maxsize=None)
+def _ring_unarmed(hops):
+    """The ring's run with checkpointing off, on the plain tick, once for
+    every path (the paths' worlds are equal, which the slice tests hold):
+    (passes, ticks run)."""
+    rt_off, ids_off = _ring(16)
+    rt_off.send(int(ids_off[0]), TT.RingNode.token, hops)
+    assert rt_off.run() == 0
+    return _passes(rt_off), rt_off.steps_run
+
+
 def test_periodic_checkpoint_ring_bounded_and_restorable(tmp_path, path):
     """The run loop writes cadence checkpoints without changing the run's
     outcome; the ring stays bounded by checkpoint_keep; the newest
     restores into a fresh runtime with the exact final world."""
     hops = 400
-    rt_off, ids_off = _ring(16, path)          # checkpointing off
-    rt_off.send(int(ids_off[0]), TT.RingNode.token, hops)
-    assert rt_off.run() == 0
-    want = _passes(rt_off)
+    want, steps_off = _ring_unarmed(hops)      # checkpointing off
 
     prefix = str(tmp_path / "ring")
     kw = dict(checkpoint_every_s=0.005, checkpoint_path=prefix,
@@ -78,7 +87,7 @@ def test_periodic_checkpoint_ring_bounded_and_restorable(tmp_path, path):
     assert stats["failures"] == 0
     # capture only reads the world: the outcome equals the unarmed run
     np.testing.assert_array_equal(_passes(rt), want)
-    assert rt.steps_run == rt_off.steps_run
+    assert rt.steps_run == steps_off
     rt.stop()                                  # + the final checkpoint
     files = serialise.list_checkpoints(prefix)
     assert files and len(files) <= 3           # the ring rotated
@@ -239,6 +248,39 @@ class _InPlaceNode:
         return {**st, "passes": st["passes"] + 1}
 
 
+def _inplace_build(path="plain", **kw):
+    rt = Runtime(RuntimeOptions(
+        mailbox_cap=8, batch=1, max_sends=2, msg_words=1, spill_cap=64,
+        inject_slots=8, quiesce_interval=64, tuning_cache="off",
+        **PATH_KW[path], **kw), device="cpu")
+    rt.declare(_InPlaceNode, 16).declare(_InPlaceReporter, 3)
+    rt.start()
+    return rt
+
+
+def _inplace_seed(rt, hops):
+    ids = rt.spawn_many(_InPlaceNode, 16)
+    rep = rt.spawn(_InPlaceReporter)
+    rt.set_fields(_InPlaceNode, ids, nxt=np.roll(ids, -1), rep=rep)
+    rt.send(int(ids[0]), _InPlaceNode.token, hops)
+
+
+def _inplace_result(rt):
+    return ([int(x) for x in rt.cohort_state(_InPlaceNode)["passes"]],
+            sum(int(st.get("n", 0)) for st in rt._host_state.values()),
+            rt.steps_run)
+
+
+@functools.lru_cache(maxsize=None)
+def _inplace_uninterrupted(hops):
+    """The in-place world's run without a snapshot, on the plain tick,
+    once for every path (the paths' worlds are equal)."""
+    base = _inplace_build()
+    _inplace_seed(base, hops)
+    assert base.run() == 0
+    return _inplace_result(base)
+
+
 def test_queued_snapshot_owns_its_host_state(tmp_path, path, monkeypatch):
     """A snapshot waiting for a busy writer holds the host side of its
     capture, not what the run did meanwhile: a host behaviour that
@@ -248,31 +290,8 @@ def test_queued_snapshot_owns_its_host_state(tmp_path, path, monkeypatch):
     import copy
     import threading
     hops, cut = 600, 250
-
-    def build(**kw):
-        rt = Runtime(RuntimeOptions(
-            mailbox_cap=8, batch=1, max_sends=2, msg_words=1, spill_cap=64,
-            inject_slots=8, quiesce_interval=64, tuning_cache="off",
-            **PATH_KW[path], **kw), device="cpu")
-        rt.declare(_InPlaceNode, 16).declare(_InPlaceReporter, 3)
-        rt.start()
-        return rt
-
-    def seed(rt):
-        ids = rt.spawn_many(_InPlaceNode, 16)
-        rep = rt.spawn(_InPlaceReporter)
-        rt.set_fields(_InPlaceNode, ids, nxt=np.roll(ids, -1), rep=rep)
-        rt.send(int(ids[0]), _InPlaceNode.token, hops)
-
-    def result(rt):
-        return ([int(x) for x in rt.cohort_state(_InPlaceNode)["passes"]],
-                sum(int(st.get("n", 0)) for st in rt._host_state.values()),
-                rt.steps_run)
-
-    base = build()
-    seed(base)
-    assert base.run() == 0
-    want = result(base)
+    result = _inplace_result
+    want = _inplace_uninterrupted(hops)
     assert want[1] == hops // 64
 
     gate = threading.Event()
@@ -283,9 +302,9 @@ def test_queued_snapshot_owns_its_host_state(tmp_path, path, monkeypatch):
         return real(*a, **k)
 
     monkeypatch.setattr(serialise, "write_snapshot", slow_write)
-    rt = build(checkpoint_every_s=60.0,
-               checkpoint_path=str(tmp_path / "own"))
-    seed(rt)
+    rt = _inplace_build(path, checkpoint_every_s=60.0,
+                        checkpoint_path=str(tmp_path / "own"))
+    _inplace_seed(rt, hops)
     rt.run(max_steps=cut)
     reported = result(rt)[1]
     free = copy.deepcopy(rt._free["_InPlaceReporter"])
@@ -296,7 +315,7 @@ def test_queued_snapshot_owns_its_host_state(tmp_path, path, monkeypatch):
     gate.set()
     rt.stop()
 
-    rt2 = build()
+    rt2 = _inplace_build(path)
     serialise.restore(rt2, snap)
     assert rt2._free["_InPlaceReporter"] == free
     assert sum(int(st.get("n", 0))

@@ -50,7 +50,11 @@ def path(request, monkeypatch):
 
         def checked(self, st, it, iw, limit, force, prev_aux, probe,
                     forced):
-            want = plain(self, st, it, iw, limit, force, prev_aux, None,
+            # The run's own stop probe: the plain window stops enqueuing
+            # once the device voted to stop (every later tick is a
+            # no-op), as in an unchecked run, instead of running the
+            # window's every tick predicated off.
+            want = plain(self, st, it, iw, limit, force, prev_aux, probe,
                          forced)
             got = self.run_host(st, it, iw, limit, force,
                                 engine.zero_aux("cpu") if forced

@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: importing it (the window kernel's
-module included) and running a ring, with the plain window and with
-delivery="pallas_mega", pulls in no JAX and nothing of the JAX package; it runs on CUDA unless the
-caller asks for the CPU; and options this slice does not serve raise
-NotImplementedError instead of falling back."""
+module, the standard library, files, process and the `run` verb
+included), running a ring with the plain window and with
+delivery="pallas_mega", and a body drawing from stdlib.random through
+both kernels' lane code pulls in no JAX and nothing of the JAX package;
+it runs on CUDA unless the caller asks for the CPU; and options this
+slice does not serve raise NotImplementedError instead of falling
+back."""
 
 import json
 import os
@@ -18,21 +21,36 @@ from ponyc_tpu_torch import Runtime, RuntimeOptions
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHILD = """
-import json, sys
+import importlib, json, os, sys
+sys.path.insert(0, "tests")
 import ponyc_tpu_torch
 from ponyc_tpu_torch import RuntimeOptions
 from ponyc_tpu_torch.models import ring
 import ponyc_tpu_torch.ops.megakernel
+from ponyc_tpu_torch import files, process, stdlib
+from ponyc_tpu_torch.__main__ import cmd_run
+import _torch_programs as tp
 for delivery in ("plan", "pallas_mega"):
     rt = ring.run(32, 40, opts=RuntimeOptions(mailbox_cap=4, batch=1,
                   max_sends=1, msg_words=1, spill_cap=32, inject_slots=4,
                   tuning_cache="off", delivery=delivery), device="cpu")
+mods = sorted(f[:-3] for f in os.listdir("ponyc_tpu_torch/stdlib")
+              if f.endswith(".py") and f != "__init__.py")
+for m in mods:
+    importlib.import_module("ponyc_tpu_torch.stdlib." + m)
+visits = []       # stdlib.random in a body, through both kernels' lane code
+for kw in ({"pallas_fused": True}, {"delivery": "pallas_mega"}):
+    P = tp.define_random(ponyc_tpu_torch, 16)
+    rp = tp.randping_build(ponyc_tpu_torch, P, 16, 4, **kw)
+    rp.run()
+    visits.append(int(rp.cohort_state(P)["visits"].sum()))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
 print(json.dumps({"bad": bad, "code": rt.exit_code,
                   "passes": int(rt.cohort_state(ring.RingNode)
-                                ["passes"].sum())}))
+                                ["passes"].sum()),
+                  "stdlib_modules": len(mods), "visits": visits}))
 """
 
 
@@ -186,7 +204,8 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"bad": [], "code": 0, "passes": 40}
+    assert res == {"bad": [], "code": 0, "passes": 40, "stdlib_modules": 24,
+                   "visits": [256, 256]}
 
 
 def test_default_device_is_cuda_and_never_silently_cpu():

@@ -8,6 +8,8 @@ every cohort field, the runtime counters, the exit code and the ticks
 run. All compared values are integers: the tolerance is exact equality.
 The port runs on the CPU here (`device="cpu"`)."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -146,6 +148,16 @@ def test_fifo_stamps_match_jax(okw):
 
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_fifo_cosort():
+    """The JAX package's cosort FIFO run (and its exit code), once for
+    both of the port's paths."""
+    jrt = build_fifo(ponyc_tpu, JT, 5, n_cons=6, items=40, mailbox_cap=4,
+                     batch=2, max_sends=3, spill_cap=2048, inject_slots=16,
+                     delivery="cosort")
+    return jrt, jrt.run(max_steps=100_000)
+
+
 @pytest.mark.parametrize("path", [{}, dict(pallas_fused=True)],
                          ids=["plain", "fused"])
 def test_fifo_stamps_under_cosort_match_jax(path):
@@ -155,10 +167,10 @@ def test_fifo_stamps_under_cosort_match_jax(path):
     okw = dict(mailbox_cap=4, batch=2, max_sends=3, spill_cap=2048,
                inject_slots=16, delivery="cosort")
     items, n_cons = 40, 6
-    jrt = build_fifo(ponyc_tpu, JT, 5, n_cons=n_cons, items=items, **okw)
+    jrt, jc = _jax_fifo_cosort()
     trt = build_fifo(ponyc_tpu_torch, TT, 5, n_cons=n_cons, items=items,
                      **okw, **path)
-    jc, tc = jrt.run(max_steps=100_000), trt.run(max_steps=100_000)
+    tc = trt.run(max_steps=100_000)
     _same_world(jrt, trt, [(JT.Prod, TT.Prod), (JT.Cons, TT.Cons)], jc,
                 tc)
     for f in ("plan_key", "plan_perm", "plan_bounds"):
