@@ -233,10 +233,10 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 intact, the unfaulted result (a --only run's; a whole
                 run skips it for the time limit);
  19. stdlib   — the standard library: randping (tests/_torch_programs.py,
-                define_random: 2**20 pingers x 4 tokens x 64 visits, each
+                define_random: 2**20 pingers x 4 tokens x 32 visits, each
                 hop to a peer drawn by stdlib.random.randint, a hit when
                 stdlib.random.uniform < 0.5; cap 16, batch 8, 2 words) on
-                each path: 2**28 processed, visits and hits equal to a
+                each path: 2**27 processed, visits and hits equal to a
                 NumPy replay of every walk (in worker processes while
                 the card runs), fields, counters and ticks equal across
                 the paths, launches, ms a tick; then on each path a child
@@ -246,7 +246,23 @@ Three paths run: the plain tick (drain kernel), the fused dispatch kernel
                 under TMPDIR. Kernels 2 and 3 are held against their
                 plain versions at randping's shape in `kernels` and
                 `kernels-mega`;
- 20. profile  — kernels launched a tick and the device's busy share
+ 20. costs    — cost capture (costs.py, ops/census.py) on ubench 2**20 x
+                4 on each path: start() with cost_capture=True censuses
+                the step and the one-tick window (bytes, the allocator's
+                peak, seconds; no error; the plain and fused steps count
+                the drain's or the fused kernel's launch, the window
+                kernel's window at least mega_bound's design bytes); a
+                capture of the seeded world, then 64 ticks equal to a
+                world without capture; the record-move probe exactly
+                4 * record_words bytes a message, no divergence, a model
+                seeded at 10x diverging; the /metrics gauge and the
+                postmortem's `measured [step]`; ponybench (BenchRunner)
+                timing kernel 1 at ubench's drain shape (run_costs);
+ 21. static   — verify_program and lint_program over every program the
+                script builds (no verify failure, no finding), and the
+                verify, lint and doc verbs on ponyc_tpu_torch.models.ubench
+                (exit 0) (run_static);
+ 22. profile  — kernels launched a tick and the device's busy share
                 (torch.profiler; the window kernel by CUDA events around
                 its launches) for ubench and mixed on each path.
 
@@ -520,8 +536,9 @@ HOST_SEED = 2026
 HOST_CUT = (1 << 15, 1 << 9, 32)  # walkers, chains, longest chain of its
 #   plain and fused runs, untraced and traced (their ticks take tens of ms
 #   on the host's clock, and the host actor's ring of 4 takes a window a
-#   tick: about one a chain's report); 2^10 chains of 1..64 hops until the
-#   stdlib phase needed the time
+#   tick: about one a chain's report, so the ticks follow the chains, not
+#   their length: 1..16 hops ran 133 ticks against 141); 2^10 chains of
+#   1..64 hops until the stdlib phase needed the time
 HOST_CHILD = (1 << 15, 1 << 10, 64)  # the ops and durable phases' hostlog
 #   world: walkers, chains, seed (chains of 1..256 hops)
 SPREAD_DEPTH = 9          # examples/spreader.py's program on the card
@@ -596,8 +613,10 @@ def spread_build(mode, depth=SPREAD_DEPTH, device="cuda"):
     return rt, col, done
 
 
-RANDPING = (1 << 20, 64)  # randping on the card: pingers, visits a token
-#   (each pinger seeded with 4 tokens: 2^22 walks, 2^28 messages)
+RANDPING = (1 << 20, 32)  # randping on the card: pingers, visits a token
+#   (each pinger seeded with 4 tokens: 2^22 walks, 2^27 messages; 64
+#   visits until the costs and static phases needed the time: the mute
+#   cascade's ticks scale with the visits, 1,286 at 64)
 RANDPING_WINDOW = 64      # ticks a window (quiesce_interval)
 RANDPING_ORACLE_PROCS = 4  # processes replaying the walks in NumPy while
 #   the card runs the paths (one a token)
@@ -659,17 +678,19 @@ def stdlib_opts(mode):
 BLOB_WALKERS = 1 << 19    # the blob chain on the card
 BLOB_CHAINS = 1 << 14
 BLOB_SEED = 2026
-BLOB_CUT = (1 << 17, 1 << 11, 64)  # walkers, chains, longest chain of its
+BLOB_CUT = (1 << 17, 1 << 11, 32)  # walkers, chains, longest chain of its
 #   plain and fused runs (their ticks take tens of ms on the host's clock;
-#   the longest chain cut from 128 to 64 for the stdlib phase)
+#   the longest chain cut from 128 to 64 for the stdlib phase, to 32 for
+#   the costs and static phases)
 BLOB_SLOTS = (1 << 20) - 1    # the most one shard addresses (ops/pack.py)
 BLOB_SPILL = 1 << 14          # one a chain: a chain has one token in
 #   flight, so the spill cannot overflow (1,024 overflowed at tick 309)
 BLOB_KEEP = 1024              # walkers the GC check keeps pinned
 RECORDS = (256, 2)            # the records model: sources x records
-RECORDS_CUT = (64, 2)         # ... on the plain and fused paths, held
+RECORDS_CUT = (32, 2)         # ... on the plain and fused paths, held
 #   against the window kernel there (their ticks, about one a record,
-#   take tens of ms on the host's clock; cut for the stdlib phase)
+#   take tens of ms on the host's clock; cut to 64 for the stdlib phase,
+#   to 32 for the costs and static phases)
 
 
 def blob_kw(mode):
@@ -1563,7 +1584,7 @@ def full_worlds():
             ] + [(label, tel(label, kw)) for label, kw in TEL_WORLDS.items()]
 
 
-RANDPING_WORLD = "randping 2^20 x 4 x 64 (stdlib.random in the body)"
+RANDPING_WORLD = "randping 2^20 x 4 x 32 (stdlib.random in the body)"
 
 
 YARDSTICK_WORLD = "ubench 2^20 hops=2^30 (every payload escaped)"
@@ -5368,6 +5389,260 @@ def run_stdlib(rec, frec, mrec):
     return out
 
 
+COSTS_N = 1 << 20          # the costs phase's ubench: 2^20 pingers x 4
+COSTS_TICKS = 64           # (bench.py:897-907's shape), 64 ticks a path
+
+
+@phase("costs")
+def run_costs(rec):
+    """Cost capture on each path (costs.py, ops/census.py): (a) start()
+    with cost_capture=True censuses the step and the one-tick window
+    (no record an error; the plain and fused steps count the drain's or
+    the fused kernel's launch, the window kernel's window at least
+    mega_bound's design bytes); (b) a capture of the seeded world, then
+    64 ticks: fields, counters and steps_run equal 64 ticks of a world
+    started without capture; (c) the record-move probe on the card is
+    exactly 4 * record_words bytes a message, measured_block does not
+    diverge, a model seeded at 10x does (MODEL DIVERGENCE on stderr);
+    (d) the /metrics gauge of the step above 0, a postmortem rendering
+    `measured [step]`; (e) BenchRunner (ponybench) times kernel 1 at the
+    kernels phase's ubench drain shape: its p50 beside that phase's
+    CUDA-event wall a call, not below 0.9x the device time."""
+    import contextlib
+    import io
+    import torch
+    from ponyc_tpu_torch import costs, metrics
+    from ponyc_tpu_torch.benching import BenchRunner
+    from ponyc_tpu_torch.flight import render_postmortem
+    from ponyc_tpu_torch.models import ubench
+    from ponyc_tpu_torch.ops import mailbox_kernel as mk
+    from ponyc_tpu_torch.ops.megakernel import record_words
+    out = {}
+    for mode in (False, True, "mega"):
+        name = _mode_name(mode)
+        opts = ubench_opts(mode, COSTS_TICKS)
+        t0 = time.perf_counter()
+        rt, ids = ubench.build(COSTS_N, ubench_opts(
+            mode, COSTS_TICKS, cost_capture=True), pings=4)
+        start_s = time.perf_counter() - t0
+        res = {"start_s": start_s}
+        for when in ("start", "seeded"):
+            ex = rt._costs["executables"]
+            for exe in ("step", "window"):
+                r = ex[exe]
+                if "error" in r:
+                    raise AssertionError(f"costs {name} [{exe}] at {when}: "
+                                         f"{r['error']}")
+                print(f"costs {name} [{exe}] at {when}: bytes_accessed "
+                      f"{r['bytes_accessed']:.0f}, peak_bytes "
+                      f"{r['peak_bytes']}, flops {r['flops']}, ATen ops "
+                      f"{r['ops']}, kernels {r['kernels']}, capture "
+                      f"{r['capture_s']:.3f} s", flush=True)
+                res[f"{when} {exe}"] = {k: r[k] for k in (
+                    "bytes_accessed", "peak_bytes", "ops", "kernels",
+                    "capture_s")}
+            if mode == "mega":
+                k = ex["window"]["kernels"].get("mega")
+                if not k or k["launches"] != 1 or k["bytes"] <= 0:
+                    raise AssertionError(f"costs {name}: the window's "
+                                         f"census missed kernel 3: {k}")
+                if when == "start":
+                    design = mega_bound(rt._multi_g, 1, 0, 0, "segment")[5]
+                    got = ex["window"]["bytes_accessed"]
+                    print(f"costs {name}: window census {got:.0f} B "
+                          f"against mega_bound's design bytes {design:.0f} "
+                          f"for a one-tick window ({got / design:.2f}x)",
+                          flush=True)
+                    if got < design:
+                        raise AssertionError("the window's census is "
+                                             "below the design bytes")
+                    res["design_bytes"] = design
+            else:
+                kname = "fused" if mode is True else "drain"
+                k = ex["step"]["kernels"].get(kname)
+                if not k or k["launches"] < 1 or k["bytes"] <= 0:
+                    raise AssertionError(f"costs {name}: the step's census "
+                                         f"missed the {kname} kernel: {k}")
+            if when == "start":
+                ubench.seed_all(rt, ids, hops=1 << 30, pings=4)
+                rt.measured_costs(force=True)   # a world with messages
+        # (b) the capture left the world where it was
+        rt.run(max_steps=COSTS_TICKS)
+        got = world_numbers(rt, ubench.Pinger)
+        ref, rids = ubench.build(COSTS_N, opts, pings=4)
+        ubench.seed_all(ref, rids, hops=1 << 30, pings=4)
+        ref.run(max_steps=COSTS_TICKS)
+        want = world_numbers(ref, ubench.Pinger)
+        del ref
+        if not (got["steps"] == want["steps"] > 0
+                and got["counters"] == want["counters"]
+                and same_arrays(got["fields"], want["fields"])
+                and same_arrays(got["tel"], want["tel"])):
+            raise AssertionError(f"costs {name}: 64 ticks after the capture "
+                                 "differ from the world without it")
+        print(f"costs {name}: 64 ticks after two captures equal the world "
+              f"without (steps {got['steps']}, processed "
+              f"{got['counters']['n_processed']})", flush=True)
+        # (c) the probe, the verdict, a seeded divergence
+        probe = costs.record_move_probe(rt.opts, device="cuda")
+        w1 = record_words(rt.opts)
+        if probe["bytes_per_msg"] != 4.0 * w1:
+            raise AssertionError(f"record-move probe {probe}")
+        blk = costs.measured_block(rt)
+        if blk["model_divergence"]["diverged"]:
+            raise AssertionError(f"costs {name}: {blk['model_divergence']}")
+        fake = dict(blk["modelled"],
+                    unpacked_bytes=10 * blk["modelled"]["unpacked_bytes"])
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            bad = costs.measured_block(rt, modelled=fake)
+        if not bad["model_divergence"]["diverged"] \
+                or "MODEL DIVERGENCE" not in err.getvalue():
+            raise AssertionError("a model seeded at 10x did not diverge")
+        costs.measured_block(rt)
+        print(f"costs {name}: probe {probe['bytes_per_msg']} B/msg = 4 x "
+              f"{w1} record words; model ratio "
+              f"{blk['model_divergence']['ratio']}; seeded 10x: ratio "
+              f"{bad['model_divergence']['ratio']}, MODEL DIVERGENCE on "
+              "stderr", flush=True)
+        # (d) /metrics and the postmortem
+        parsed = metrics.parse_prometheus(metrics.prometheus_text(
+            metrics.snapshot(rt)))
+        gauge = parsed.get(("pony_tpu_measured_bytes_accessed",
+                            (("executable", "step"),)), 0)
+        text = render_postmortem(rt._flight.postmortem("manual"))
+        if not gauge > 0 or "measured [step]" not in text \
+                or "model vs measured" not in text:
+            raise AssertionError(f"costs {name}: gauge {gauge}, postmortem "
+                                 f"{text[-400:]}")
+        print(f"costs {name}: /metrics pony_tpu_measured_bytes_accessed"
+              f"{{executable=step}} {gauge:.0f}; postmortem: "
+              + " | ".join(line for line in text.splitlines()
+                           if line.startswith(("measured [",
+                                               "model vs"))), flush=True)
+        rt.stop()
+        del rt
+        torch.cuda.empty_cache()
+        out[name] = res
+    # (e) ponybench on kernel 1 at ubench's drain shape
+    cap, w1, n, batch = 4, 2, 1 << 20, 4
+    sets = [drain_inputs(torch, cap, w1, n, batch, 40 + s)
+            for s in range(3)]
+    turn = [0]
+
+    def kern():
+        turn[0] += 1
+        b, h, r = sets[turn[0] % 3]
+        return mk.drain_msgs(b, h, r, batch)
+    dev_ms = rec.get("ms")
+    if dev_ms is None:          # a --only run without the kernels phase
+        dev_ms = device_ms(lambda *a: kern(), 50, [()], "drain_kernel")
+    bench = BenchRunner(min_window_s=0.2, out=io.StringIO())
+    r = bench.bench("drain 2^20x4", kern, items_per_call=n)
+    p50_ms = r.p50_s * 1e3
+    print(f"costs ponybench: kernel 1 at cap={cap} w1={w1} N={n} "
+          f"batch={batch}: p50 {p50_ms:.4f} ms a call (mean "
+          f"{r.mean_s * 1e3:.4f}, p95 {r.p95_s * 1e3:.4f}, {r.reps} reps a "
+          f"window) beside the kernels phase's CUDA-event wall "
+          f"{rec.get('call_ms', float('nan')):.4f} ms and device time "
+          f"{dev_ms:.4f} ms", flush=True)
+    if p50_ms < 0.9 * dev_ms:
+        raise AssertionError("ponybench's p50 is below 0.9x the device time")
+    out["ponybench_p50_ms"] = p50_ms
+    return out
+
+
+def static_programs():
+    """Every program the script builds, by label: its actor types."""
+    import ponyc_tpu_torch
+    from ponyc_tpu_torch import serve
+    from ponyc_tpu_torch.models import (fanin, gups, mandelbrot, nbody,
+                                        records, ring, spawn_tree, ubench)
+
+    def types_of(ns):
+        return [v for v in vars(ns).values()
+                if isinstance(v, ponyc_tpu_torch.api.ActorTypeMeta)
+                and v.behaviour_defs]
+    tp, T = programs()
+    out = {"programs()": types_of(T), "blob_programs()":
+           types_of(blob_programs()[1]),
+           "telemetry": types_of(tp.define_telemetry(ponyc_tpu_torch)),
+           "ops": types_of(tp.define_ops(ponyc_tpu_torch)),
+           "randping": [randping_type()], "stdlib": types_of(stdlib_types()),
+           "mixed": [mixed_type()],
+           "serve": [serve.ServeWorker, serve.Egress, serve.FrontDoor]}
+    for m in (ring, ubench, gups, fanin, records, nbody, spawn_tree,
+              mandelbrot):
+        out["models." + m.__name__.rsplit(".", 1)[1]] = types_of(m)
+    return out
+
+
+@phase("static")
+def run_static():
+    """verify_program and lint_program over every program the script
+    builds, in this environment (no JAX): zero verify failures and zero
+    findings (what the CPU tests give); then `python -m ponyc_tpu_torch
+    verify|lint|doc ponyc_tpu_torch.models.ubench` each exit 0."""
+    import tempfile
+    from ponyc_tpu_torch import Program, RuntimeOptions
+    from ponyc_tpu_torch.lint import lint_program
+    from ponyc_tpu_torch.verify import verify_program
+    t0 = time.perf_counter()
+    n_types = n_beh = 0
+    findings = {}
+    for label, types in static_programs().items():
+        p = Program(RuntimeOptions(msg_words=16, blob_slots=64,
+                                   blob_words=8))
+        for t in types:
+            p.declare(t, 8)
+        p.finalize()
+        rep = verify_program(p, lint=False)     # raises on a violation
+        found = lint_program(p)
+        n_types += len(rep)
+        n_beh += sum(len(v) for v in rep.values())
+        if found:
+            findings[label] = [str(f) for f in found]
+    sweep_s = time.perf_counter() - t0
+    print(f"static: {n_types} types, {n_beh} behaviours verified and "
+          f"linted in {sweep_s:.2f} s: 0 verify failures, "
+          f"{sum(len(v) for v in findings.values())} findings", flush=True)
+    if findings:
+        raise AssertionError(f"lint findings: {findings}")
+    codes = {}
+    os.makedirs(os.path.join(ROOT, "_chipwork"), exist_ok=True)
+    d = tempfile.mkdtemp(dir=os.path.join(ROOT, "_chipwork"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    try:
+        t1 = time.perf_counter()
+        procs = {}
+        for verb in ("verify", "lint", "doc"):       # the three at once
+            argv = [sys.executable, "-m", "ponyc_tpu_torch", verb,
+                    "ponyc_tpu_torch.models.ubench"]
+            if verb == "doc":
+                argv += ["-o", d]
+            procs[verb] = subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for verb, proc in procs.items():
+            try:
+                so, se = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            codes[verb] = proc.returncode
+            print(f"static: python -m ponyc_tpu_torch {verb} "
+                  f"ponyc_tpu_torch.models.ubench: exit {proc.returncode} "
+                  f"({time.perf_counter() - t1:.1f} s for the three): "
+                  f"{so.strip().splitlines()[-1:]}", flush=True)
+            if proc.returncode != 0:
+                raise AssertionError(f"{verb}: {se[-800:]}")
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    return {"types": n_types, "behaviours": n_beh, "sweep_s": sweep_s,
+            "codes": codes, "seconds": time.perf_counter() - t0}
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -5489,6 +5764,10 @@ def main():
             summary["durable"] = run_durable(rec, frec, mrec)
         if want("stdlib"):
             summary["stdlib"] = run_stdlib(rec, frec, mrec)
+        if want("costs"):
+            summary["costs"] = run_costs(rec)
+        if want("static"):
+            summary["static"] = run_static()
         if want("profile"):
             summary["profile"] = run_profile()
     summary["seconds"] = time.perf_counter() - t_start

@@ -54,11 +54,33 @@ Commands:
          --tls-key K]         the default compute service, on the card
         [--pending-limit B]   unless --cpu. Exit: 0 drained, a coded
         [--drain-grace S]     failure's error code, 2 usage.
+  test [pytest args...]       the port's tests (tests/test_torch_*.py;
+                              ≙ ponytest aggregate). Exit: pytest's.
+  doc <module[:ATTR]> [-o D]  generate docs for actor types reachable
+                              from a module (≙ docgen pass, docgen.c).
+                              Exit: 0 written, 1 no actor types.
+  verify <module> [--json]    probe-trace every behaviour's effect
+                              signature on meta tensors; fail on
+                              budget violations and trace failures
+                              (≙ the verify stage, verify/fun.c).
+                              Exit: 0 ok, 1 violations, 2 usage,
+                              3 no actor types in the module.
+  lint <target...> [--json]   whole-program static analysis. A target
+      [--format github]       is a MODULE NAME (message-flow graph
+      [--roots A.go,B.tick]   rules R0–R5 over probe traces plus the
+                              pure-AST behaviour-body rules R6–R9) or
+                              a FILE/DIRECTORY (body rules only, the
+                              files parsed and never imported).
+                              --json emits one finding object per
+                              line; --format github emits
+                              ::warning/::error annotations. Exit
+                              codes as for verify (1 = findings at
+                              error or warning severity).
   version                     print the version, the torch build and
                               the card.
 
-The JAX package's other verbs (bench, test, doc, verify, lint, perf)
-print which part of the port brings them and exit 2.
+The JAX package's other verbs (bench, perf) print which part of the
+port brings them and exit 2.
 
 Runtime flags are accepted anywhere in `run` argv, exactly like the
 reference stripping --pony* before the app sees argv (start.c:185-261):
@@ -78,6 +100,202 @@ import time
 def _usage(code: int = 2) -> int:
     print(__doc__, file=sys.stderr)
     return code
+
+
+def cmd_test(argv) -> int:
+    """Run the port's tests (tests/test_torch_*.py; ≙ ponytest
+    aggregate) with pytest, passing argv through. Exit: pytest's."""
+    import glob
+
+    import pytest
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(root, "tests",
+                                          "test_torch_*.py")))
+    target = files if files else ["--pyargs", "ponyc_tpu_torch"]
+    return pytest.main(target + list(argv))
+
+
+def cmd_doc(argv) -> int:
+    if not argv:
+        print("ponyc_tpu_torch doc: missing module[:ATTR]", file=sys.stderr)
+        return 2
+    out_dir = "docs_out"
+    if "-o" in argv:
+        i = argv.index("-o")
+        out_dir = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    import importlib
+
+    from .api import ActorTypeMeta
+    from .docgen import document_types
+    modname, _, attr = argv[0].partition(":")
+    sys.path.insert(0, os.getcwd())
+    mod = importlib.import_module(modname)
+    objs = [getattr(mod, attr)] if attr else [
+        v for v in vars(mod).values() if isinstance(v, ActorTypeMeta)]
+    if not objs:
+        print(f"ponyc_tpu_torch doc: no actor types in {modname}",
+              file=sys.stderr)
+        return 1
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, modname.replace(".", "_") + ".md")
+    with open(path, "w") as f:
+        f.write(document_types(*objs, title=modname))
+    print(path)
+    return 0
+
+
+def _load_module_types(cmd: str, modname: str):
+    """Import a module and collect its concrete actor types (shared by
+    verify/lint). Returns (module, types) or (None, exit_code)."""
+    import importlib
+
+    from .api import ActorTypeMeta
+    sys.path.insert(0, os.getcwd())
+    mod = importlib.import_module(modname)
+    atypes = [v for v in vars(mod).values()
+              if isinstance(v, ActorTypeMeta)
+              and v.behaviour_defs
+              and not getattr(v, "_type_params", ())]
+    if not atypes:
+        print(f"ponyc_tpu_torch {cmd}: no concrete actor types in {modname}",
+              file=sys.stderr)
+        return None, 3
+    return mod, atypes
+
+
+def cmd_verify(argv) -> int:
+    """Run the verify pass over a module's actor types (≙ the verify
+    stage of the compile pipeline, verify/fun.c): print each
+    behaviour's effect signature, fail on budget violations.
+
+    Exit codes: 0 all behaviours verify, 1 budget/trace violations,
+    2 usage error, 3 module has no concrete actor types. `--json`
+    emits failures in the lint finding format (one object per line)."""
+    as_json = "--json" in argv
+    argv = [a for a in argv if a != "--json"]
+    if not argv:
+        print("ponyc_tpu_torch verify: missing module", file=sys.stderr)
+        return 2
+    mod, atypes = _load_module_types("verify", argv[0])
+    if mod is None:
+        return atypes
+    from .lint.rules import Finding
+    from .verify import VerifyError, behaviour_location, verify_behaviour
+    bad = 0
+    for atype in atypes:
+        for bdef in atype.behaviour_defs:
+            try:
+                eff = verify_behaviour(bdef)
+            except (VerifyError, TypeError, RuntimeError) as e:
+                # Budget violations AND trace-time failures
+                # (sendability/capability errors) report as FAILs, not
+                # tracebacks, and the sweep continues.
+                file, line = behaviour_location(bdef)
+                if as_json:
+                    print(Finding("VERIFY", "error", atype.__name__,
+                                  bdef.name, str(e), file=file,
+                                  line=line).json_line())
+                else:
+                    print(f"FAIL {atype.__name__}.{bdef.name}: {e}")
+                bad += 1
+                continue
+            if not as_json:
+                marks = eff.marks() or "pure state update"
+                print(f"ok   {atype.__name__}.{bdef.name}: {marks}")
+    return 1 if bad else 0
+
+
+def cmd_lint(argv) -> int:
+    """Whole-program lint (≙ reach/paint + the capability checks run
+    program-wide, plus the compiler's syntactic body checks;
+    ponyc_tpu_torch/lint). Targets are module names (graph rules R1–R5 from
+    probe traces + body rules R6–R9) and/or file/directory paths
+    (`lint examples/` — body rules only, pure AST: the files are
+    PARSED, never imported, so a file whose imports are broken still
+    lints, with no torch in the loop).
+
+    Roots (host inject sites) come from --roots / the module's
+    LINT_ROOTS / actor-type LINT_ROOTS; with none declared, any
+    behaviour is assumed injectable (R1 and the rooted R2 sub-rule
+    stay quiet). Output: human (default), --json (one object per
+    line), --format github (::warning/::error annotations). Exit
+    codes: 0 clean (info-severity findings are advisory), 1 findings
+    at warning/error, 2 usage, 3 no actor types found."""
+    fmt = "human"
+    if "--json" in argv:
+        fmt = "json"
+        argv = [a for a in argv if a != "--json"]
+    if "--format" in argv:
+        i = argv.index("--format")
+        if i + 1 >= len(argv) or argv[i + 1] not in ("human", "json",
+                                                     "github"):
+            print("ponyc_tpu_torch lint: --format takes human|json|github",
+                  file=sys.stderr)
+            return 2
+        fmt = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    roots = None
+    if "--roots" in argv:
+        i = argv.index("--roots")
+        if i + 1 >= len(argv):
+            print("ponyc_tpu_torch lint: --roots needs a value "
+                  "(e.g. --roots Main.create,Ring.token)",
+                  file=sys.stderr)
+            return 2
+        roots = [r for r in argv[i + 1].split(",") if r]
+        argv = argv[:i] + argv[i + 2:]
+    if not argv:
+        print("ponyc_tpu_torch lint: missing module or path", file=sys.stderr)
+        return 2
+    from .lint import (check_paths, findings_to_github,
+                       findings_to_json, format_findings, lint_types)
+    findings = []
+    n_types = n_beh = 0
+    paths = [a for a in argv if os.path.exists(a)]
+    modules = [a for a in argv if a not in paths]
+    if paths:
+        pf, pt, pb = check_paths(paths)
+        findings += pf
+        n_types += pt
+        n_beh += pb
+    for modname in modules:
+        mod, atypes = _load_module_types("lint", modname)
+        if mod is None:
+            return atypes
+        mroots = roots if roots is not None else getattr(
+            mod, "LINT_ROOTS", None)
+        try:
+            findings += lint_types(*atypes, roots=mroots)
+        except (TypeError, ValueError) as e:
+            print(f"ponyc_tpu_torch lint: {e}", file=sys.stderr)
+            return 2
+        n_types += len(atypes)
+        n_beh += sum(len(t.behaviour_defs) for t in atypes)
+    if not n_types:
+        print("ponyc_tpu_torch lint: no actor types found in "
+              + ", ".join(argv), file=sys.stderr)
+        return 3
+    if fmt == "json":
+        out = findings_to_json(findings)
+        if out:
+            print(out)
+    elif fmt == "github":
+        out = findings_to_github(findings)
+        if out:
+            print(out)
+    else:
+        if findings:
+            print(format_findings(findings))
+        by_sev = {}
+        for f in findings:
+            by_sev[f.severity] = by_sev.get(f.severity, 0) + 1
+        summary = (", ".join(f"{n} {s}" for s, n in sorted(by_sev.items()))
+                   or "clean")
+        print(f"lint: {n_types} type(s), {n_beh} behaviour(s): "
+              f"{summary}")
+    return 1 if any(f.severity in ("error", "warning")
+                    for f in findings) else 0
 
 
 def cmd_trace(argv) -> int:
@@ -492,22 +710,19 @@ def cmd_version(_argv) -> int:
     return 0
 
 
-COMMANDS = {"run": cmd_run, "trace": cmd_trace, "top": cmd_top,
-            "doctor": cmd_doctor, "snapshot": cmd_snapshot,
-            "restore": cmd_restore,
+COMMANDS = {"run": cmd_run, "test": cmd_test, "doc": cmd_doc,
+            "verify": cmd_verify, "lint": cmd_lint, "trace": cmd_trace,
+            "top": cmd_top, "doctor": cmd_doctor,
+            "snapshot": cmd_snapshot, "restore": cmd_restore,
             "supervise": cmd_supervise, "serve": cmd_serve,
             "version": cmd_version}
 
 # The JAX package's other verbs, and what part of the port brings each
-# (ROADMAP.md, "Port slices" and Queue 1).
+# (ROADMAP.md, Queue 1).
 NOT_SERVED = {
     "bench": "the port's bench (ROADMAP Queue 1 item 1)",
-    "test": "the port's bench (ROADMAP Queue 1 item 1)",
-    "perf": "the port's bench and cost capture (port slice 11, "
-            "ROADMAP Queue 1 items 1 and 5)",
-    "doc": "the static checks (ROADMAP Queue 1 item 8)",
-    "verify": "the static checks (ROADMAP Queue 1 item 8)",
-    "lint": "the static checks (ROADMAP Queue 1 item 8)",
+    "perf": "the port's bench, whose history the scoreboard reads "
+            "(ROADMAP Queue 1 item 1)",
 }
 
 

@@ -73,6 +73,18 @@ class BehaviourDef:
                     f"{spec.__name__} — not sendable; only Iso, Val and "
                     "Tag payloads may cross an actor boundary "
                     "(CAP_SEND, type/cap.c:90; safeto.c)")
+        # Where the body is defined (lint findings and verify failures
+        # point at it; None for exec'd or builtin functions), and the
+        # behaviour's own lint suppressions (set on the function by
+        # @behaviour(lint_ignore=...), so inherited and reified copies,
+        # which wrap the same function, keep them).
+        code = getattr(fn, "__code__", None)
+        self.source_file: Optional[str] = getattr(code, "co_filename",
+                                                  None)
+        self.source_line: Optional[int] = getattr(code,
+                                                  "co_firstlineno", None)
+        self.lint_ignore: Tuple[str, ...] = tuple(
+            str(r) for r in getattr(fn, "LINT_IGNORE", ()) or ())
         self.global_id: Optional[int] = None
         self.local_id: Optional[int] = None
         self.actor_type: Optional["ActorTypeMeta"] = None
@@ -84,10 +96,15 @@ class BehaviourDef:
 
 def behaviour(fn=None, *, lint_ignore=()):
     """Mark a method as an actor behaviour (≙ Pony ``be``).
-    ``lint_ignore`` is accepted for source compatibility with the JAX
-    package; the port has no lint pass yet."""
+    ``@behaviour(lint_ignore=("R6", ...))`` suppresses those lint rules
+    for findings attributed to this behaviour (the behaviour-level
+    sibling of the type-level ``LINT_IGNORE``)."""
     if fn is None:
-        return BehaviourDef
+        def deco(f):
+            if lint_ignore:
+                f.LINT_IGNORE = tuple(str(r) for r in lint_ignore)
+            return BehaviourDef(f)
+        return deco
     return BehaviourDef(fn)
 
 
@@ -316,8 +333,10 @@ class BlobPoolView:
         i = self._i32(i)
         words = self.data.shape[0]
         ok = ok & self.used[hc] & (i >= 0) & (i < words)
-        return torch.where(ok, self.data[i.clamp(0, words - 1).long(), hc],
-                           0)
+        # Broadcast the word index against the slots: a 0-dim index
+        # tensor would be read back to the host as a Python int.
+        row, col = torch.broadcast_tensors(i.clamp(0, words - 1).long(), hc)
+        return torch.where(ok, self.data[row, col], 0)
 
     def length(self, h):
         hc, ok = self.local(self._i32(h))

@@ -498,8 +498,6 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
 # Feature -> (description, the port slice that brings it; ROADMAP.md
 # "Port slices"). Unserved options raise; they never fall back quietly.
 PORT_SLICES = {
-    "observability": ("measured cost capture (cost_capture, "
-                      "measured_costs)", 11),
     "mesh": ("mesh sharding (mesh_shards > 1)", 10),
 }
 
@@ -523,5 +521,3 @@ def check_supported(opts: RuntimeOptions) -> None:
     Runtime.start() (tuning.py)."""
     if opts.mesh_shards > 1:
         raise unported("mesh")
-    if opts.cost_capture:
-        raise unported("observability")

@@ -157,10 +157,9 @@ class FlightRecorder:
         Everything in it is JSON-serialisable host state — building it
         never touches the device. The checkpoint block is the ring's
         newest restorable snapshot (serialise.Checkpointer.info), the
-        serving block the front door's stats (serve.Server.stats). The
-        measured block belongs to cost capture, which the port does not
-        serve yet: it reads through getattr and stays None, as the JAX
-        package's readers expect of a runtime without it."""
+        serving block the front door's stats (serve.Server.stats), the
+        measured block cost capture's record (costs.py; None until a
+        capture ran)."""
         rt = self.rt
         import dataclasses
         ctrl = getattr(rt, "_controller", None)
@@ -422,6 +421,31 @@ def render_postmortem(pm: Dict[str, Any]) -> str:
     if mail:
         lines.append("recent host mail: " + ", ".join(
             f"a{m['actor']}.{m['behaviour']}" for m in mail[-6:]))
+    # Measured device costs (costs.py): absent without a capture, so
+    # .get() everything and render nothing rather than crash the report.
+    meas = pm.get("measured") or {}
+    for exe, rec in sorted((meas.get("executables") or {}).items()):
+        if not isinstance(rec, dict) or rec.get("error"):
+            continue
+        bits = []
+        if rec.get("flops") is not None:
+            bits.append(f"flops={rec['flops']:.3g}")
+        if rec.get("bytes_accessed") is not None:
+            bits.append(f"bytes={rec['bytes_accessed']:.3g}")
+        if rec.get("peak_bytes") is not None:
+            bits.append(f"peak={rec['peak_bytes']}B")
+        if bits:
+            lines.append(f"measured [{exe}] "
+                         f"({meas.get('backend', '?')}): "
+                         + " ".join(bits))
+    div = meas.get("model_divergence") or {}
+    if div.get("ratio") is not None:
+        verdict = ("DIVERGED" if div.get("diverged") else "ok")
+        lines.append(
+            f"model vs measured: {div.get('modelled_bytes')} vs "
+            f"{div.get('measured_bytes')} B/msg "
+            f"(ratio {div['ratio']}, tol {div.get('tolerance')}) "
+            f"-> {verdict}")
     tl = pm.get("probe_timeline")
     if tl:
         lines.append(f"backend probe attempts: {len(tl)}")

@@ -23,9 +23,9 @@ verdict reads only host attributes (the phase stamp tuple, the watchdog
 trip record), so ``/healthz`` keeps answering — and flips to
 ``stalled`` — while the card is wedged solid. With ``metrics_port=None``
 nothing starts. The net and serving blocks are the front door's
-(``rt.net``, ``rt._serve``: net/, serve.py); the measured block belongs
-to cost capture, which the port does not serve yet. The snapshot reads
-all three through getattr, so a runtime without them leaves them out.
+(``rt.net``, ``rt._serve``: net/, serve.py), the measured block cost
+capture's (``rt._costs``: costs.py). The snapshot reads all three
+through getattr, so a runtime without them leaves them out.
 """
 
 from __future__ import annotations
@@ -103,8 +103,9 @@ def snapshot(rt) -> Dict[str, Any]:
     srv = getattr(rt, "_serve", None)
     if srv is not None:
         snap["serving"] = srv.stats()
-    # Measured device costs (cost capture, when it is served): a host
-    # attribute read here, never a compile.
+    # Measured device costs (opts.cost_capture or
+    # Runtime.measured_costs(); costs.py): a host attribute read here,
+    # never a census run.
     costs = getattr(rt, "_costs", None)
     if costs is not None:
         snap["measured"] = costs

@@ -20,7 +20,8 @@ function takes (fields, buf, head, n_run, ids, resv) and returns what the
 plain loop (`fused_dispatch_plain`, the engine's own loop) returns. It
 chooses by where its tensors lie and by nothing else: CUDA tensors launch
 the kernel (or raise), CPU tensors take the plain version.
-`FusedDispatch.launches` counts kernel launches and nothing else.
+`FusedDispatch.launches` counts kernel launches and nothing else; each
+launch reports its bytes to an open cost-capture census (ops/census.py).
 
 Device spawns ride through as planes, as in the JAX kernel: the
 reservation planes [SPAWN_DISPATCHES * sites, rows] of each target in,
@@ -51,7 +52,7 @@ from typing import List
 import numpy as np
 import torch
 
-from . import _build, lanecode, pack
+from . import _build, census, lanecode, pack
 
 # The regroup's tile: TILE lanes a block of TILE_THREADS threads,
 # BLOCKS_PER_SM blocks a multiprocessor (csrc/fused_dispatch.cu,
@@ -364,6 +365,12 @@ class FusedDispatch:
                                f"failed: CUDA error {err}")
         if not host:
             FusedDispatch.launches += 1
+            census.report(
+                "fused",
+                [buf, head, n_run, ids, rv]
+                + [fields[f] for f in self.field_names],
+                [out_tgt, out_words, new_head, ds, erf, erc, erl, clm, red]
+                + [out_fields[f] for f in self.field_names])
         out = Entries(tgt=out_tgt, sender=ids.repeat(self.batch * self.ms),
                       words=out_words)
         bytes_ = red.view(torch.uint8)

@@ -9,7 +9,9 @@ hand-written CUDA kernel ``csrc/drain.cu`` on the card and as
 
 `drain_msgs` chooses by where its tensors lie and by nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel (or
-raise). `drain_msgs.launches` counts kernel launches and nothing else.
+raise). `drain_msgs.launches` counts kernel launches and nothing else;
+each launch reports its bytes to an open cost-capture census
+(ops/census.py).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import census
 
 
 def drain_msgs_plain(buf: torch.Tensor, head: torch.Tensor,
@@ -90,6 +94,7 @@ def _launch(buf, head, n_run, batch):
     if err != 0:
         raise RuntimeError(f"drain kernel launch failed: CUDA error {err}")
     drain_msgs.launches += 1
+    census.report("drain", (buf, head, n_run), (msgs, valid), flops=0.0)
     return msgs, valid.view(torch.bool)
 
 

@@ -26,7 +26,9 @@ Two things, as in the JAX package:
    (engine.build_forced_window): `limit` ticks unconditionally, injections
    every tick. It chooses by where the state lies and by nothing else:
    CUDA tensors launch the kernel (or raise), CPU tensors take the plain
-   window. `MegaWindow.launches` counts kernel launches and nothing else.
+   window. `MegaWindow.launches` counts kernel launches and nothing else;
+   each launch reports its bytes to an open cost-capture census
+   (ops/census.py).
    The kernel reads and writes the state's int32 word tables (rings and
    spill words) in place, in clones of the input's leaves. Its sort is
    chosen on the device each tick (`tick_sort` names the choice): a
@@ -81,7 +83,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from . import _build, lanecode
+from . import _build, census, lanecode
 
 # The escaped sentinel: int16 min. -32768 fits int16 but collides with the
 # sentinel, so it is escaped too: the codec is total on int32.
@@ -713,6 +715,13 @@ class MegaWindow:
                                f"CUDA error {err}")
         if not host:
             MegaWindow.launches += 1
+            # Every pointer argument is read; all but the injections and
+            # the previous aux are also written (the state's leaves in
+            # place, the workspace, the clock and the outputs).
+            read_only = {id(inject_tgt), id(inject_words)} | {
+                id(v) for v in prev_aux}
+            census.report("mega", tensors,
+                          [t for t in tensors if id(t) not in read_only])
         st2 = dataclasses.replace(
             st, **new, buf=bufs, type_state={**st.type_state, **fields},
             qwait_enq=qwe, trace_buf=tbuf)

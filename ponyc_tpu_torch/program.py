@@ -1,6 +1,7 @@
 """Program build for the PyTorch port (a copy of ``ponyc_tpu/program.py``
-with its imports rewired to this package; the lint pass and build-hook
-plugins are not ported yet).
+with its imports rewired to this package: the lint pass and the
+build-hook plugins are the port's own, ponyc_tpu_torch.lint and
+ponyc_tpu_torch.plugin).
 
 Program build: whole-world actor-type registry → cohorts + dispatch table.
 
@@ -236,6 +237,9 @@ class Program:
         self._resolve_spawns()
         self._resolve_blobs()
         self.frozen = True
+        from . import plugin as _plugin
+        if _plugin.active():
+            _plugin.run_build_hooks(self)
         return self
 
     def _resolve_spawns(self) -> None:
@@ -303,6 +307,20 @@ class Program:
             cohort.blob_offset = offset
             offset += (cohort.local_capacity * cohort.blob_dispatches
                        * cohort.blob_sites)
+
+    def lint(self, roots=None):
+        """Whole-program static analysis over this program's world
+        (≙ running reach/paint + safeto ahead of codegen): returns the
+        list of lint Findings — see ponyc_tpu_torch.lint for the rules
+        (R1 reachability … R5 budget feasibility), roots, and
+        suppressions. Callable before or after finalize(); probes with
+        this program's own msg_words/max_sends resolution."""
+        from .lint import lint_types
+        declared = (self._declared if not self.frozen
+                    else [(c.atype, 0) for c in self.cohorts])
+        return lint_types(*(t for t, _ in declared), roots=roots,
+                          msg_words=self.opts.msg_words,
+                          default_max_sends=self.opts.max_sends)
 
     @property
     def has_device_spawns(self) -> bool:

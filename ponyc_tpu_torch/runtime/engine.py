@@ -1596,6 +1596,7 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
 
     multi.enqueued = 0
     multi.fused = step.fused
+    multi.step = step             # one tick, for cost capture (costs.py)
     if opts.delivery == "pallas_mega" and megakernel.eligible(program, opts):
         return megakernel.MegaWindow(program, opts, multi,
                                      _plain_forced(step))

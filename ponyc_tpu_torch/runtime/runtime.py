@@ -391,6 +391,15 @@ class Runtime:
             if stall is not None:
                 raise stall from None
             raise
+        if self.opts.cost_capture:
+            # Measured device costs (costs.py): one step and one
+            # one-tick window under the byte census, on a copy of the
+            # state (the world does not advance), judged against the
+            # modelled bytes/msg, so /metrics and every postmortem
+            # carry measured numbers beside the modelled ones.
+            from .. import costs as _costs
+            _costs.capture(self, force=True)
+            _costs.measured_block(self)
         if self.opts.metrics_port is not None:
             from .. import metrics as _metrics
             self._metrics = _metrics.MetricsServer(self,
@@ -1616,11 +1625,16 @@ class Runtime:
                 "pool_live_blocks": 0,
                 "pool_recycled_blocks": 0}
 
-    def measured_costs(self, force: bool = False):
-        """Measured device costs of the window's executables: not served
-        by the port yet (config.PORT_SLICES, "observability")."""
-        from ..config import unported
-        raise unported("observability")
+    def measured_costs(self, force: bool = False) -> Dict[str, Any]:
+        """Measured, not modelled (costs.capture): the byte census of
+        this runtime's real step and one-tick window (flops, bytes
+        accessed, argument/output/peak bytes per executable, the
+        kernels' launches and bytes). Lazy and memoized (the first call
+        runs each once on a copy of the state; the world does not
+        advance); ``opts.cost_capture=True`` runs it at start(). Fields
+        nothing reports (the peak on the CPU) are None."""
+        from .. import costs as _costs
+        return _costs.capture(self, force=force)
 
     def profile_device(self, windows: int = 1, path: Optional[str] = None,
                        ticks: Optional[int] = None) -> str:

@@ -71,12 +71,8 @@ _RESOLVE = {
     "process": "ponyc_tpu_torch.process",
     "ponytest": "ponyc_tpu_torch.testing",
     "testing": "ponyc_tpu_torch.testing",
-}
-
-# Reference packages the port does not serve yet, and what brings each.
-_NOT_PORTED = {
-    "ponybench": "the port's bench (ROADMAP.md, Queue 1 item 1)",
-    "benching": "the port's bench (ROADMAP.md, Queue 1 item 1)",
+    "ponybench": "ponyc_tpu_torch.benching",
+    "benching": "ponyc_tpu_torch.benching",
 }
 
 _safe: Optional[frozenset] = None       # None = unrestricted
@@ -107,10 +103,6 @@ def use(name: str):
     """Resolve a package by its reference name (≙ `use "name"`),
     enforcing the safe list for FFI-reaching packages."""
     target = _RESOLVE.get(name)
-    if name in _NOT_PORTED:
-        raise ImportError(f"package {name!r} is not served by the "
-                          f"PyTorch port yet; {_NOT_PORTED[name]} "
-                          "brings it")
     if target is None:
         raise ImportError(
             f"unknown package {name!r} (≙ 'package not found' from use "

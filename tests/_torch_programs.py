@@ -1707,3 +1707,410 @@ def stdlib_world(pkg, S, device="cpu", child=("sh", "-c",
            "beats": int(rt.state_of(h)["beats"]), "live_timers":
            len(hub._live)}
     return rt, out
+
+
+# ---- the static checks' programs (verify, lint, docgen, translate) -----
+
+def const_mask(pkg, value):
+    """A 0-dim boolean built inside a body with `pkg`'s array library
+    (jnp under the JAX package's abstract trace, torch on the port's
+    meta-device probe)."""
+    if pkg.__name__ == "ponyc_tpu":
+        return importlib.import_module("jax.numpy").asarray(value)
+    return importlib.import_module("torch").tensor(value)
+
+
+def define_static(pkg):
+    """The verify and lint tests' actor types, built with `pkg`: the JAX
+    package's tests/test_verify.py and tests/test_lint.py fixtures plus
+    bodies that need a value at trace time and masks of every kind.
+    `WORLDS` names the type sets the lint tests analyse together, with
+    their roots (None: un-rooted)."""
+    I32, Ref, Iso = pkg.I32, pkg.Ref, pkg.Iso
+    Blob, BlobVal = pkg.Blob, pkg.BlobVal
+
+    @pkg.actor
+    class Quiet:
+        x: I32
+
+        @pkg.behaviour
+        def set(self, st, v: I32):
+            return {**st, "x": v}
+
+    @pkg.actor
+    class Busy:
+        out: Ref["Quiet"]
+        MAX_SENDS = 2
+        SPAWNS = {"Quiet": 1}
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Quiet.set, v)
+            self.spawn(Quiet.set, v, when=v > 0)
+            self.error_int(7, when=v < 0)
+            self.exit(0, when=v == 0)
+            return st
+
+        @pkg.behaviour
+        def lazy(self, st, v: I32):
+            self.yield_(when=v > 3)
+            self.destroy(when=v > 9)
+            return st
+
+    @pkg.actor
+    class Sink:
+        x: I32
+
+        @pkg.behaviour
+        def put(self, st, v: I32):
+            return {**st, "x": v}
+
+    @pkg.actor
+    class Feeder:
+        out: Ref["Sink"]
+        MAX_SENDS = 2
+        SPAWNS = {"Sink": 1}
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Sink.put, v)
+            self.spawn(Sink.put, v, when=v > 0)
+            return st
+
+    @pkg.actor
+    class Masks:
+        """One send a kind of mask: Python, NumPy, a field, an argument,
+        a 0-dim constant built in the body, constant False."""
+        out: Ref["Sink"]
+        n: I32
+        MAX_SENDS = 6
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Sink.put, v, when=True)
+            self.send(st["out"], Sink.put, v, when=np.bool_(True))
+            self.send(st["out"], Sink.put, v, when=st["n"] > 0)
+            self.send(st["out"], Sink.put, v, when=v > 1)
+            self.send(st["out"], Sink.put, v, when=const_mask(pkg, True))
+            self.send(st["out"], Sink.put, v, when=False)
+            return st
+
+    @pkg.actor
+    class Lonely:
+        y: I32
+
+        @pkg.behaviour
+        def idle(self, st, v: I32):
+            return st
+
+    @pkg.actor
+    class HalfDead:
+        o: Ref["Sink"]
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def used(self, st, v: I32):
+            self.send(st["o"], Sink.put, v)
+            return st
+
+        @pkg.behaviour
+        def never(self, st, v: I32):
+            return st
+
+    @pkg.actor
+    class Tree:
+        parent: Ref
+        SPAWNS = {"Tree": 2}
+        MAX_SENDS = 3
+
+        @pkg.behaviour
+        def grow(self, st, d: I32, parent: Ref):
+            leaf = d <= 0
+            self.spawn(Tree.grow, d - 1, self.actor_id, when=~leaf)
+            self.spawn(Tree.grow, d - 1, self.actor_id, when=~leaf)
+            self.send(parent, Tree.up, when=leaf)
+            return st
+
+        @pkg.behaviour
+        def up(self, st):
+            return st
+
+    @pkg.actor
+    class Orphaned:
+        x: I32
+
+        @pkg.behaviour
+        def take(self, st, v: I32):
+            return {**st, "x": v}
+
+    @pkg.actor
+    class Talker:
+        o: Ref["Orphaned"]
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["o"], Orphaned.take, v)
+            return st
+
+    @pkg.actor
+    class Taker:
+        x: I32
+
+        @pkg.behaviour
+        def take(self, st, p: Iso):
+            return st
+
+    @pkg.actor
+    class Aliaser:
+        a: Ref["Taker"]
+        b: Ref["Taker"]
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def go(self, st, p: Iso):
+            self.send(st["a"], Taker.take, p)
+            self.send(st["b"], Taker.take, p)      # aliased move
+            return st
+
+    @pkg.actor
+    class Scribbler:
+        x: I32
+
+        @pkg.behaviour
+        def scribble(self, st, b: BlobVal):
+            self.blob_set(b, 0, 1)        # write to shared-immutable
+            return st
+
+    @pkg.actor
+    class HostReader:
+        HOST = True
+        n: I32
+
+        @pkg.behaviour
+        def read(self, st, b: Blob):
+            return st
+
+    @pkg.actor
+    class Ping:
+        o: Ref["Pong"]
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def ping(self, st, v: I32):
+            self.send(st["o"], Pong.pong, v)
+            self.send(st["o"], Pong.pong, v)
+            return st
+
+    @pkg.actor
+    class Pong:
+        o: Ref["Ping"]
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def pong(self, st, v: I32):
+            self.send(st["o"], Ping.ping, v)
+            return st
+
+    @pkg.actor
+    class Careful:
+        o: Ref["Careful"]
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["o"], Careful.go, v - 1, when=v > 0)
+            self.send(st["o"], Careful.go, v - 2, when=v > 1)
+            return st
+
+    @pkg.actor
+    class Fork:
+        x: I32
+        SPAWNS = {"Fork": 1}
+        MAX_SENDS = 2
+
+        @pkg.behaviour
+        def boom(self, st, v: I32):
+            self.spawn(Fork.boom, v)
+            self.send(self.actor_id, Fork.boom, v)
+            return st
+
+    @pkg.actor
+    class Leaker:
+        x: I32
+        MAX_BLOBS = 1
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def churn(self, st, v: I32):
+            self.blob_alloc(length=1)          # never freed, not frozen
+            self.send(self.actor_id, Leaker.churn, v)
+            return st
+
+    @pkg.actor
+    class Hoarder:
+        x: I32
+        SPAWNS = {"Sink": 2}
+        MAX_BLOBS = 3
+
+        @pkg.behaviour
+        def idle(self, st, v: I32):
+            return st
+
+    @pkg.actor
+    class Muted:
+        x: I32
+        SPAWNS = {"Muted": 1}
+        MAX_SENDS = 2
+        LINT_IGNORE = ("R5",)
+
+        @pkg.behaviour
+        def boom(self, st, v: I32):
+            self.spawn(Muted.boom, v)
+            self.send(self.actor_id, Muted.boom, v)
+            return st
+
+    @pkg.actor
+    class HostEnd:
+        HOST = True
+        seen: I32
+
+        @pkg.behaviour
+        def result(self, st, v: I32):
+            return {**st, "seen": st["seen"] + v}
+
+    @pkg.actor
+    class Dev:
+        out: Ref["HostEnd"]
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def fin(self, st, v: I32):
+            self.send(st["out"], HostEnd.result, v)
+            return st
+
+    @pkg.actor
+    class MisWired:
+        out: Ref                     # untyped: build cannot catch it
+        MAX_SENDS = 1
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Sink.put, v)    # Sink left out
+            return st
+
+    @pkg.actor
+    class ThreeSends:
+        out: Ref["Quiet"]
+
+        @pkg.behaviour
+        def go(self, st, v: I32):
+            self.send(st["out"], Quiet.set, v)
+            self.send(st["out"], Quiet.set, v)
+            self.send(st["out"], Quiet.set, v)
+            return st
+
+    @pkg.actor
+    class SKid:
+        x: I32
+
+        @pkg.behaviour
+        def init(self, st, v: I32):
+            return {**st, "x": v}
+
+    @pkg.actor
+    class SParent:
+        MAX_SENDS = 1
+        SPAWNS = {"SKid": 1}
+
+        @pkg.behaviour
+        def make(self, st, v: I32):
+            self.spawn_sync(SKid.init, v)
+            return st
+
+    @pkg.actor
+    class NeedsValue:
+        """Bodies that need a traced value: both fail the probe."""
+        x: I32
+
+        @pkg.behaviour
+        def item(self, st, v: I32):
+            return {**st, "x": st["x"] + int(v.item())}
+
+        @pkg.behaviour(lint_ignore=("R6",))
+        def branch(self, st, v: I32):
+            if v > 0:
+                return {**st, "x": v}
+            return st
+
+    ns = types.SimpleNamespace(**{
+        k: v for k, v in locals().items()
+        if isinstance(v, pkg.api.ActorTypeMeta)})
+    ns.WORLDS = {
+        "feeder": (("Feeder", "Sink"), None),
+        "masks": (("Masks", "Sink"), None),
+        "lonely": (("Feeder", "Sink", "Lonely"), ("Feeder.go",)),
+        "half_dead": (("HalfDead", "Sink"), ("HalfDead.used",)),
+        "tree": (("Tree",), ("Tree.grow",)),
+        "absent": (("Feeder",), None),
+        "orphaned": (("Talker", "Orphaned"), ("Talker.go",)),
+        "alias": (("Taker", "Aliaser"), None),
+        "scribble": (("Scribbler",), None),
+        "host_blob": (("HostReader",), None),
+        "pingpong": (("Ping", "Pong"), None),
+        "careful": (("Careful",), None),
+        "fork": (("Fork",), None),
+        "leaker": (("Leaker",), None),
+        "hoarder": (("Hoarder", "Sink"), None),
+        "muted": (("Muted",), None),
+        "host_end": (("Dev", "HostEnd"), None),
+        "miswired": (("MisWired",), None),
+        "needs_value": (("NeedsValue",), None),
+        "spawn_sync": (("SParent", "SKid"), None),
+        "busy": (("Busy", "Quiet"), None),
+    }
+    return ns
+
+
+def define_abi(pkg):
+    """The exported C header's program (the JAX package's
+    tests/test_c_header_export.py): a sensor feeding a hub with float,
+    vector and Iso payloads, and a type with narrow integer arguments."""
+    I32, F32, Ref = pkg.I32, pkg.F32, pkg.Ref
+
+    @pkg.actor
+    class Sensor:
+        hub: Ref["Hub"]
+        reading: F32
+
+        @pkg.behaviour
+        def sample(self, st, v: F32, seq: I32):
+            self.send(st["hub"], Hub.collect, v, when=seq >= 0)
+            return {**st, "reading": v}
+
+        @pkg.behaviour
+        def rewire(self, st, h: Ref["Hub"]):
+            return {**st, "hub": h}
+
+    @pkg.actor
+    class Hub:
+        total: F32
+        MAX_SENDS = 0
+
+        @pkg.behaviour
+        def collect(self, st, v: F32):
+            return {**st, "total": st["total"] + v}
+
+        @pkg.behaviour
+        def calibrate(self, st, coeffs: pkg.VecF32[3], blob: pkg.Iso):
+            return st
+
+    @pkg.actor
+    class Narrowed:
+        x: I32
+
+        @pkg.behaviour
+        def put(self, st, a: pkg.I16, b: pkg.U8):
+            return st
+
+    return types.SimpleNamespace(Sensor=Sensor, Hub=Hub, Narrowed=Narrowed)

@@ -2,8 +2,10 @@
 package's CLI: `trace`, `trace --tree`, `top --once` and `doctor
 --postmortem` give the reference's output and exit codes for the same
 analysis CSV, span file and postmortem; the usage errors exit as the
-reference's do; `version` runs, and the verbs the port does not serve
-yet exit 2 naming what brings them.
+reference's do; `version` runs; the verbs the port does not serve
+yet (bench, perf) exit 2 naming what brings them, and doc, lint,
+verify and test, served since slice 13, take the reference's usage
+errors.
 
 The files come from a traced run of the port on the CPU (analysis=3,
 trace_sample=1).
@@ -128,12 +130,32 @@ def test_usage_errors_match_reference(tmp_path, monkeypatch, capsys,
     assert port[0] == ref[0] == 2
 
 
-@pytest.mark.parametrize("verb", sorted(NOT_SERVED))
-def test_unserved_verbs_exit_2_naming_their_slice(capsys, verb):
-    assert port_main([verb, "x"]) == 2
+@pytest.mark.parametrize("verb", ["bench", "doc", "lint", "perf", "test",
+                                  "verify"])
+def test_unserved_verbs_exit_2_naming_their_slice(capsys, monkeypatch,
+                                                  verb):
+    """The JAX package's verbs the port does not serve (bench, perf) exit
+    2 naming what brings them; those served since slice 13 (doc, lint,
+    verify, test) take the reference's usage errors and exit codes."""
+    if verb in NOT_SERVED:
+        assert port_main([verb, "x"]) == 2
+        err = capsys.readouterr().err
+        assert "not served by the PyTorch port yet" in err
+        assert NOT_SERVED[verb] in err
+        return
+    if verb == "test":              # runs the port's tests with pytest
+        seen = []
+        monkeypatch.setattr(pytest, "main",
+                            lambda args: seen.append(args) or 5)
+        assert port_main(["test", "-k", "x"]) == 5
+        assert seen[0][-2:] == ["-k", "x"]
+        assert seen[0][:-2] and all(
+            os.path.basename(f).startswith("test_torch_")
+            for f in seen[0][:-2])
+        return
+    assert port_main([verb]) == ref_main([verb]) == 2
     err = capsys.readouterr().err
-    assert "not served by the PyTorch port yet" in err
-    assert NOT_SERVED[verb] in err
+    assert f"ponyc_tpu_torch {verb}: missing module" in err
 
 
 def test_module_entry_point_version_and_doctor(files):

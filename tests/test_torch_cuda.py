@@ -866,3 +866,48 @@ def test_serve_world_on_the_card(path):
     assert st["drained"] and st["replied"] == 100
     assert int(rt.cohort_state(serve.ServeWorker)["served"].sum()) == 100
     rt.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(PATHS))
+def test_census_counts_each_kernels_launches(path):
+    """cost_capture=True on the card: the step's census counts the drain
+    (plain) or the fused kernel (fused) and the window's census the
+    window kernel (mega), each launch with its bytes; the allocator's
+    peak is read; no record holds an error; the world is untouched."""
+    from ponyc_tpu_torch.models import ubench
+    _need_cuda()
+    opts = RuntimeOptions(mailbox_cap=4, batch=4, max_sends=1, msg_words=1,
+                          tuning_cache="off", cost_capture=True,
+                          **PATHS[path])
+    rt, ids = ubench.build(1 << 12, opts, pings=4)
+    cap = rt.measured_costs()
+    ex = cap["executables"]
+    assert all("error" not in r for r in ex.values()), ex
+    want = {"plain": ("step", "drain"), "fused": ("step", "fused"),
+            "mega": ("window", "mega")}[path]
+    k = ex[want[0]]["kernels"][want[1]]
+    assert k["launches"] >= 1 and k["bytes"] > 0
+    assert ex[want[0]]["bytes_accessed"] >= k["bytes"]
+    assert all(r["peak_bytes"] > 0 for r in ex.values())
+    assert cap["model_divergence"]["diverged"] is False
+    assert rt.steps_run == 0
+    ubench.seed_all(rt, ids, hops=8, pings=4)
+    assert rt.run() == 0 and rt.counter("n_processed") == (1 << 12) * 4 * 9
+
+
+@pytest.mark.cuda
+def test_bench_runner_synchronises_the_card():
+    from ponyc_tpu_torch.benching import BenchRunner
+    import io
+    _need_cuda()
+    x = torch.ones((1 << 24,), device="cuda")
+    b = BenchRunner(min_window_s=0.02, out=io.StringIO())
+    r = b.bench("scale", lambda v: v * 3.0, x, items_per_call=x.numel())
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(r.reps):
+        x * 3.0
+    end.record()
+    torch.cuda.synchronize()
+    assert r.p50_s >= 0.9 * start.elapsed_time(end) / 1e3 / r.reps

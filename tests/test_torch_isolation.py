@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing it (the window kernel's
 module, the standard library, files, process and the `run` verb
 included), running a ring with the plain window and with
-delivery="pallas_mega", and a body drawing from stdlib.random through
-both kernels' lane code pulls in no JAX and nothing of the JAX package;
+delivery="pallas_mega", a body drawing from stdlib.random through
+both kernels' lane code, and the program's account of itself (cost
+capture, benching, verify, lint, docgen, plugins, translate and their
+verbs) pulls in no JAX and nothing of the JAX package;
 it runs on CUDA unless the caller asks for the CPU; and options this
 slice does not serve raise NotImplementedError instead of falling
 back."""
@@ -73,6 +75,63 @@ bad = sorted(m for m in sys.modules
              or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
 print(json.dumps({"bad": bad, "codes": codes}))
 """
+
+
+_STATIC_CHILD = """
+import contextlib, io, json, os, sys, tempfile
+import ponyc_tpu_torch
+from ponyc_tpu_torch import (RuntimeOptions, benching, costs, docgen,
+                             plugin, verify)
+from ponyc_tpu_torch import lint, translate
+from ponyc_tpu_torch.lint import bodycheck, facts, graph, rules
+from ponyc_tpu_torch.ops import census
+from ponyc_tpu_torch.translate import (c_header, c_header_export,
+                                       json_schema, text_resource)
+from ponyc_tpu_torch.__main__ import main
+from ponyc_tpu_torch.models import ring, ubench
+from ponyc_tpu_torch.stdlib import pkg
+d = tempfile.mkdtemp()
+rt, ids = ring.build(8, RuntimeOptions(
+    mailbox_cap=4, batch=1, max_sends=1, msg_words=1, spill_cap=32,
+    inject_slots=4, tuning_cache="off", cost_capture=True), device="cpu")
+rep = verify.verify_program(rt.program)
+found = lint.lint_program(rt.program) + rt.program.lint()
+md = docgen.document(rt.program)
+hdr = translate.export_header(rt.program, rt.opts)
+b = pkg.use("ponybench").BenchRunner(min_window_s=0.001, out=io.StringIO())
+b.bench("add", lambda: 1 + 1)
+with contextlib.redirect_stdout(io.StringIO()):
+    codes = [main(["verify", "ponyc_tpu_torch.models.ubench"]),
+             main(["lint", "ponyc_tpu_torch.models.ubench"]),
+             main(["doc", "ponyc_tpu_torch.models.ubench", "-o", d]),
+             main(["lint", "examples"])]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
+print(json.dumps({"bad": bad, "codes": codes, "verified": sorted(rep),
+                  "findings": len(found), "measured": sorted(
+                      rt._costs["executables"]),
+                  "doc": "## actor RingNode" in md,
+                  "header": "PONYC_TPU_GID_RINGNODE_TOKEN" in hdr}))
+"""
+
+
+def test_static_checks_and_costs_import_no_jax_and_no_reference():
+    """Slice 13's modules (costs, the census, benching, verify, lint,
+    docgen, plugin, translate) and the verify, lint and doc verbs,
+    driven through a ring with cost capture on, pull in no JAX and
+    nothing of the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _STATIC_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "codes": [0, 0, 0, 0],
+                   "verified": ["RingNode"], "findings": 0,
+                   "measured": ["step", "window"], "doc": True,
+                   "header": True}
 
 
 def test_observability_modules_import_no_jax_and_no_reference():
@@ -221,22 +280,39 @@ def test_default_device_is_cuda_and_never_silently_cpu():
 @pytest.mark.parametrize("kw,slice_no", [
     (dict(mesh_shards=2), 10),
     (dict(cost_capture=True), 11),
-    # Slice 11 serves the watchdog; cost capture still raises beside it.
     (dict(cost_capture=True, watchdog_s=1.0), 11),
 ])
 def test_unported_options_raise(kw, slice_no):
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        Runtime(RuntimeOptions(**kw), device="cpu")
+    """An option of a slice still in PORT_SLICES raises naming it; slice
+    11's cost capture is served since slice 13, so its options start."""
+    from ponyc_tpu_torch.config import PORT_SLICES
+    from ponyc_tpu_torch.models import ring
+    if slice_no in {n for _, n in PORT_SLICES.values()}:
+        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+            Runtime(RuntimeOptions(**kw), device="cpu")
+        return
+    rt = Runtime(RuntimeOptions(tuning_cache="off", **kw), device="cpu")
+    rt.declare(ring.RingNode, 4).start()
+    try:
+        assert set(rt._costs["executables"]) == {"step", "window"}
+    finally:
+        rt.stop()
 
 
 def test_cost_capture_raises_by_name():
+    """Only the mesh is left in PORT_SLICES, and its error names it;
+    cost capture starts and measured_costs() returns its record."""
+    from ponyc_tpu_torch.config import PORT_SLICES
+    assert list(PORT_SLICES) == ["mesh"]
     with pytest.raises(NotImplementedError,
-                       match=r"measured cost capture \(cost_capture, "
-                             r"measured_costs\).*slice 11"):
-        Runtime(RuntimeOptions(cost_capture=True), device="cpu")
-    rt = Runtime(RuntimeOptions(tuning_cache="off"), device="cpu")
-    with pytest.raises(NotImplementedError, match="measured_costs"):
-        rt.measured_costs()
+                       match=r"mesh sharding \(mesh_shards > 1\).*"
+                             r"slice 10"):
+        Runtime(RuntimeOptions(mesh_shards=2), device="cpu")
+    from ponyc_tpu_torch.models import ring
+    rt, _ = ring.build(4, RuntimeOptions(tuning_cache="off",
+                                         cost_capture=True), device="cpu")
+    assert rt.measured_costs() is rt._costs
+    assert "model_divergence" in rt._costs
 
 
 def test_observability_options_are_served(tmp_path):
