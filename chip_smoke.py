@@ -4758,7 +4758,9 @@ DURABLE_CUT_TICKS = 64            # (c): ticks before the snapshot
 DURABLE_QUEUED = 256              # (c): hostlog chains still queued as host
 #   sends (Runtime.send) when the snapshot is taken
 DURABLE_CHILD_CADENCE = 0.02      # (e), (f): the child's checkpoint cadence
-DURABLE_WEDGE_S = 15.0            # (e): the sleep a window queues behind
+DURABLE_WEDGE_S = 5.0             # (e): the sleep a window queues behind
+#   (15 s until the mesh phase needed the time; the watchdog trips at
+#   OPS_DEADLINE_S and the child's exit waits the sleep out)
 
 
 def durable_blob_kw(mode, grown=False):
@@ -5643,6 +5645,336 @@ def run_static():
             "codes": codes, "seconds": time.perf_counter() - t0}
 
 
+MESH_SHARDS = 4
+MESH_UBENCH = (1 << 20, 4, 4, 64)   # pingers, pings, warm-up ticks, timed
+#   ticks (bench.py:897-907's world: cap 4, batch 4, a 64-tick window)
+MESH_MORE = 16                      # ticks after the snapshot
+MESH_DIR = os.path.join(ROOT, "_chipwork", "smoke_mesh")   # git-ignored
+MESH_FIFO = dict(mailbox_cap=2, batch=1, max_sends=3, spill_cap=4096,
+                 inject_slots=32, mesh_shards=4, route_bucket=8,
+                 quiesce_interval=2)  # tests/test_fifo.py's mesh4-route-spill
+MESH_FIFO_ITEMS = 40      # items an edge (the reference's test runs 60:
+#   302 ticks, 16.6 s on the card; 40 is the port's build_fifo default)
+MESH_BLOB = dict(mailbox_cap=2, batch=1, max_sends=1, spill_cap=1024,
+                 inject_slots=16, mesh_shards=2)  # test_differential.py:407
+MESH_PROCS = 2    # processes that run the small worlds on the CPU while
+#   this one runs them on the card
+
+
+def ref_slots(cohort, gids):
+    """Global actor ids of `cohort` → its slots (the same actor whatever
+    the shard count)."""
+    import numpy as np
+    g = np.asarray(gids, np.int64)
+    nl = cohort.n_local_total
+    return (g % nl - cohort.local_start) * cohort.shards + g // nl
+
+
+def mesh_numbers(rt, slots=True):
+    """What a ubench world must agree on whatever its shard count:
+    `pings` and the ring's successor (as a slot; as the id stored with
+    `slots=False`) in slot order, the counters and the tick counter."""
+    from ponyc_tpu_torch.models import ubench
+    cs = rt.cohort_state(ubench.Pinger)
+    cohort = rt.program.by_type[ubench.Pinger]
+    return {"pings": cs["pings"],
+            "next": (ref_slots(cohort, cs["next_ref"]) if slots
+                     else cs["next_ref"]),
+            "counters": {c: rt.counter(c) for c in (
+                "n_processed", "n_delivered", "n_rejected", "n_mutes",
+                "n_deadletter", "n_badmsg")},
+            "ticks": int(rt.state.step_no.max())}
+
+
+def mesh_ubench(mode, shards):
+    """ubench at `shards` shards: warm-up ticks, then the timed ticks in
+    one window (the main path's run, its launches counted). Checks the
+    processed count and that the path's kernel launched once a shard and
+    a tick enqueued (a mesh never launches the window kernel: it is not
+    eligible, and pallas_mega runs the plain window). Returns (runtime,
+    launches, seconds a tick)."""
+    import torch
+    from ponyc_tpu_torch.models import ubench
+    n, pings, warm, ticks = MESH_UBENCH
+    rt, ids = ubench.build(n, ubench_opts(mode, ticks, mesh_shards=shards),
+                           pings=pings)
+    ubench.seed_all(rt, ids, hops=1 << 30, pings=pings)
+    rt.run(max_steps=warm)
+    torch.cuda.synchronize()
+    p0, s0, q0 = rt.counter("n_processed"), rt.steps_run, rt.ticks_enqueued
+    reset_launches()                    # the main path's run starts here
+    t0 = time.perf_counter()
+    rt.run(max_steps=ticks)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    got = launches()                    # ... and ends here
+    done, ran = rt.counter("n_processed") - p0, rt.steps_run - s0
+    enq = rt.ticks_enqueued - q0
+    label = f"{shards} shard(s) {_mode_name(mode)}"
+    if done != n * pings * ticks or ran != ticks or enq != ticks:
+        raise AssertionError(f"{label}: processed {done} in {ran} ticks "
+                             f"({enq} enqueued), expected "
+                             f"{n * pings * ticks} in {ticks}")
+    k = shards * enq
+    want = (0, k, 0) if _fused(mode) else (k, 0, 0)
+    if got != want:
+        raise AssertionError(f"{label}: launches (drain, fused, window) "
+                             f"{got} for {enq} ticks, expected {want}")
+    if rt.counter("n_rejected") or rt.exit_code:
+        raise AssertionError(f"{label}: rejected messages or exited")
+    return rt, got, elapsed / ticks
+
+
+def route_device_share(rt, ticks=4):
+    """The route's share of a mesh tick's device time: torch.profiler's
+    device time of the kernels launched inside a `record_function` range
+    around each of `_route`'s segments, over the device time of every
+    kernel, for `ticks` ticks of `rt`. None where the profiler gives no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprof, \
+        record_function
+    from ponyc_tpu_torch.runtime import engine
+    orig = engine._route
+
+    def route(*a, **k):
+        gen, sent = orig(*a, **k), None
+        while True:
+            with record_function("mesh_route"):
+                try:
+                    req = gen.send(sent)
+                except StopIteration as e:
+                    return e.value
+            sent = yield req
+    engine._route = route
+    try:
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            rt.run(max_steps=ticks)
+            torch.cuda.synchronize()
+    finally:
+        engine._route = orig
+    busy = route_us = 0.0
+    for evt in prof.key_averages():
+        if evt.key == "mesh_route":
+            # The host-side range: the device time of the kernels launched
+            # inside it (its device-side annotation spans the gaps between
+            # them as well, and is not read).
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                route_us += float(getattr(evt, "device_time_total", None)
+                                  or getattr(evt, "cuda_time_total", 0)
+                                  or 0)
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy += _device_us(evt)
+    return (route_us / busy, busy / ticks / 1e3) if route_us and busy \
+        else None
+
+
+def mesh_small_worlds():
+    """(name, run(device) → the numbers the card and the CPU must agree
+    on) of the routing-pressure and blob-migration worlds:
+    tests/test_fifo.py's mesh4-route-spill (each per-edge stream checked
+    on the device, the oracle its stamps) and the blob chain of
+    tests/test_differential.py on two shards (run_blob_chain holds each
+    walker's acc to the NumPy oracle, every blob freed, none dead)."""
+    import ponyc_tpu_torch
+    tp, T = programs()
+    _tp, B = blob_programs()
+
+    def fifo(device):
+        items = MESH_FIFO_ITEMS
+        rt = tp.build_fifo(ponyc_tpu_torch, T, 101, n_cons=6, items=items,
+                           device=device, **MESH_FIFO)
+        rt.run(max_steps=500_000)
+        cons = {k: v[:6] for k, v in rt.cohort_state(T.Cons).items()}
+        ok = ((cons["got"] == 4 * items).all()
+              and all((cons[f"last{s}"] == items - 1).all()
+                      for s in range(4)))
+        return {"world": (_world_numbers(rt, T.Prod),
+                          _world_numbers(rt, T.Cons)),
+                "violations": int(cons["bad"].sum()), "oracle": bool(ok),
+                "ticks": rt.steps_run}
+
+    def chain(device):
+        rt = tp.run_blob_chain(ponyc_tpu_torch, B, 77, MESH_BLOB, n=16,
+                               device=device)
+        return {"world": _world_numbers(rt, B.BlobWalker),
+                "moved": rt.counter("n_blob_moved"),
+                "remote": rt.counter("n_blob_remote"),
+                "in_use": rt.blobs_in_use, "oracle": True,
+                "ticks": rt.steps_run}
+
+    return [("fifo mesh4-route-spill", fifo), ("blob chain 2 shards", chain)]
+
+
+def mesh_cpu(name):
+    """One small mesh world on the CPU (in a worker process)."""
+    import torch
+    torch.set_num_threads(2)
+    return dict(mesh_small_worlds())[name]("cpu")
+
+
+def mesh_checks(rec, frec, mrec, pool):
+    """The mesh phase's checks (run_mesh), the CPU's runs of the small
+    worlds in `pool`."""
+    import numpy as np
+    import torch
+    from ponyc_tpu_torch import Runtime, serialise
+    from ponyc_tpu_torch.models import ubench
+    from ponyc_tpu_torch.runtime import engine
+    card = _CACHE.get("card", "cuda")
+    n, pings, warm, ticks = MESH_UBENCH
+    out = {}
+    cpu = {name: pool.submit(mesh_cpu, name)
+           for name, _run in mesh_small_worlds()}
+    # (a) 1 and 4 shards on each path; pallas_mega over the mesh runs the
+    # plain window.
+    base, keep = {}, None
+    for mode, r in ((False, rec), (True, frec), ("mega", mrec)):
+        for shards in ((MESH_SHARDS,) if mode == "mega"
+                       else (1, MESH_SHARDS)):
+            rt, got, s_tick = mesh_ubench(mode, shards)
+            nums = mesh_numbers(rt)
+            out[f"{_mode_name(mode)} {shards}"] = {
+                "ms_tick": 1e3 * s_tick, "launches": got}
+            print(f"mesh ubench 2^{n.bit_length() - 1}x{pings} {shards} "
+                  f"shard(s) {_mode_name(mode)}: {1e3 * s_tick:.3f} "
+                  f"ms/tick ({ticks} ticks after {warm}); launches "
+                  f"(drain, fused, window) {got} [{card}]", flush=True)
+            if shards == 1:
+                base[mode] = nums
+                continue
+            r["launches_mesh"] = got[2] if mode == "mega" else got[
+                1 if mode else 0]
+            for other in ((False,) if mode == "mega" else (mode, False)):
+                if not same_numbers(nums, base[other]):
+                    raise AssertionError(
+                        f"4 shards {_mode_name(mode)} differ from 1 shard "
+                        f"{_mode_name(other)} (pings, successors, "
+                        "counters or ticks)")
+            print(f"mesh {_mode_name(mode)}: 4 shards == 1 shard (pings, "
+                  "successors, counters, ticks)", flush=True)
+            if mode is False:
+                keep = rt
+        del rt
+    # (b) the route's share of a 4-shard plain tick's host wall (its code
+    # and its three all_to_alls), then of its device time.
+    rt, keep = keep, None
+    spent = {"route": 0.0, "a2a": 0.0}
+    orig_route, orig_run = engine._route, rt.mesh.comm.run
+
+    def route(*a, **k):
+        gen, sent = orig_route(*a, **k), None
+        while True:
+            t0 = time.perf_counter()
+            try:
+                req = gen.send(sent)
+            except StopIteration as e:
+                spent["route"] += time.perf_counter() - t0
+                return e.value
+            spent["route"] += time.perf_counter() - t0
+            sent = yield req
+
+    def run(op, xs, dim):
+        t0 = time.perf_counter()
+        res = orig_run(op, xs, dim)
+        if op == "all_to_all":
+            spent["a2a"] += time.perf_counter() - t0
+        return res
+    engine._route, rt.mesh.comm.run = route, run
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.run(max_steps=MESH_MORE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine._route, rt.mesh.comm.run = orig_route, orig_run
+    out["route_host_share"] = (spent["route"] + spent["a2a"]) / wall
+    dev = route_device_share(rt)
+    out["route_device_share"] = dev and dev[0]
+    dev_txt = ("its device share not measured (no device time)" if not dev
+               else f"{100 * dev[0]:.1f} % of the kernels' device time "
+               f"({dev[1]:.3f} ms a tick over 4 profiled ticks)")
+    print(f"mesh route: {100 * out['route_host_share']:.1f} % of a 4-shard "
+          f"plain tick's host wall ({1e3 * spent['route'] / MESH_MORE:.3f} "
+          f"ms its code, {1e3 * spent['a2a'] / MESH_MORE:.3f} ms its "
+          f"all_to_alls, of {1e3 * wall / MESH_MORE:.3f} ms a tick over "
+          f"{MESH_MORE} ticks); {dev_txt} [{card}]", flush=True)
+    # (c) the 4-shard world snapshotted, restored onto 1 shard and run
+    # on: equal to the unbroken 4-shard run. Pinger.next_ref is an
+    # untyped Ref, which a relayout carries as the id it holds (typed
+    # refs are remapped), in the JAX package's serialise as here.
+    os.makedirs(MESH_DIR, exist_ok=True)
+    path = os.path.join(MESH_DIR, "ubench4.npz")
+    t0 = time.perf_counter()
+    header, arrays = serialise.capture(rt)
+    # Stored, not deflated: serialise.save's compression took 10.7 s of
+    # the phase for this world (chip call 1).
+    serialise.write_snapshot(header, arrays, path, compress=False)
+    save_s = time.perf_counter() - t0
+    rt.run(max_steps=MESH_MORE)
+    unbroken = mesh_numbers(rt, slots=False)
+    del rt
+    one = Runtime(ubench_opts(False, MESH_MORE))
+    one.declare(ubench.Pinger, n).start()
+    t0 = time.perf_counter()
+    serialise.restore(one, path)
+    restore_s = time.perf_counter() - t0
+    one.run(max_steps=MESH_MORE)
+    if one.program.shards != 1 or not same_numbers(
+            mesh_numbers(one, slots=False), unbroken):
+        raise AssertionError("the 4-shard snapshot restored onto 1 shard "
+                             "differs from the unbroken run")
+    print(f"mesh snapshot: 4 shards -> 1 shard, {MESH_MORE} ticks on equal "
+          f"the unbroken run (save {save_s:.2f} s, "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB, restore "
+          f"{restore_s:.2f} s)", flush=True)
+    del one
+    os.remove(path)
+    torch.cuda.empty_cache()
+    # (d) the route-spill FIFO world and the 2-shard blob chain on the
+    # device, against their CPU runs.
+    for name, run_world in mesh_small_worlds():
+        t0 = time.perf_counter()
+        g = run_world("cuda")
+        dev_s = time.perf_counter() - t0
+        c = cpu[name].result()
+        if not (g["oracle"] and same_numbers(g, c)):
+            raise AssertionError(f"mesh {name}: the card and the CPU "
+                                 f"disagree or the oracle failed: {g} vs "
+                                 f"{c}")
+        if g.get("violations") or (name.startswith("blob") and not (
+                g["moved"] > 0 and g["remote"] == 0)):
+            raise AssertionError(f"mesh {name}: FIFO violated, no blob "
+                                 f"migrated or one arrived dead: {g}")
+        facts = {k: v for k, v in g.items() if k != "world"}
+        print(f"mesh {name}: card == CPU, oracle ok, {facts} "
+              f"(card {dev_s:.1f} s)", flush=True)
+    return out
+
+
+@phase("mesh")
+def run_mesh(rec, frec, mrec):
+    """Sharded worlds (parallel/) on the card, every shard on it through
+    LocalComm: mesh_checks, the CPU's side in worker processes."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(
+        MESH_PROCS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        out = mesh_checks(rec, frec, mrec, pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh phase: {out['seconds']:.1f} s [{_CACHE['card']}]",
+          flush=True)
+    return out
+
+
 @phase("profile")
 def run_profile(ticks=4, mega_ticks=MEGA_TICKS):
     """Per path: ubench and mixed over `ticks` ticks (the plain and fused
@@ -5764,6 +6096,8 @@ def main():
             summary["durable"] = run_durable(rec, frec, mrec)
         if want("stdlib"):
             summary["stdlib"] = run_stdlib(rec, frec, mrec)
+        if want("mesh"):
+            summary["mesh"] = run_mesh(rec, frec, mrec)
         if want("costs"):
             summary["costs"] = run_costs(rec)
         if want("static"):
@@ -5792,7 +6126,8 @@ def main():
              "launches_telemetry_host", "launches_cosort", "launches_tune",
              "launches_tune_calibration", "launches_gups", "launches_fanin",
              "launches_ops", "launches_durable", "launches_mandelbrot",
-             "launches_serve", "launches_stdlib", "mandelbrot", "randping",
+             "launches_serve", "launches_stdlib", "launches_mesh",
+             "mandelbrot", "randping",
              "spawn_tree", "mixed_onehot", "mixed_before_ms",
              "spawn_tree_regrouped_ms",
              "bit_equal", "max_ulp", "shapes", "mixed", "ticks_a_window",

@@ -1,7 +1,6 @@
 """Runtime options of the PyTorch port: a copy of ``ponyc_tpu/config.py``
-(the port never imports the JAX package) plus `check_supported`, which
-names the slice of the port (ROADMAP.md, "Port slices") that will serve
-each option this one does not.
+(the port never imports the JAX package) plus `PORT_SLICES`, the record
+of which slice of the port (ROADMAP.md, "Port slices") serves what.
 
 Runtime options — TPU-native equivalent of the reference's runtime flag
 system (reference: src/libponyrt/sched/start.c:75-94 parses --ponymaxthreads/
@@ -494,30 +493,10 @@ def auto_fields(opts: RuntimeOptions) -> List[str]:
             if getattr(opts, n) == "auto"]
 
 
-# --- what the PyTorch port serves so far -----------------------------------
+# --- what the PyTorch port does not serve ----------------------------------
 # Feature -> (description, the port slice that brings it; ROADMAP.md
-# "Port slices"). Unserved options raise; they never fall back quietly.
-PORT_SLICES = {
-    "mesh": ("mesh sharding (mesh_shards > 1)", 10),
-}
-
-
-def unported(key: str) -> NotImplementedError:
-    """The error for a feature this port slice does not serve."""
-    what, n = PORT_SLICES[key]
-    return NotImplementedError(
-        f"{what} is not served by the PyTorch port yet; port slice {n} "
-        "brings it (ROADMAP.md, 'Port slices')")
-
-
-def check_supported(opts: RuntimeOptions) -> None:
-    """Raise for every option value the port does not serve. `pallas`
-    is accepted in every spelling: on CUDA the mailbox drain always
-    runs as the hand-written kernel, on the CPU as its plain version.
-    `pallas_fused=True` runs the fused dispatch kernel on CUDA (its
-    plain version on the CPU). `delivery="pallas_mega"` runs the window
-    kernel on CUDA where ops/megakernel.py's `eligible` holds (the plain
-    window elsewhere). "auto" values are resolved by the tuner at
-    Runtime.start() (tuning.py)."""
-    if opts.mesh_shards > 1:
-        raise unported("mesh")
+# "Port slices"). Empty since slice 10, the mesh: every option is served
+# (`pallas` in every spelling, `pallas_fused`, `delivery="pallas_mega"`
+# where ops/megakernel.py's `eligible` holds, "auto" through tuning.py,
+# `mesh_shards > 1` through parallel/).
+PORT_SLICES: dict = {}

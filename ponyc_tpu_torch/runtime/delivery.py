@@ -148,7 +148,7 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
         side="left").to(i32)
     kt = torch.where(key_s < n * n_levels, tgt[perm], n).to(i32)
     snd = sender[perm]
-    wds = words[:, perm]                         # [w1, E] sorted
+    wds = words.index_select(1, perm)            # [w1, E] sorted
     ktc = kt.clamp(max=n - 1).long()
     seg_start = bounds[:-1]                      # [n]
     cnt = bounds[1:] - seg_start                 # [n] msgs per target
@@ -200,7 +200,7 @@ def deliver(buf, head, tail, alive, entries: Entries, *, n_local: int,
     spill = Entries(
         tgt=torch.where(vspill, kt[perm2], -1),
         sender=torch.where(vspill, snd[perm2], -1),
-        words=torch.where(vspill[None, :], wds[:, perm2], 0),
+        words=torch.where(vspill[None, :], wds.index_select(1, perm2), 0),
     )
     # Mute triggers (≙ actor.c:898-921 + actor.c:1171-1235): a valid
     # send whose receiver rejected it, is over the overload threshold, or

@@ -56,15 +56,18 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 from ..api import BlobPoolView, Context
-from ..config import (RuntimeOptions, auto_fields, check_supported,
-                      unported)
+from ..config import RuntimeOptions, auto_fields
 from ..ops import fused_dispatch, megakernel, pack
 from ..ops.mailbox_kernel import drain_msgs
-from ..ops.segment import counts_by_key
+from ..ops.segment import (DUMP_SLOTS, compact_mask, counts_by_key,
+                           dump_index, stable_sort_by)
+from ..parallel import comm
+from ..parallel.mesh import (drive_shards, home_of, join, mesh_for,
+                             ranks_of, split)
 from ..program import Cohort, Program
-from ..ops.segment import DUMP_SLOTS, dump_index
-from .delivery import Entries, _isum, deliver, empty_mute_slots
-from .state import PHASE_NAMES, QW_BUCKETS, RtState
+from .delivery import (Entries, _isum, deliver, empty_mute_slots,
+                       mute_ref_slots)
+from .state import PHASE_NAMES, QW_BUCKETS, RtState, layout_sizes
 
 
 class StepAux(NamedTuple):
@@ -121,6 +124,11 @@ def aux_to_device(a: StepAux, device) -> StepAux:
     return StepAux(*(torch.full(
         (), v, dtype=torch.bool if f in _AUX_BOOL else torch.int32,
         device=device) for f, v in zip(StepAux._fields, a)))
+
+
+def _aux_to(aux: StepAux, device) -> StepAux:
+    """An aux (device 0-dim tensors) on `device`."""
+    return StepAux(*(v.to(device) for v in aux))
 
 
 def zero_aux(device) -> StepAux:
@@ -705,14 +713,18 @@ def _cohort_dispatch(cohort: Cohort, opts: RuntimeOptions,
     return run_cohort, fused
 
 
-def free_row_list(tc: Cohort, alive, occ0, dspill_pending):
+def free_row_list(tc: Cohort, alive, occ0, dspill_pending,
+                  rspill_hit=None):
     """Target cohort `tc`'s free rows this tick, in row order, padded
     with -1 to its capacity: dead, with an empty mailbox and no spilled
     message still addressed to the row (a previous life's message must
-    not reach a newborn)."""
+    not reach a newborn; `rspill_hit`, on a mesh: the rows some shard's
+    route spill addresses)."""
     s0, s1 = tc.local_start, tc.local_stop
     free_ok = (~alive[s0:s1] & (occ0[s0:s1] == 0)
                & (dspill_pending[s0:s1] == 0))
+    if rspill_hit is not None:
+        free_ok = free_ok & ~rspill_hit[s0:s1]
     n = tc.local_capacity
     pos = torch.where(free_ok, torch.cumsum(free_ok.to(torch.int32), 0)
                       - 1, n)
@@ -931,11 +943,12 @@ def phase_cost_lanes(st: RtState, all_e, drain_facts, nproc_total,
 
 
 def trace_span_lanes(program: Program, opts: RuntimeOptions, st: RtState,
-                     drain_facts, base: int):
+                     drain_facts, base: int, shard: int = 0):
     """The causal-tracing lanes (the JAX package's engine.trace_span_lanes;
     only called when opts.tracing). Every drained ring slot whose trace
-    id is >= 0 becomes a span with a fresh even id, (span_next + rank) *
-    2 + 2, its rank counted over the traced drained slots of the cohort
+    id is >= 0 becomes a span with a fresh even id, ((span_next + rank) *
+    P + shard) * 2 + 2 (unique over the mesh's P shards), its rank
+    counted over the traced drained slots of the cohort
     in slot-major [cap, rows] order, cohorts in device order; the span
     ring takes (trace id, span id, parent span, behaviour, actor,
     enqueue tick, dispatch tick, retire tick) while it has room, and
@@ -947,6 +960,7 @@ def trace_span_lanes(program: Program, opts: RuntimeOptions, st: RtState,
     (span_data, span_count, span_dropped, span_next, [[2, e_c] per
     cohort])."""
     cap = opts.mailbox_cap
+    p = program.shards
     ts_cap = opts.trace_slots
     s_now = st.step_no[0]
     span_data = st.span_data
@@ -964,7 +978,8 @@ def trace_span_lanes(program: Program, opts: RuntimeOptions, st: RtState,
         rank = torch.cumsum(traced.to(torch.int32), 0,
                             dtype=torch.int32) - 1
         total = _isum(traced)
-        sid = torch.where(traced, (nxt + rank) * 2 + 2, 0).to(torch.int32)
+        sid = torch.where(traced, ((nxt + rank) * p + shard) * 2 + 2,
+                          0).to(torch.int32)
         pos = count + rank
         ok = traced & (pos < ts_cap)
         actor = (base + ch.local_start
@@ -1044,17 +1059,218 @@ def queue_wait_p99(qw_hist, nd: int):
                        0).max().to(torch.int32)
 
 
-def build_step(program: Program, opts: RuntimeOptions):
+def _take(x, idx, fill):
+    """x[idx] along the last axis, with `fill` where idx == x.shape[-1]
+    (a ``jnp.take(..., mode="fill")`` of the JAX package whose callers
+    map every out-of-range index to that one)."""
+    pad = torch.full(x.shape[:-1] + (1,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad], -1).index_select(-1, idx.long())
+
+
+def _put(x, idx, vals):
+    """x (a copy) with vals written at idx along the last axis, where an
+    index equal to x.shape[-1] drops its write (``.at[idx].set(...,
+    mode="drop")``); callers give distinct indices below the drop."""
+    n = x.shape[-1]
+    pad = torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], -1)
+    pad[..., idx.long()] = vals.to(x.dtype)
+    return pad[..., :n]
+
+
+def _route(entries: Entries, *, shards: int, n_local: int, bucket: int,
+           rspill_cap: int, overload_occ, head, tail, shard_base: int,
+           mute_slots: int, pressured_global, pressured_local, blob=None):
+    """Mesh routing (the JAX package's engine._route): bucket the tick's
+    entries by destination shard and exchange them with one all_to_all
+    per plane over the collective layer. A generator: it yields the
+    three collectives (parallel/comm.py) and returns (received Entries
+    [shards * bucket], new route spill, spill count, overflow flag,
+    newly muted [n_local], their refs, their overflow, blob results or
+    None).
+
+    The bucket table is a dense [shards, bucket] gather from the entries
+    stably sorted by destination shard, bounded by a binary search. An
+    entry past its bucket stays on this shard in the route spill (tried
+    first next tick) and mutes its sender, as does a send to a receiver
+    that declared pressure anywhere on the mesh (`pressured_global`) —
+    unless the sender is itself overloaded or pressured. This pressure
+    pass runs every tick; without an overflow or a pressured target it
+    gives the empty spill and no mute, the JAX package's quiet branch.
+
+    Blob migration (`blob` = dict(data, used, len, gen, bbase, bsl,
+    shard, mask, mask_iso) where the program routes Blob arguments): a
+    blob rides its message off-shard as a length row and its payload
+    words appended to the exchanged words; an iso blob's source slot is
+    freed (a val blob's is kept: the receiver gets a copy); the
+    receiving shard allocates a fresh local slot (next generation) and
+    rewrites the handle word. Same-shard blocks do not migrate. A
+    receiver whose pool is full delivers a null handle and counts it in
+    n_blob_remote."""
+    tgt, sender, words = entries
+    e = tgt.shape[0]
+    dev = tgt.device
+    i32 = torch.int32
+    sb = shards * bucket
+    valid = tgt >= 0
+    dest = torch.where(valid, torch.div(tgt, n_local, rounding_mode="floor"),
+                       shards).to(i32)
+    perm = stable_sort_by(dest)
+    dt, ts, ss = dest[perm], tgt[perm], sender[perm]
+    ws = words.index_select(1, perm)                 # [w1, E] planar
+    bounds = torch.searchsorted(
+        dt, torch.arange(shards + 1, dtype=i32, device=dev),
+        side="left").to(i32)
+    seg_start = bounds[:-1]
+    cnt = bounds[1:] - seg_start                     # [shards]
+    acc = cnt.clamp(max=bucket)
+    j = torch.arange(bucket, dtype=i32, device=dev)[None, :]
+    fill = j < acc[:, None]                          # [shards, bucket]
+    src = (seg_start[:, None] + j).clamp(max=e - 1).reshape(sb).long()
+    fill_f = fill.reshape(sb)
+    bt = torch.where(fill_f, ts[src], -1)
+    bs = torch.where(fill_f, ss[src], -1)
+    bw = torch.where(fill_f[None, :], ws.index_select(1, src), 0)
+
+    blob_out = None
+    if blob is not None:
+        # --- migration, source side: per blob-argument word position, a
+        # (length, payload...) block of rows on every bucketed entry
+        # bound off-shard (length -1: no payload), and the slot freed.
+        bdata, bused, blen, bgen = (blob["data"], blob["used"],
+                                    blob["len"], blob["gen"])
+        bbase, bsl = blob["bbase"], blob["bsl"]
+        mask_np = blob["mask"]
+        mask = torch.as_tensor(mask_np, device=dev)
+        mask_iso = torch.as_tensor(blob["mask_iso"], device=dev)
+        n_gids = mask.shape[0]
+        gid = bw[0]
+        g = gid.clamp(0, n_gids - 1).long()
+        gid_ok = fill_f & (gid >= 0) & (gid < n_gids)
+        off_shard = (torch.arange(shards, device=dev)[:, None]
+                     != blob["shard"]).expand(shards, bucket).reshape(sb)
+        extra_rows = []
+        freed = torch.zeros((bsl + 1,), dtype=torch.bool, device=dev)
+        positions = [w for w in range(mask_np.shape[1])
+                     if bool(mask_np[:, w].any())]
+        for wpos in positions:
+            h = bw[1 + wpos]
+            hl = pack.blob_slot(h) - bbase
+            hs = torch.where((hl >= 0) & (hl < bsl), hl, bsl)
+            okh = (gid_ok & off_shard & mask[g, wpos] & (h >= 0)
+                   & (hs < bsl)
+                   & (_take(bgen, hs, -1) == pack.blob_gen_of(h))
+                   & _take(bused, hs, False))
+            hx = torch.where(okh, hl, bsl)
+            extra_rows.append(torch.where(okh, _take(blen, hx, 0),
+                                          -1)[None, :])
+            extra_rows.append(torch.where(okh[None, :], _take(bdata, hx, 0),
+                                          0))
+            # Iso handles move (the source slot is freed); val handles
+            # copy (the other readers keep the original).
+            freed[torch.where(okh & mask_iso[g, wpos], hl, bsl).long()] = \
+                True
+        freed = freed[:bsl]
+        bused = bused & ~freed
+        blen = torch.where(freed, 0, blen)
+        n_shipped = _isum(freed)
+        bw = torch.cat([bw] + extra_rows, 0)
+
+    rt_ = yield comm.all_to_all(bt, 0)
+    rs = yield comm.all_to_all(bs, 0)
+    rw = yield comm.all_to_all(bw, 1)
+
+    if blob is not None:
+        # --- migration, receive side: a local slot for each arrived
+        # payload (disjoint ranks over the compacted free list), its
+        # length and words written, its generation bumped, the handle
+        # word rewritten.
+        w1b = words.shape[0]
+        wb = bdata.shape[0]
+        n_pos = len(positions)
+        permf, vfree, _ = compact_mask(~bused, bsl)
+        free_slots = torch.where(vfree, permf.to(i32), -1)
+        has_all = torch.stack([(rw[w1b + k * (1 + wb)] >= 0).to(i32)
+                               for k in range(n_pos)])
+        rank = (torch.cumsum(has_all.reshape(-1), 0, dtype=i32)
+                - 1).reshape(n_pos, sb)
+        n_dropped = torch.zeros((), dtype=i32, device=dev)
+        new_words = [rw[i] for i in range(w1b)]
+        for k, wpos in enumerate(positions):
+            base_row = w1b + k * (1 + wb)
+            lenr = rw[base_row]
+            has = lenr >= 0
+            slot_l = _take(free_slots,
+                           torch.where(has & (rank[k] < bsl), rank[k], bsl),
+                           -1)
+            ok = has & (slot_l >= 0)
+            n_dropped = n_dropped + _isum(has & ~ok)
+            sx = torch.where(ok, slot_l, bsl)
+            newgen = (_take(bgen, sx, 0) + 1) & pack.BLOB_GEN_MASK
+            bgen = _put(bgen, sx, newgen)
+            bused = _put(bused, sx, torch.ones_like(ok))
+            blen = _put(blen, sx, torch.where(ok, lenr, 0))
+            bdata = _put(bdata, sx, torch.where(
+                ok[None, :], rw[base_row + 1:base_row + 1 + wb],
+                _take(bdata, sx, 0)))
+            newh = pack.blob_handle(bbase + slot_l, newgen)
+            # has & ok: the fresh local handle; has & ~ok: dropped (null);
+            # ~has: the word as it came (not a blob of this behaviour, or
+            # a same-shard handle that did not migrate).
+            new_words[1 + wpos] = torch.where(
+                ok, newh, torch.where(has, -1, new_words[1 + wpos]))
+        rw = torch.stack(new_words)
+        n_received = _isum(has_all) - n_dropped
+        blob_out = ((bdata, bused, blen, bgen), n_shipped, n_received,
+                    n_dropped)
+
+    nrej = _isum(cnt - acc)
+    pr_t = (ts >= 0) & pressured_global[
+        ts.clamp(0, pressured_global.shape[0] - 1).long()]
+    rank = (torch.arange(e, dtype=i32, device=dev)
+            - seg_start[dt.clamp(max=shards - 1).long()])
+    rej = (dt < shards) & (rank >= bucket)
+    perm2, vsp, _ = compact_mask(rej, rspill_cap)
+    new_rspill = Entries(
+        tgt=torch.where(vsp, ts[perm2], -1),
+        sender=torch.where(vsp, ss[perm2], -1),
+        words=torch.where(vsp[None, :], ws.index_select(1, perm2), 0))
+    lsnd = ss - shard_base
+    s_ok = (rej | pr_t) & (lsnd >= 0) & (lsnd < n_local)
+    sc = lsnd.clamp(0, n_local - 1).long()
+    s_hot = (tail[sc] - head[sc]) > overload_occ
+    trig = s_ok & ~s_hot & ~pressured_local[sc]
+    mute_row = torch.where(trig, sc, n_local)
+    newly = torch.zeros((n_local + DUMP_SLOTS,), dtype=i32, device=dev)
+    newly.scatter_reduce_(0, dump_index(trig, sc, n_local), trig.to(i32),
+                          reduce="amax")
+    refs, ovf = mute_ref_slots(trig, mute_row, ts, n=n_local, k=mute_slots)
+    received = Entries(tgt=rt_, sender=rs, words=rw)
+    return (received, new_rspill, nrej.clamp(max=rspill_cap),
+            nrej > rspill_cap, newly[:n_local] > 0, refs, ovf, blob_out)
+
+
+def build_step(program: Program, opts: RuntimeOptions, mesh=None):
     """Build one whole-world scheduler tick: returns
-    step(state, inject_tgt, inject_words) → (state, StepAux)."""
+    step(state, inject_tgt, inject_words) → (state, StepAux).
+
+    The tick is written once, in per-shard coordinates, as the generator
+    `step.tick(st, inject_tgt, inject_words, shard)` (the JAX package's
+    local_step): on a mesh (program.shards > 1) it yields its collectives
+    to the collective layer (parallel/comm.py) — the all_gathers of the
+    pressured and muter bits, the psum of the route-spill targets, the
+    route's three all_to_alls and the packed psum and pmax of the vote —
+    and `step` runs it on every shard of `mesh` (parallel/mesh.py; all
+    shards on the state's device by default). On a mesh `step` takes a
+    global state or a world resident on its shards, and returns the
+    latter (`Sharded`). On one shard the tick yields nothing and `step`
+    takes and returns the state itself."""
     if not program.frozen:
         raise RuntimeError("finalize() the Program first")
-    check_supported(opts)
     if auto_fields(opts):
         raise ValueError(f"build_step: {auto_fields(opts)} still 'auto'; "
                          "Runtime.start() resolves them (tuning.resolve)")
-    if program.shards > 1:
-        raise unported("mesh")
+    p = program.shards
     nl = program.n_local
     c = opts.mailbox_cap
     fh = program.first_host_row
@@ -1083,28 +1299,64 @@ def build_step(program: Program, opts: RuntimeOptions):
     blob_users = any(ch.uses_blobs for ch in dev_cohorts)
     blob_allocs = any(ch.blob_sites for ch in dev_cohorts)
     tracing = opts.tracing
+    _e_out, bucket, _n_entries = layout_sizes(program, opts)
+    # Blob migration over the mesh: where some behaviour routes a Blob
+    # argument and the pool is on (see _route). Iso positions move (the
+    # source slot is freed), val positions copy.
+    route_blobs = None
+    if bsl > 0 and p > 1:
+        from .gc import build_blob_arg_mask
+        rmask = build_blob_arg_mask(program, opts.msg_words)
+        if rmask.any():
+            route_blobs = (rmask, build_blob_arg_mask(
+                program, opts.msg_words, mode="iso"))
 
-    def step(st: RtState, inject_tgt, inject_words
-             ) -> Tuple[RtState, StepAux]:
+    def tick(st: RtState, inject_tgt, inject_words, shard: int = 0):
         dev = st.head.device
         i32, b = torch.int32, torch.bool
         prio_row = consts.get(dev)
         if prio_row is None:
             prio_row = consts[dev] = torch.tensor(prio_rows, dtype=i32,
                                                   device=dev)
-        base = 0
+        base = shard * nl
         occ0 = st.tail - st.head
-
-        # --- 1. unmute pass (≙ ponyint_sched_unmute_senders,
-        # scheduler.c:1552-1635): a sender releases only when EVERY
-        # tracked muting receiver has recovered. Runs every tick; with
-        # nobody muted it releases nothing.
         dspill_pending = counts_by_key(
             st.dspill_tgt.clamp(0, nl - 1),
             (st.dspill_tgt >= 0).to(i32), nl)
         can_recover = st.alive & ~st.muted
         live_cong = (((occ0 > opts.unmute_occ) | (dspill_pending > 0))
                      & can_recover)
+
+        # World bits (the previous tick's mesh-wide vote, the same on
+        # every shard): bit0 any actor pressured, bit1 any muted, bit2
+        # any route-spill entry. The JAX package skips a gather whose bit
+        # is clear; here every shard runs it every tick and keeps its
+        # result where the bit is set, the zeros the skip gives
+        # elsewhere: the same values, and no shard can skip alone.
+        if p > 1:
+            wb0 = st.world_bits[0]
+            # Mesh-wide pressured bits (≙ pony_apply_backpressure seen by
+            # every scheduler): the routing mute and the remote unmute
+            # guard see off-shard pressure.
+            got = yield comm.all_gather(st.pressured)
+            pressured_global = got & ((wb0 & 1) > 0)
+            # The muters' status for the aging veto: bit0 live-congested,
+            # bit1 can recover (alive, unmuted).
+            muter_bits = (live_cong.to(i32)
+                          | (can_recover.to(i32) << 1))
+            got = yield comm.all_gather(muter_bits)
+            muter_bits_global = torch.where((wb0 & 2) > 0, got, 0)
+            live_cong_global = (muter_bits_global & 1) > 0
+            can_recover_global = (muter_bits_global & 2) > 0
+        else:
+            pressured_global = st.pressured
+            live_cong_global = live_cong
+        n_all = pressured_global.shape[0]
+
+        # --- 1. unmute pass (≙ ponyint_sched_unmute_senders,
+        # scheduler.c:1552-1635): a sender releases only when EVERY
+        # tracked muting receiver has recovered. Runs every tick; with
+        # nobody muted it releases nothing.
         refs = st.mute_refs                               # [K, nl]
         has = refs >= 0
         lref = refs - base
@@ -1112,26 +1364,37 @@ def build_step(program: Program, opts: RuntimeOptions):
         mr = lref.clamp(0, nl - 1).long()
         local_ok = (has & ref_local & (occ0[mr] <= opts.unmute_occ)
                     & (dspill_pending[mr] == 0) & ~st.pressured[mr])
-        ref_c = refs.clamp(0, nl - 1).long()
-        remote_pr = st.pressured[ref_c] & has & ~ref_local
+        ref_c = refs.clamp(0, n_all - 1).long()
+        # A remote muting ref releases once this shard's route spill
+        # drained, unless its receiver still declares pressure.
+        remote_pr = pressured_global[ref_c] & has & ~ref_local
         remote_ok = (has & ~ref_local & (st.rspill_count[0] == 0)
                      & ~remote_pr)
         slot_ok = ~has | local_ok | remote_ok
         all_ok = torch.all(slot_ok, dim=0)
+        any_pressure = pressured_global.any()
         shard_quiet = ((occ0.max() <= opts.unmute_occ)
                        & (st.dspill_count[0] == 0)
                        & (st.rspill_count[0] == 0)
-                       & ~st.pressured.any())
+                       & ~any_pressure)
         if opts.mute_age_limit > 0:
             # Aging deadlock-breaker, staggered by row (see the JAX
             # package's engine for the full argument).
             lim = opts.mute_age_limit
             threshold = lim + torch.arange(nl, dtype=i32, device=dev) % lim
             aged = st.mute_age >= threshold
-            held_by_pressure = torch.any(has & st.pressured[ref_c], dim=0)
-            held_by_live = torch.any(has & live_cong[ref_c], dim=0)
+            held_by_pressure = torch.any(has & pressured_global[ref_c],
+                                         dim=0)
+            held_by_live = torch.any(has & live_cong_global[ref_c], dim=0)
+            if p > 1:
+                # A non-empty route spill holds a sender whose remote
+                # muter can still recover: its backlog is in flight.
+                remote_recover = torch.any(
+                    has & ~ref_local & can_recover_global[ref_c], dim=0)
+                held_by_live = held_by_live | (
+                    remote_recover & (st.rspill_count[0] > 0))
             aged_ok = (aged & ~held_by_pressure & ~held_by_live
-                       & (~st.mute_ovf | ~st.pressured.any()))
+                       & (~st.mute_ovf | ~any_pressure))
         else:
             aged_ok = torch.zeros((nl,), dtype=b, device=dev)
         release = st.muted & ((all_ok & (~st.mute_ovf | shard_quiet))
@@ -1146,9 +1409,23 @@ def build_step(program: Program, opts: RuntimeOptions):
         # addressed to them) compacted in row order; each runnable
         # spawner gets its disjoint window of them (`spawn_reservations`).
         runnable = st.alive & ~muted
+        rspill_hit = None
+        if program.spawn_target_names and p > 1:
+            # A message parked in another shard's route spill may still be
+            # addressed to a dead row here; reclaiming the row would hand
+            # the message to a newborn. Every shard's route-spill targets,
+            # made visible by one psum (kept where world bit2 is set).
+            t = st.rspill_tgt
+            rhit = torch.zeros((p * nl + DUMP_SLOTS,), dtype=i32, device=dev)
+            rhit.scatter_reduce_(
+                0, dump_index(t >= 0, t.clamp(min=0).long(), p * nl),
+                (t >= 0).to(i32), reduce="amax")
+            got = yield comm.psum(rhit[:p * nl].contiguous())
+            rspill_hit = ((got[base:base + nl] > 0)
+                          & ((st.world_bits[0] & 4) > 0))
         free_rows = {
             t: free_row_list(program.by_type_name(t), st.alive, occ0,
-                             dspill_pending)
+                             dspill_pending, rspill_hit)
             for t in program.spawn_target_names}
 
         # --- 1c. the device blob pool (≙ the actor heap): working copies
@@ -1159,15 +1436,16 @@ def build_step(program: Program, opts: RuntimeOptions):
         # (`blob_reservations`). The JAX package skips the compaction when
         # no allocating cohort has queued work; its windows are then never
         # read, so computing it always gives the same result.
+        bbase = shard * bsl
         pool = free_blob = None
         if blob_users:
             def wcopy(x):
                 return torch.cat([x, x.new_zeros(x.shape[:-1] + (1,))], -1)
             pool = {"data": wcopy(st.blob_data), "used": wcopy(st.blob_used),
                     "len": wcopy(st.blob_len), "gen": wcopy(st.blob_gen),
-                    "base": base}
+                    "base": bbase}
             if blob_allocs:
-                free_blob = free_blob_list(st.blob_used, base)
+                free_blob = free_blob_list(st.blob_used, bbase)
         blob_fail = st.blob_fail[0]
         blob_budget = st.blob_budget_fail[0]
         nb_alloc = nb_free = nb_remote = torch.zeros((), dtype=i32,
@@ -1248,28 +1526,70 @@ def build_step(program: Program, opts: RuntimeOptions):
         # --- 2c. causal tracing (tracing on only): the spans of the
         # traced messages drained this tick, and two more word rows on
         # every outbox entry, (trace id, span id) of the dispatch that
-        # emitted it; spill and delivery carry them with the payload.
+        # emitted it; spill, routing and delivery carry them with the
+        # payload.
         if tracing:
             (span_data2, span_count2, span_dropped2, span_next2,
              tr_rows) = trace_span_lanes(program, opts, st, drain_facts,
-                                         base)
+                                         base, shard)
             out_entries = [o._replace(words=torch.cat([o.words, t]))
                            for o, t in zip(out_entries, tr_rows)]
 
-        # --- 3. single device: produced messages pass straight through
-        # (after the always-empty route spill, as in the reference's
-        # entry order).
+        # --- 3. route (mesh) or pass through (one shard), the route
+        # spill first as in the reference's entry order.
         out_cat = Entries(
             tgt=torch.cat([st.rspill_tgt] + [o.tgt for o in out_entries]),
             sender=torch.cat([st.rspill_sender]
                              + [o.sender for o in out_entries]),
             words=torch.cat([st.rspill_words]
                             + [o.words for o in out_entries], dim=1))
-        incoming = out_cat._replace(
-            tgt=torch.where(out_cat.tgt >= 0, out_cat.tgt - base, -1))
+        route_muted = None
+        route_refs, route_ovf = empty_mute_slots(nl, opts.mute_slots, dev)
+        rsp_over = torch.zeros((), dtype=b, device=dev)
+        nb_moved = torch.zeros((), dtype=i32, device=dev)
+        if p > 1:
+            rblob = None
+            if route_blobs is not None:
+                rblob = {"data": st.blob_data, "used": st.blob_used,
+                         "len": st.blob_len, "gen": st.blob_gen,
+                         "bbase": bbase, "bsl": bsl, "shard": shard,
+                         "mask": route_blobs[0], "mask_iso": route_blobs[1]}
+                if pool is not None:
+                    rblob.update(data=pool["data"][:, :bsl],
+                                 used=pool["used"][:bsl],
+                                 len=pool["len"][:bsl],
+                                 gen=pool["gen"][:bsl])
+            (incoming, new_rspill, rsp_count, rsp_over, route_muted,
+             route_refs, route_ovf, route_blob_out) = yield from _route(
+                out_cat, shards=p, n_local=nl, bucket=bucket,
+                rspill_cap=s_cap, overload_occ=opts.overload_occ,
+                head=new_head, tail=tail0, shard_base=base,
+                mute_slots=opts.mute_slots,
+                pressured_global=pressured_global,
+                pressured_local=st.pressured, blob=rblob)
+            if route_blob_out is not None:
+                (bd2, bu2, bl2, bg2), n_ship, n_recv, n_drop = \
+                    route_blob_out
+                if pool is None:
+                    pool = {"data": bd2, "used": bu2, "len": bl2,
+                            "gen": bg2}
+                else:
+                    pool = dict(pool, data=bd2, used=bu2, len=bl2, gen=bg2)
+                nb_free = nb_free + n_ship
+                nb_alloc = nb_alloc + n_recv
+                nb_moved = n_recv
+                nb_remote = nb_remote + n_drop
+        else:
+            incoming = out_cat
+            new_rspill = Entries(st.rspill_tgt, st.rspill_sender,
+                                 st.rspill_words)   # stays empty
+            rsp_count = st.rspill_count[0]
+        incoming = incoming._replace(
+            tgt=torch.where(incoming.tgt >= 0, incoming.tgt - base, -1))
 
         # --- 4. delivery list: receiver spill first (oldest), then host
-        # injections, then produced messages.
+        # injections (the same on every shard; each keeps its own rows),
+        # then produced messages.
         inj_l = inject_tgt - base
         inj_local = torch.where((inj_l >= 0) & (inj_l < nl), inj_l, -1)
         all_e = Entries(
@@ -1328,21 +1648,23 @@ def build_step(program: Program, opts: RuntimeOptions):
             pressured = pressured & ~dmask
 
         # --- 5. mute bookkeeping (≙ ponyint_mute_actor + mutemap insert,
-        # actor.c:1171-1207): this tick's muting refs merge into each
-        # newly muted sender's slot table.
+        # actor.c:1171-1207): this tick's muting refs from delivery and
+        # routing merge into each newly muted sender's slot table.
         def _merge_slots(a, b_):
             both = (a >= 0) & (b_ >= 0)
             m = torch.where(a < 0, b_, torch.where(b_ < 0, a,
                                                    torch.maximum(a, b_)))
             return m, torch.any(both & (a != b_), dim=0)
 
-        newly = res.newly_muted & alive
+        newly = res.newly_muted
+        if route_muted is not None:
+            newly = newly | route_muted
+        newly = newly & alive
         became_muted = newly & ~muted
         muted2 = muted | newly
         mute_age2 = torch.where(
             muted2, torch.where(became_muted, 0, st.mute_age + 1),
             0).to(i32)
-        route_refs, route_ovf = empty_mute_slots(nl, opts.mute_slots, dev)
         inc_refs, c1 = _merge_slots(res.new_mute_refs, route_refs)
         merged_refs, c2 = _merge_slots(mute_refs, inc_refs)
         mute_refs2 = torch.where(newly[None, :], merged_refs, mute_refs)
@@ -1394,18 +1716,15 @@ def build_step(program: Program, opts: RuntimeOptions):
                              span_dropped=vec(span_dropped2),
                              span_next=vec(span_next2))
         device_pending = ((occ_after[:fh] > 0).any()
-                          | (res.spill_count > 0)
-                          | (st.rspill_count[0] > 0))
+                          | (res.spill_count > 0) | (rsp_count > 0))
         false = torch.zeros((), dtype=b, device=dev)
         # Host-cohort mailboxes occupied: the window ends for the host's
         # drain (aux_go).
         host_pending = (occ_after[fh:] > 0).any() if fh < nl else false
         any_muted = muted2.any()
-        overflow = st.spill_overflow[0] | res.spill_overflow
+        overflow = st.spill_overflow[0] | res.spill_overflow | rsp_over
         any_pressured = pressured.any()
-        any_rspill = st.rspill_count[0] > 0
-        wb_new = (any_pressured.to(i32) | (any_muted.to(i32) << 1)
-                  | (any_rspill.to(i32) << 2))
+        any_rspill = rsp_count > 0
         nproc_cum = st.n_processed[0] + nproc_total
         ndel_cum = st.n_delivered[0] + res.n_delivered
         zero = torch.zeros((), dtype=i32, device=dev)
@@ -1425,6 +1744,46 @@ def build_step(program: Program, opts: RuntimeOptions):
                         n_overloaded_now=zero, n_rejected=zero,
                         n_badmsg=zero, n_deadletter=zero, n_mutes=zero,
                         qw_p99=zero)
+        vote = dict(device_pending=device_pending,
+                    host_pending=host_pending, exit_flag=exit_f,
+                    exit_code=exit_c, spill_overflow=overflow,
+                    spawn_fail=spawn_fail, blob_fail=blob_fail,
+                    blob_budget_fail=blob_budget, any_muted=any_muted,
+                    n_processed=nproc_cum, n_delivered=ndel_cum)
+        if p > 1:
+            # One packed psum and one packed pmax (≙ the CNF/ACK token
+            # being one token, scheduler.c:303-480): booleans ride as 0/1
+            # counts, cumulative counters wrap mod 2^32 as the per-shard
+            # ones do.
+            keys = ("spawn_fail", "device_pending", "any_muted",
+                    "host_pending", "exit_flag", "spill_overflow")
+            summed = yield comm.psum(torch.stack(
+                [vote[k].to(i32) for k in keys]
+                + [any_pressured.to(i32), any_rspill.to(i32),
+                   nproc_cum, ndel_cum]
+                + [aggs[k].to(i32) for k in (
+                    "occ_sum", "n_muted_now", "n_overloaded_now",
+                    "n_rejected", "n_badmsg", "n_deadletter", "n_mutes")]
+                + [blob_fail.to(i32), blob_budget.to(i32)]))
+            for i, k in enumerate(keys):
+                vote[k] = summed[i] > 0
+            any_pressured, any_rspill = summed[6] > 0, summed[7] > 0
+            vote.update(n_processed=summed[8], n_delivered=summed[9],
+                        blob_fail=summed[17] > 0,
+                        blob_budget_fail=summed[18] > 0)
+            maxed = yield comm.pmax(torch.stack([
+                torch.where(exit_f, exit_c, -2 ** 31).to(i32),
+                aggs["occ_max"].to(i32), aggs["qw_p99"].to(i32)]))
+            vote["exit_code"] = torch.where(vote["exit_flag"], maxed[0],
+                                            exit_c)
+            if opts.analysis >= 1:
+                aggs.update(zip(("occ_sum", "n_muted_now",
+                                 "n_overloaded_now", "n_rejected",
+                                 "n_badmsg", "n_deadletter", "n_mutes"),
+                                summed[10:17]))
+                aggs.update(occ_max=maxed[1], qw_p99=maxed[2])
+        wb_new = (any_pressured.to(i32) | (vote["any_muted"].to(i32) << 1)
+                  | (any_rspill.to(i32) << 2))
 
         blob_leaves = {}
         if pool is not None:
@@ -1437,7 +1796,8 @@ def build_step(program: Program, opts: RuntimeOptions):
                 blob_budget_fail=vec(blob_budget, b),
                 n_blob_alloc=vec(st.n_blob_alloc[0] + nb_alloc),
                 n_blob_free=vec(st.n_blob_free[0] + nb_free),
-                n_blob_remote=vec(st.n_blob_remote[0] + nb_remote))
+                n_blob_remote=vec(st.n_blob_remote[0] + nb_remote),
+                n_blob_moved=vec(st.n_blob_moved[0] + nb_moved))
 
         st2 = dataclasses.replace(
             st,
@@ -1448,6 +1808,8 @@ def build_step(program: Program, opts: RuntimeOptions):
             dspill_tgt=res.spill.tgt, dspill_sender=res.spill.sender,
             dspill_words=res.spill.words,
             dspill_count=vec(res.spill_count),
+            rspill_tgt=new_rspill.tgt, rspill_sender=new_rspill.sender,
+            rspill_words=new_rspill.words, rspill_count=vec(rsp_count),
             spill_overflow=vec(overflow, b),
             exit_flag=vec(exit_f, b), exit_code=vec(exit_c),
             step_no=vec(st.step_no[0] + 1),
@@ -1465,16 +1827,22 @@ def build_step(program: Program, opts: RuntimeOptions):
             type_state=new_type_state,
             **blob_leaves, **telemetry,
         )
-        aux = StepAux(
-            device_pending=device_pending, host_pending=host_pending,
-            exit_flag=exit_f, exit_code=exit_c,
-            spill_overflow=overflow, spawn_fail=spawn_fail,
-            blob_fail=blob_fail, blob_budget_fail=blob_budget,
-            any_muted=any_muted,
-            n_processed=nproc_cum, n_delivered=ndel_cum, **aggs)
+        aux = StepAux(**vote, **aggs)
         return st2, aux
 
+    def step(st: RtState, inject_tgt, inject_words
+             ) -> Tuple[RtState, StepAux]:
+        m = mesh_for(st, p, mesh)
+        home = home_of(st)
+        shards = split(st, m)
+        outs = drive_shards(m, [
+            tick(s, *(x.to(s.head.device)
+                      for x in (inject_tgt, inject_words)), r)
+            for s, r in zip(shards, ranks_of(m))])
+        return (join([o[0] for o in outs], m, home),
+                _aux_to(outs[0][1], home))
     step.fused = fused      # the cohorts' fused kernels, built at start()
+    step.tick = tick        # the per-shard tick generator (the window's)
     return step
 
 
@@ -1542,7 +1910,8 @@ class StopProbe:
         return self.stop
 
 
-def build_multi_step_gated(program: Program, opts: RuntimeOptions):
+def build_multi_step_gated(program: Program, opts: RuntimeOptions,
+                           mesh=None):
     """Up to `limit` scheduler ticks as one window, tick 0 gated ON
     DEVICE by the previous window's aux (≙ the reference's
     build_multi_step_gated, where a `lax.while_loop` runs
@@ -1566,33 +1935,55 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
     runs this loop, its plain version. There `enqueued` adds, for every
     launched window, the ticks it may run, and `windows` counts the
     launches. An ineligible program runs this loop, as the JAX package's
-    does."""
-    step = build_step(program, opts)
+    does.
+
+    On a mesh (program.shards > 1) each tick runs `step.tick` on every
+    shard this process drives, their collectives served together
+    (parallel/comm.py), each shard keeping its tick where the replicated
+    go predicate holds; the window takes and returns the world resident
+    on its shards (parallel/mesh.py's `Sharded`, split from a global
+    state when the host wrote one). The aux and ticks_run are
+    replicated (the vote's psum and pmax): shard 0's are returned. The
+    window kernel does not take a mesh (megakernel.eligible). Under
+    DistComm with CUDA tensors the StopProbe is not read: its reading
+    depends on timing, and a rank that stopped enqueuing ticks before
+    another would leave a collective unmatched."""
+    step = build_step(program, opts, mesh)
+    tick = step.tick
+    p = program.shards
 
     def multi(st: RtState, inject_tgt, inject_words, limit: int, force,
               prev_aux: StepAux, probe: StopProbe = None):
-        dev = st.head.device
-        force = torch.full((), bool(force), dtype=torch.bool, device=dev)
+        m = mesh_for(st, p, mesh)
+        home = home_of(st)
+        shards = split(st, m)
+        devs = [s.head.device for s in shards]
+        inj = [(inject_tgt.to(d), inject_words.to(d)) for d in devs]
+        none = [(torch.full_like(t, -1), torch.zeros_like(w))
+                for t, w in inj]
+        auxs = [_aux_to(prev_aux, d) for d in devs]
+        force_t = [torch.full((), bool(force), dtype=torch.bool, device=d)
+                   for d in devs]
+        ticks = torch.zeros((), dtype=torch.int32, device=devs[0])
+        if m is not None and m.distributed and probe is not None \
+                and probe.cuda:
+            probe = None
         if probe is not None:
             probe.reset()
-        aux = prev_aux
-        ticks = torch.zeros((), dtype=torch.int32, device=dev)
-        no_tgt = torch.full_like(inject_tgt, -1)
-        no_words = torch.zeros_like(inject_words)
         for i in range(max(1, int(limit))):
-            go = aux_go(aux)
-            if i == 0:
-                go = go | force
-            if probe is not None and probe.submit(go):
+            gos = [aux_go(a) | f if i == 0 else aux_go(a)
+                   for a, f in zip(auxs, force_t)]
+            if probe is not None and probe.submit(gos[0]):
                 break
-            it, iw = (inject_tgt, inject_words) if i == 0 else \
-                (no_tgt, no_words)
-            s2, a2 = step(st, it, iw)
+            outs = drive_shards(m, [
+                tick(s, *(inj[j] if i == 0 else none[j]), r)
+                for j, (s, r) in enumerate(zip(shards, ranks_of(m)))])
             multi.enqueued += 1
-            st = _select(go, s2, st)
-            aux = _select(go, a2, aux)
-            ticks = ticks + go.to(torch.int32)
-        return st, aux, ticks
+            shards = [_select(g, o[0], s)
+                      for g, o, s in zip(gos, outs, shards)]
+            auxs = [_select(g, o[1], a) for g, o, a in zip(gos, outs, auxs)]
+            ticks = ticks + gos[0].to(torch.int32)
+        return join(shards, m, home), _aux_to(auxs[0], home), ticks.to(home)
 
     multi.enqueued = 0
     multi.fused = step.fused
@@ -1605,11 +1996,12 @@ def build_multi_step_gated(program: Program, opts: RuntimeOptions):
 
 def _plain_forced(step):
     def forced(st: RtState, inject_tgt, inject_words, limit: int):
-        aux = zero_aux(st.head.device)
+        home = home_of(st)
+        aux = zero_aux(home)
         for _ in range(int(limit)):
             st, aux = step(st, inject_tgt, inject_words)
         return st, aux, torch.full((), int(limit), dtype=torch.int32,
-                                   device=st.head.device)
+                                   device=home)
     forced.fused = step.fused     # the cohorts' fused kernels, to build
     return forced
 
@@ -1634,4 +2026,5 @@ def build_forced_window(program: Program, opts: RuntimeOptions,
                              "takes the Runtime's window kernel "
                              "(window=rt._multi_g)")
         return window.forced
-    return _plain_forced(build_step(program, opts))
+    return _plain_forced(getattr(window, "step", None)
+                         or build_step(program, opts))

@@ -38,6 +38,9 @@ import torch
 
 from ..config import RuntimeOptions
 from ..ops import pack
+from ..parallel import comm
+from ..parallel.mesh import (drive_shards, home_of, join, mesh_for,
+                             ranks_of, shard_block, split)
 from ..program import Program
 from .state import RtState
 
@@ -93,13 +96,26 @@ def _mark(marks, idx, ok):
     marks[torch.where(ok, idx, n).long()] = True
 
 
-def build_gc(program: Program, opts: RuntimeOptions):
-    """The collection pass: local_gc(state, extra_roots [N] bool,
-    blob_roots [blob_slots] bool) → (state, (actors collected (an int32
-    tensor), converged, iters, blob slots swept (an int32 tensor)))."""
+def build_gc(program: Program, opts: RuntimeOptions, mesh=None):
+    """The collection pass: gc(state, extra_roots [N] bool, blob_roots
+    [shards * blob_slots] bool) → (state, (actors collected (an int32
+    tensor), converged, iters, blob slots swept (an int32 tensor))).
+
+    Written per shard, as the JAX package's local_gc: on a mesh each
+    shard marks the global ids its live rows refer to, one psum a hop
+    makes the marks mesh-wide (parallel/comm.py), and the pass runs on
+    the shards of `mesh` this process drives (parallel/mesh.py; all on
+    the state's device by default), taking a global state or a world
+    resident on its shards and returning the latter, as the window
+    does; the roots are global and each shard takes its block. The blob
+    sweep stays shard-local: routing
+    migrates a blob with its message, so a reachable handle rests on
+    its pool's shard, and an off-shard one is unreadable anyway."""
     if not program.frozen:
         raise RuntimeError("finalize() the Program first")
+    p = program.shards
     nl = program.n_local
+    ntot = p * nl
     fh = program.first_host_row
     cap = opts.mailbox_cap
     ref_mask_np = build_ref_arg_mask(program, opts.msg_words)
@@ -126,18 +142,29 @@ def build_gc(program: Program, opts: RuntimeOptions):
         for w in range(min(words.shape[0] - 1, opts.msg_words)):
             yield w, mask[g, w] & inr
 
-    def local_gc(st: RtState, extra_roots, blob_roots):
+    def shard_gc(st: RtState, extra_roots, blob_roots, shard: int = 0):
         dev = st.head.device
+        base = shard * nl
         occ = st.tail - st.head
         rows = torch.arange(nl, dtype=torch.int32, device=dev)
         rmask = torch.as_tensor(ref_mask_np, device=dev)
         bmask = torch.as_tensor(blob_mask_np, device=dev)
 
-        # --- roots, and the targets of in-flight (spilled) messages ---
-        marks0 = torch.zeros((nl + 1,), dtype=torch.bool, device=dev)
-        marks0[:nl] = (st.pinned | extra_roots | (occ > 0) | st.muted
-                       | (rows >= fh))
-        for tgt, words in ((st.dspill_tgt, st.dspill_words),
+        def glob(marks):
+            """This shard's rows of the mesh-wide marks."""
+            if p > 1:
+                marks = (yield comm.psum(marks[:ntot].to(torch.int32))) > 0
+            return marks[base:base + nl]
+
+        # --- roots, and the targets of in-flight (spilled) messages
+        # (receiver-spill targets are rows here, route-spill targets
+        # global ids) ---
+        marks0 = torch.zeros((ntot + 1,), dtype=torch.bool, device=dev)
+        marks0[base:base + nl] = (st.pinned | extra_roots | (occ > 0)
+                                  | st.muted | (rows >= fh))
+        for tgt, words in ((torch.where(st.dspill_tgt >= 0,
+                                        st.dspill_tgt + base, -1),
+                            st.dspill_words),
                            (st.rspill_tgt, st.rspill_words)):
             _mark(marks0, tgt, tgt >= 0)
             if any_ref_args:
@@ -172,24 +199,27 @@ def build_gc(program: Program, opts: RuntimeOptions):
         def propagate(live):
             """One hop: live rows, and every target a live source refers
             to."""
-            marks = torch.zeros((nl + 1,), dtype=torch.bool, device=dev)
-            marks[:nl] = live
+            marks = torch.zeros((ntot + 1,), dtype=torch.bool, device=dev)
+            marks[base:base + nl] = live
             for s0, s1, tgt in field_edges:
                 _mark(marks, tgt, live[s0:s1] & st.alive[s0:s1])
             for s0, s1, tgt in mb_edges:
                 _mark(marks, tgt, live[s0:s1])
-            return marks[:nl]
+            return marks
 
         # The trace to its fixpoint (or the hop cap), its flags read a
-        # batch of hops at a time.
-        live = marks0[:nl]
+        # batch of hops at a time (mesh-wide: every shard reads the same).
+        live = yield from glob(marks0)
         iters, changed, batch = 0, True, 4
         while changed and (not max_iters or iters < max_iters):
             n = batch if not max_iters else min(batch, max_iters - iters)
             flags = []
             for _ in range(n):
-                new_live = live | propagate(live)
-                flags.append((new_live != live).any())
+                new_live = live | (yield from glob(propagate(live)))
+                ch = (new_live != live).any()
+                if p > 1:
+                    ch = (yield comm.psum(ch.to(torch.int32))) > 0
+                flags.append(ch)
                 live = new_live
             fl = torch.stack(flags).cpu().numpy()
             if not fl.all():
@@ -215,10 +245,11 @@ def build_gc(program: Program, opts: RuntimeOptions):
             alive2 = st.alive & ~dead
             bm = torch.zeros((bsl + 1,), dtype=torch.bool, device=dev)
             bm[:bsl] = blob_roots
+            bbase = shard * bsl
 
             def bmark(handles, ok):
-                hl = pack.blob_slot(handles)
-                good = ok & (handles >= 0) & (hl < bsl)
+                hl = pack.blob_slot(handles) - bbase
+                good = ok & (handles >= 0) & (hl >= 0) & (hl < bsl)
                 hc = torch.where(good, hl, 0).long()
                 good = good & (st.blob_gen[hc] == pack.blob_gen_of(handles))
                 _mark(bm, hl, good)
@@ -256,6 +287,19 @@ def build_gc(program: Program, opts: RuntimeOptions):
             last_error=torch.where(dead, 0, st.last_error),
             last_error_loc=torch.where(dead, 0, st.last_error_loc),
             **blob)
+        if p > 1:
+            n_dead = yield comm.psum(n_dead)
+            n_swept = yield comm.psum(n_swept)
         return st2, (n_dead, converged, iters, n_swept)
 
-    return local_gc
+    def gc(st: RtState, extra_roots, blob_roots):
+        m = mesh_for(st, p, mesh)
+        home = home_of(st)
+        shards = split(st, m)
+        outs = drive_shards(m, [
+            shard_gc(s, shard_block(extra_roots, r, p).to(s.head.device),
+                     shard_block(blob_roots, r, p).to(s.head.device), r)
+            for s, r in zip(shards, ranks_of(m))])
+        return join([o[0] for o in outs], m, home), outs[0][1]
+
+    return gc

@@ -57,12 +57,13 @@ import numpy as np
 import torch
 
 from ..api import ActorTypeMeta, BehaviourDef
-from ..config import RuntimeOptions, auto_fields, check_supported
+from ..config import RuntimeOptions, auto_fields
 from ..errors import ERROR_CODES, PonyError, PonyStallError, error_code
 from ..ops import fused_dispatch, megakernel, pack
 from ..program import Program
 from . import engine
 from .controller import WindowController
+from ..parallel.mesh import Sharded, world_of
 from .state import RtState, init_state
 
 
@@ -259,10 +260,12 @@ class Runtime:
     def __init__(self, opts: Optional[RuntimeOptions] = None, device=None):
         self._opts_defaulted = opts is None
         self.opts = opts or RuntimeOptions()
-        check_supported(self.opts)
         self.device = resolve_device(device)
         self.program = Program(self.opts)
         self.state: Optional[RtState] = None
+        self.mesh = None              # parallel.mesh.Mesh of a sharded
+        #   world (start())
+        self._host_rows_cache = None  # _host_rows, after start()
         self._inject_q: collections.deque = collections.deque()
         # Host fast lane (opts.host_fastpath): host-sender → host-target
         # messages, dispatched at host boundaries without touching the
@@ -352,7 +355,11 @@ class Runtime:
 
     @property
     def state(self) -> Optional[RtState]:
-        return self._state
+        """The world in its global layout. On a mesh a window leaves it
+        resident on its shards (parallel/mesh.py's `Sharded`), and the
+        first read after the window joins it (under DistComm a
+        collective, made by every rank at the same program point)."""
+        return world_of(self._state)
 
     @state.setter
     def state(self, v) -> None:
@@ -484,7 +491,6 @@ class Runtime:
                 overrides.update(getattr(atype, "RUNTIME_DEFAULTS", {}))
             if overrides:
                 self.opts = dataclasses.replace(self.opts, **overrides)
-                check_supported(self.opts)
                 self.program.opts = self.opts
         if self.opts.pin >= 0:   # ≙ --ponypin (start.c:75-94): pin the
             # host thread that runs this runtime (its "scheduler")
@@ -496,9 +502,33 @@ class Runtime:
                     f"cannot pin host thread to core {self.opts.pin}: "
                     f"{e}") from None
 
+    def _make_mesh(self):
+        """The mesh of a sharded world (None on one shard): one shard a
+        process over torch.distributed when this process is in a job of
+        `mesh_shards` ranks (parallel/distributed.py), else every shard
+        here, on the CPU, or shard s on CUDA device s mod the device
+        count (all four on a one-card machine)."""
+        p = self.program.shards
+        if p <= 1:
+            return None
+        from ..parallel import distributed as _dist
+        from ..parallel.comm import DistComm
+        from ..parallel.mesh import make_mesh
+        if _dist.is_initialized() and _dist.device_count() > 1:
+            if _dist.device_count() != p:
+                raise ValueError(
+                    f"mesh_shards={p} in a job of {_dist.device_count()} "
+                    "processes: one shard a process")
+            return make_mesh(p, [self.device], comm=DistComm())
+        if self.device.type == "cuda" and self.device.index is None:
+            return make_mesh(p, [f"cuda:{i}" for i in
+                                 range(torch.cuda.device_count())])
+        return make_mesh(p, [self.device])
+
     def _start_world(self) -> None:
         self.program.finalize()
         self.state = init_state(self.program, self.opts, self.device)
+        self.mesh = self._make_mesh()
         from .. import tuning
         if auto_fields(self.opts):
             # Resolve "auto" formulation choices to measured winners
@@ -514,7 +544,7 @@ class Runtime:
         # and one the kernel cannot run raises here). A kernel that
         # calibration built is loaded from ops/_build.py's cache.
         self._multi_g = engine.build_multi_step_gated(self.program,
-                                                      self.opts)
+                                                      self.opts, self.mesh)
         if self.device.type == "cuda" and self._multi_g.fused:
             fused_dispatch.compile_all(self._multi_g.fused)
         if self.device.type == "cuda" and isinstance(
@@ -588,7 +618,7 @@ class Runtime:
         actor ids. Once the device may have claimed or freed slots
         (device spawns, destroys), the freelists are first rebuilt from
         the device state, at most once per state write."""
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call start() before spawn()")
         cohort = self.program.by_type[atype]
         unknown = set(fields) - set(atype.field_specs)
@@ -657,7 +687,12 @@ class Runtime:
         dsp = st.dspill_tgt.cpu().numpy()
         rsp = st.rspill_tgt.cpu().numpy()
         n = self.program.total
+        nl = self.program.n_local
         spill_hit = np.zeros((n,), bool)
+        # Receiver-spill targets are rows of their shard; route-spill
+        # targets are global ids.
+        dsp = np.where(dsp >= 0, dsp + np.arange(dsp.shape[0])
+                       // self.opts.spill_cap * nl, -1)
         spill_hit[dsp[(dsp >= 0) & (dsp < n)]] = True
         spill_hit[rsp[(rsp >= 0) & (rsp < n)]] = True
         free_ok = ~alive & (occ == 0) & ~spill_hit
@@ -948,17 +983,33 @@ class Runtime:
         self._inject_q.extendleft(reversed(held))
         return self._upload(tgt), self._upload(words), consumed
 
-    # ---- host-cohort dispatch (≙ the main-thread scheduler's path) ----
+    # ---- host-cohort dispatch (≙ the main-thread scheduler's path; on
+    # a mesh every shard's host rows, at the tail of its row range) ----
+    @property
+    def _host_rows(self) -> np.ndarray:
+        """Global ids of every host-cohort mailbox row, shard by shard
+        (host rows are each shard's rows from first_host_row on, not a
+        suffix of the global columns)."""
+        rows = self._host_rows_cache
+        if rows is None:
+            fh, nl = self.program.first_host_row, self.program.n_local
+            rows = np.concatenate(
+                [s * nl + np.arange(fh, nl)
+                 for s in range(self.program.shards)]).astype(np.int64)
+            self._host_rows_cache = rows
+        return rows
+
     def _drain_host(self) -> bool:
         """Run the host behaviours of every message waiting in a host
         cohort's mailbox rows, each actor's in FIFO order up to a yield,
         and write the rows' heads back. Returns whether any ran."""
-        fh, nl = self.program.first_host_row, self.program.n_local
-        if fh >= nl:
+        rows = self._host_rows
+        if rows.size == 0:
             return False
         self._await_device()
         st = self.state
-        ht = torch.stack([st.head[fh:nl], st.tail[fh:nl]]).cpu().numpy()
+        idx = self._tensor(rows, torch.int64)
+        ht = torch.stack([st.head[idx], st.tail[idx]]).cpu().numpy()
         head, pending = ht[0], ht[1] - ht[0]
         if not pending.any():
             return False
@@ -967,7 +1018,7 @@ class Runtime:
         tbufs: Dict[str, np.ndarray] = {}     # the trace rows (tracing)
         new_head = head.astype(np.int64)
         for i in np.nonzero(pending)[0]:
-            aid = fh + int(i)
+            aid = int(rows[i])
             cohort = self.program.cohort_of(aid)
             cname = cohort.atype.__name__
             cbuf = bufs.get(cname)
@@ -992,7 +1043,7 @@ class Runtime:
                     break
             new_head[i] = head[i] + consumed
         head_all = st.head.clone()
-        head_all[fh:nl] = self._upload(         # heads wrap as int32
+        head_all[idx] = self._upload(           # heads wrap as int32
             (new_head & 0xffffffff).astype(np.uint32).view(np.int32))
         self.state = self._replace(head=head_all)
         return True
@@ -1184,7 +1235,7 @@ class Runtime:
         mask = self._defer_signals()
         try:
             st2, aux, kdev = self._multi_g(
-                self.state, inj_t, inj_w, max(1, budget), force, prev_aux,
+                self._state, inj_t, inj_w, max(1, budget), force, prev_aux,
                 self._probe)
             self.state = st2
             epoch = self._state_epoch
@@ -1289,7 +1340,7 @@ class Runtime:
     def run(self, max_steps: Optional[int] = None) -> int:
         """Run windows until quiescence, exit, or `max_steps` ticks
         (≙ pony_start). Returns the exit code."""
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call start() first")
         if self.opts.analysis >= 1 and self._analysis is None:
             from .. import analysis as _analysis_mod
@@ -1618,7 +1669,7 @@ class Runtime:
             rss_bytes = resource.getrusage(
                 resource.RUSAGE_SELF).ru_maxrss * 1024
         dev = 0
-        if self.state is not None:
+        if self._state is not None:
             dev = sum(t.nbytes for t in _state_tensors(self.state))
         return {"host_rss_bytes": int(rss_bytes),
                 "device_state_bytes": int(dev),
@@ -1647,7 +1698,7 @@ class Runtime:
         it. Writes a Chrome trace (chrome://tracing, Perfetto) to
         `path`, by default ``<analysis_path>.trace.json``, and returns
         the path."""
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call start() first")
         from torch.profiler import ProfilerActivity, profile as tprof
         if path is None:
@@ -1661,7 +1712,7 @@ class Runtime:
             acts.append(ProfilerActivity.CUDA)
 
         def window():
-            st, _aux, k = self._multi_g(self.state, inj_t, inj_w, n, True,
+            st, _aux, k = self._multi_g(self._state, inj_t, inj_w, n, True,
                                         self._zero_aux, self._probe)
             self.state = st
             self._await_device()
@@ -1687,15 +1738,18 @@ class Runtime:
             raise RuntimeError(
                 "Runtime.profile() needs RuntimeOptions.analysis >= 1 "
                 "(the telemetry lanes do not exist at level 0)")
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call start() first")
         self._await_device()
         from ..analysis import hist_percentile
         from .state import PHASE_NAMES, QW_BUCKETS
         nd = len(self.program.device_cohorts)
         st = self.state
+        p = self.program.shards
+        # The profiler lanes are per shard: the mesh-wide sums.
         runs, deliv, rej, mt, hist, ph = (
-            getattr(st, f).cpu().numpy().astype(np.int64) for f in (
+            getattr(st, f).cpu().numpy().astype(np.int64).reshape(
+                p, -1).sum(0) for f in (
                 "beh_runs", "beh_delivered", "beh_rejected",
                 "coh_mute_ticks", "qwait_hist", "phase_cost"))
         hist = hist.reshape(nd, QW_BUCKETS)
@@ -1821,12 +1875,13 @@ class Runtime:
         every actor not reached and sweep the blobs nothing holds (≙ ORCA
         and the cycle detector in one pass; runtime/gc.py). Returns the
         number of actors collected."""
-        if self.state is None:
+        if self._state is None:
             raise RuntimeError("call start() first")
         self._await_device()
         from . import gc as gc_mod
         if self._gc_fn is None:
-            self._gc_fn = gc_mod.build_gc(self.program, self.opts)
+            self._gc_fn = gc_mod.build_gc(self.program, self.opts,
+                                          self.mesh)
             self._ref_mask = gc_mod.build_ref_arg_mask(
                 self.program, self.opts.msg_words)
             self._blob_mask = gc_mod.build_blob_arg_mask(
@@ -1866,7 +1921,7 @@ class Runtime:
         before = self.counter("n_collected")
         fkey = self._freelist_key
         self.state, (_n, converged, iters, n_swept) = self._gc_fn(
-            self.state, self._tensor(extra, torch.bool),
+            self._state, self._tensor(extra, torch.bool),
             self._tensor(blob_roots, torch.bool))
         collected = self.counter("n_collected") - before
         if self._flight is not None:
@@ -1928,8 +1983,8 @@ class Runtime:
         st = self.state
         for f, v in cols.items():
             t = getattr(st, f)
-            if f.startswith("n_"):
-                t[0] += v
+            if f.startswith("n_"):                  # the slot's shard
+                t[slot // self.opts.blob_slots] += v
             elif t.dim() == 2:
                 t[:, slot] = self._tensor(v, t.dtype)
             else:
@@ -1966,8 +2021,10 @@ class Runtime:
         building a message payload, pony_alloc_msg): claims the lowest
         free pool slot, writes `words` (int32, at most blob_words),
         returns the handle, which the host owns until a send moves it.
-        `near` names an actor whose shard should own the slot (one shard
-        here: every slot is near)."""
+        `near` names an actor whose shard should own the slot: a host
+        injection does not migrate blobs as routing does, so a payload
+        for that actor must live on its shard (elsewhere it arrives
+        null and counts in n_blob_remote)."""
         if self.opts.blob_slots <= 0:
             raise RuntimeError("blob pool disabled: set "
                                "RuntimeOptions.blob_slots/blob_words")
@@ -1982,17 +2039,28 @@ class Runtime:
                 f"{self.opts.blob_words}]")
         cache = self._pool_host()
         used, gen = cache[0], cache[1]
-        slot = cache[2]
-        while slot < used.shape[0] and used[slot]:
+        bsl = self.opts.blob_slots
+        if near is None:
+            slot, stop = cache[2], used.shape[0]
+        else:
+            shard = int(near) // self.program.n_local
+            stop = (shard + 1) * bsl
+            slot = max(shard * bsl, min(cache[2], stop))
+        while slot < stop and used[slot]:
             slot += 1
-        if slot >= used.shape[0]:
-            raise BlobCapacityError("host blob_store: pool exhausted")
+        if slot >= stop:
+            raise BlobCapacityError(
+                "host blob_store: pool exhausted"
+                + ("" if near is None else
+                   f" on shard {int(near) // self.program.n_local}"))
         full = np.zeros((self.opts.blob_words,), np.int32)
         full[:w.shape[0]] = w
         g = (int(gen[slot]) + 1) & pack.BLOB_GEN_MASK
         self._pool_write(slot, blob_data=full, blob_used=True,
                          blob_len=ln, blob_gen=g, n_blob_alloc=1)
-        used[slot], gen[slot], cache[2] = True, g, slot + 1
+        used[slot], gen[slot] = True, g
+        if near is None or slot == cache[2]:
+            cache[2] = slot + 1
         handle = pack.blob_handle(slot, g)
         self._host_blobs.add(handle)    # a GC root until sent or freed
         return handle
@@ -2066,6 +2134,8 @@ class Runtime:
     def counter(self, name: str) -> int:
         """A per-shard runtime counter (n_processed, n_delivered,
         n_rejected, n_badmsg, n_deadletter, n_mutes, ...) summed."""
+        if isinstance(self._state, Sharded):
+            return self._state.total(name)
         return int(getattr(self.state, name).sum())
 
     def state_of(self, actor_id: int) -> Dict[str, Any]:

@@ -57,11 +57,20 @@ def layout_sizes(program: Program, opts: RuntimeOptions):
     e_out = sum(ch.local_capacity * ch.batch * ch.max_sends
                 for ch in program.device_cohorts)
     s = opts.spill_cap
-    if program.shards > 1:
-        from ..config import unported
-        raise unported("mesh")
-    incoming = s + e_out          # route-spill passthrough + outbox
-    return e_out, 0, s + opts.inject_slots + incoming
+    p = program.shards
+    if p > 1:
+        if opts.route_bucket > 0:
+            bucket = opts.route_bucket
+        else:
+            # Worst case one shard receives everything; buckets of
+            # outbox-size / shards x 4 (an overflow parks in the route
+            # spill; opts.route_bucket overrides), as in the JAX package.
+            bucket = max(16, min(e_out + s, 4 * (e_out + s) // p))
+        incoming = p * bucket
+    else:
+        bucket = 0
+        incoming = s + e_out          # route-spill passthrough + outbox
+    return e_out, bucket, s + opts.inject_slots + incoming
 
 
 # Word tables: mailbox rings, spill words (and trace lanes, with tracing):
@@ -73,7 +82,8 @@ PACKED_WORD_FIELDS = ("buf", "dspill_words", "rspill_words", "trace_buf")
 @dataclasses.dataclass
 class RtState:
     """The complete device state of the actor world. Per-shard "scalars"
-    are [P]-shaped (P = 1 here) so the layout matches the JAX package."""
+    are [P]-shaped so the layout matches the JAX package; a window runs
+    on P per-shard states of this layout at P = 1 (parallel/mesh.py)."""
 
     buf: Dict[str, torch.Tensor]   # {type: [cap, 1+W_c, capacity]} int32
     head: torch.Tensor        # [N] int32, monotonic pop count
@@ -89,7 +99,7 @@ class RtState:
     dspill_sender: torch.Tensor   # [P*S] int32 sender global id
     dspill_words: torch.Tensor    # [1+W, P*S] int32
     dspill_count: torch.Tensor    # [P] int32
-    rspill_tgt: torch.Tensor      # [P*S] (mesh only; stays empty)
+    rspill_tgt: torch.Tensor      # [P*S] route spill (mesh only)
     rspill_sender: torch.Tensor
     rspill_words: torch.Tensor
     rspill_count: torch.Tensor
@@ -147,7 +157,7 @@ class RtState:
     n_blob_free: torch.Tensor   # [P] int32 — lifetime frees (GC sweeps too)
     n_blob_remote: torch.Tensor  # [P] int32 — Blob args that arrived
     #                              undereferenceable (off this pool)
-    n_blob_moved: torch.Tensor  # [P] int32 — migrations (mesh only; 0)
+    n_blob_moved: torch.Tensor  # [P] int32 — migrations (mesh only)
     world_bits: torch.Tensor    # [P] int32 — bit0 pressured, bit1 muted,
     #                              bit2 route spill (previous tick's vote)
     type_state: Dict[str, Dict[str, torch.Tensor]]  # {type: {field: [cap]}}

@@ -565,9 +565,8 @@ class Server:
         if rt.state is not None and now - self._spill_t >= 0.25:
             self._spill_t = now
             try:
-                st = rt.state
-                parked = int((st.dspill_count.sum()
-                              + st.rspill_count.sum()).item())
+                parked = (rt.counter("dspill_count")
+                          + rt.counter("rspill_count"))
                 cap = max(1, 2 * rt.opts.spill_cap * rt.program.shards)
                 self._spill_frac = parked / cap
             except Exception:        # noqa: BLE001 — mid-teardown

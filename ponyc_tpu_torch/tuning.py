@@ -318,6 +318,7 @@ def make_workload(program, opts: RuntimeOptions, state):
         mask[ch.local_start:ch.local_stop] = True
         if victim is None and ch.behaviours:
             victim = ch
+    mask = mask.repeat(program.shards)      # every shard's rows alike
     buf = dict(state.buf)
     for ch in program.device_cohorts:
         gid0 = ch.behaviours[0].global_id if ch.behaviours else -7

@@ -9,8 +9,7 @@ Where a case runs a world it runs on the port's three paths on the CPU
 `pallas_fused=True`, and `delivery="pallas_mega"` with every window also
 run as the host C++ build of csrc/mega_window.cu); the supervisor's and
 the chaos harness's cases are host-side and run on the plain path. The
-reference's mesh crossing becomes a check that `mesh_shards=2` still
-raises `unported("mesh")`. The timed acceptance cases keep their
+mesh crossing restores onto two shards in one process. The timed acceptance cases keep their
 assertions; their watchdog deadline is 2 s, not the reference's 0.6 s,
 so that a loaded test machine's slow window is not taken for the wedge. Subprocess children import ponyc_tpu_torch and run
 with device="cpu". The worlds are integer, so comparisons are exact.
@@ -618,14 +617,24 @@ def test_differential_corpus_crosses_grown_restore(tmp_path, path):
     assert not np.asarray(rt2.state.muted).any()
 
 
-def test_differential_corpus_crosses_mesh_restore():
-    """The reference restores the mid-pressure world onto a 2-shard mesh;
-    the port does not serve the mesh yet (port slice 10), so asking for
-    one still raises by name instead of running somewhere else."""
-    with pytest.raises(NotImplementedError, match="mesh.*slice 10"):
-        Runtime(_opts(mailbox_cap=4, max_sends=2, spill_cap=1024,
-                      inject_slots=32, mesh_shards=2,
-                      quiesce_interval=2), device="cpu")
+def test_differential_corpus_crosses_mesh_restore(tmp_path):
+    """The same mid-pressure world restored onto a 2-shard mesh (its
+    spills re-laid out shard by shard, the routing and the collectives
+    under it) and finished: the fields equal the sequential oracle."""
+    p, want, n_w, n_s = _mid_pressure_snapshot(tmp_path)
+    rt2 = Runtime(_opts(msg_words=1, mailbox_cap=4, batch=1, max_sends=2,
+                        spill_cap=1024, inject_slots=32, mesh_shards=2,
+                        quiesce_interval=2), device="cpu")
+    rt2.declare(TT.Walker, n_w).declare(TT.Splitter, n_s).start()
+    serialise.restore(rt2, p)
+    assert rt2.program.shards == 2
+    assert rt2.run(max_steps=50_000) == 0
+    wst = rt2.cohort_state(TT.Walker)
+    sst = rt2.cohort_state(TT.Splitter)
+    assert (wst["acc"][:n_w].astype(np.int64) == want[0]).all()
+    assert (wst["hits"][:n_w].astype(np.int64) == want[1]).all()
+    assert (sst["acc"][:n_s].astype(np.int64) == want[2]).all()
+    assert not np.asarray(rt2.state.muted).any()
 
 
 def test_per_edge_fifo_crosses_restore_boundary(tmp_path, path):

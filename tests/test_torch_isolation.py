@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -267,6 +268,39 @@ def test_port_imports_no_jax_and_no_reference():
                    "visits": [256, 256]}
 
 
+_MESH_CHILD = """
+import json, sys
+import ponyc_tpu_torch.parallel
+from ponyc_tpu_torch.parallel import comm, distributed, mesh
+from ponyc_tpu_torch import RuntimeOptions
+from ponyc_tpu_torch.models import ring
+rt = ring.run(8, 24, opts=RuntimeOptions(
+    mailbox_cap=4, batch=1, max_sends=1, msg_words=1, spill_cap=32,
+    inject_slots=4, tuning_cache="off", mesh_shards=4), device="cpu")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "ponyc_tpu" or m.startswith("ponyc_tpu."))
+print(json.dumps({"bad": bad, "shards": rt.mesh.n_shards,
+                  "dist": distributed.device_count(),
+                  "passes": int(rt.cohort_state(ring.RingNode)
+                                ["passes"].sum())}))
+"""
+
+
+def test_mesh_modules_import_no_jax_and_no_reference():
+    """parallel/ (the collective layer, the mesh, torch.distributed's
+    setup), driven through a ring over four shards, pulls in no JAX and
+    nothing of the JAX package."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _MESH_CHILD], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "shards": 4, "dist": 1, "passes": 24}
+
+
 def test_default_device_is_cuda_and_never_silently_cpu():
     opts = RuntimeOptions(tuning_cache="off")
     if torch.cuda.is_available():
@@ -283,8 +317,9 @@ def test_default_device_is_cuda_and_never_silently_cpu():
     (dict(cost_capture=True, watchdog_s=1.0), 11),
 ])
 def test_unported_options_raise(kw, slice_no):
-    """An option of a slice still in PORT_SLICES raises naming it; slice
-    11's cost capture is served since slice 13, so its options start."""
+    """An option of a slice still in PORT_SLICES raises naming it; the
+    mesh (slice 10) and slice 11's cost capture (served since slice 13)
+    start: a sharded ring runs, and cost capture records its census."""
     from ponyc_tpu_torch.config import PORT_SLICES
     from ponyc_tpu_torch.models import ring
     if slice_no in {n for _, n in PORT_SLICES.values()}:
@@ -294,20 +329,25 @@ def test_unported_options_raise(kw, slice_no):
     rt = Runtime(RuntimeOptions(tuning_cache="off", **kw), device="cpu")
     rt.declare(ring.RingNode, 4).start()
     try:
+        if kw.get("mesh_shards"):
+            ids = rt.spawn_many(ring.RingNode, 4)
+            rt.set_fields(ring.RingNode, ids, next_ref=np.roll(ids, -1))
+            rt.send(int(ids[0]), ring.RingNode.token, 12)
+            assert rt.run() == 0 and rt.counter("n_processed") == 12
+            assert rt.mesh.n_shards == kw["mesh_shards"]
+            return
         assert set(rt._costs["executables"]) == {"step", "window"}
     finally:
         rt.stop()
 
 
 def test_cost_capture_raises_by_name():
-    """Only the mesh is left in PORT_SLICES, and its error names it;
-    cost capture starts and measured_costs() returns its record."""
+    """Nothing is left in PORT_SLICES: the mesh starts (slice 10), cost
+    capture starts and measured_costs() returns its record."""
     from ponyc_tpu_torch.config import PORT_SLICES
-    assert list(PORT_SLICES) == ["mesh"]
-    with pytest.raises(NotImplementedError,
-                       match=r"mesh sharding \(mesh_shards > 1\).*"
-                             r"slice 10"):
-        Runtime(RuntimeOptions(mesh_shards=2), device="cpu")
+    assert PORT_SLICES == {}
+    Runtime(RuntimeOptions(mesh_shards=2, tuning_cache="off"),
+            device="cpu")
     from ponyc_tpu_torch.models import ring
     rt, _ = ring.build(4, RuntimeOptions(tuning_cache="off",
                                          cost_capture=True), device="cpu")

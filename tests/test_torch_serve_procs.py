@@ -133,7 +133,14 @@ sys.exit(serve.main(sys.argv[1:]))
 def test_supervisor_restart_reaccepts_connections(tmp_path):
     """A wedged world trips the watchdog (code 7), the supervisor
     restarts the service from the checkpoint ring, the fixed port is
-    re-bound and a reconnecting client is served by the second life."""
+    re-bound and a reconnecting client is served by the second life.
+
+    The supervisor's output is read while the test runs: a round counts
+    as the second life's only once the supervisor has said it is
+    restarting. Under load the first life may answer part of a round
+    and then hang in the next (its 5th egress dispatch wedges whatever
+    round it falls in), so "the service failed" is any round short of
+    full after the service had answered."""
     with socket.socket() as s:             # reserve a fixed free port
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -149,38 +156,60 @@ def test_supervisor_restart_reaccepts_connections(tmp_path):
          f"--ponycheckpoint_path={prefix}"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=_env(), cwd=str(tmp_path), start_new_session=True)
+    lines = {"out": [], "err": []}
+
+    def pump(name, stream):
+        for ln in stream:
+            lines[name].append(ln)
+
+    readers = [threading.Thread(target=pump, args=(k, f), daemon=True)
+               for k, f in (("out", proc.stdout), ("err", proc.stderr))]
+    for t in readers:
+        t.start()
+
+    def restarted():
+        return any("restarting" in ln for ln in list(lines["err"]))
+
     try:
-        # Wait for life 1 to serve (up), drive it into the wedge
-        # (replies stop mid-probe), then reconnect until life 2 serves
-        # a full round again.
+        # Wait for the service to answer, drive it into the wedge (a
+        # round falls short), then reconnect until the second life
+        # serves a full round.
         deadline = time.monotonic() + 120.0
-        phase = "wait_up"
+        phase, answered, rounds = "wait_up", 0, []
         while time.monotonic() < deadline and phase != "recovered":
             if proc.poll() is not None:
                 break
+            second_life = restarted()
             r = loadgen.run_load("127.0.0.1", port, conns=1, depth=1,
                                  requests=3, timeout_s=3.0)
             full = r["ok"] == 3 and r["bad_value"] == 0
-            if phase == "wait_up" and full:
+            rounds.append((phase, r["ok"], r["sent"], second_life))
+            if phase == "wait_up" and (full or r["ok"]):
                 phase = "up"
-            elif phase == "up" and not full:
+            if phase == "up" and not full and (answered or r["ok"]):
                 phase = "wedged"           # the 5th egress dispatch hung
-            elif phase == "wedged" and full:
+            elif phase == "wedged" and full and second_life:
                 phase = "recovered"        # life 2 answered end to end
                 break
+            answered += r["ok"]
             time.sleep(0.2)
         assert marker.exists(), "the wedge never armed"
         assert phase == "recovered", \
-            f"no round-trip after the wedged life (stuck at {phase})"
-        os.killpg(os.getpgid(proc.pid), signal.SIGTERM)
-        try:
-            _out, err = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
-            _out, err = proc.communicate(timeout=30)
-        assert "restarting" in err or "recovered after" in err, err
+            (f"no round-trip after the wedged life (stuck at {phase}; "
+             f"rounds {rounds[-12:]})", "".join(lines["err"])[-4000:])
     finally:
-        try:
-            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
-        except (ProcessLookupError, OSError):
-            pass
+        # The supervisor leads its own session: its group holds it and
+        # every life it started.
+        for sig, wait_s in ((signal.SIGTERM, 60), (signal.SIGKILL, 30)):
+            try:
+                os.killpg(proc.pid, sig)
+            except (ProcessLookupError, OSError):
+                pass
+            try:
+                proc.wait(timeout=wait_s)
+            except subprocess.TimeoutExpired:
+                pass
+        for t in readers:
+            t.join(timeout=30)
+    err = "".join(lines["err"])
+    assert "restarting" in err or "recovered after" in err, err
